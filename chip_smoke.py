@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on one CUDA card and hold its kernel to
-the plain version.
+"""Drive the port's main path on one CUDA card and hold every kernel to
+its plain version.
 
     python3 chip_smoke.py [--seed 7] [--txs 10240]
 
@@ -15,16 +15,28 @@ Phases, one JSON line each; any failure exits non-zero:
                    keys, 256-byte messages, ~1% bad lanes of five kinds
                    (message flipped after signing, high-S, mangled DER,
                    checked against the wrong org's key, r >= n)
-  main_path        the block through CUDAProvider (new_bccsp) on both comb
-                   routes: G16/Q16 resident (tree kernel at M = 32), then
-                   "UseG16": false (M = 64); verify_prepared (digest lanes,
-                   the commit path) and verify_batch (message lanes,
-                   hashed on the host). Bitmaps must equal the expected
-                   one and the port's sw provider on a sample of >= 2,048
-                   lanes holding every bad lane; the tree kernel's launch
-                   count, set to 0 before each route, must rise. One
-                   steady verify_prepared runs under torch.profiler (the
-                   card's busy and idle share of the call).
+  main_path        the block through CUDAProvider (new_bccsp), route by
+                   route, each path driven with every kernel count set to
+                   0 just before it and read just after:
+                     q16  G16/Q16 resident: verify_prepared (digest lanes,
+                          the commit path; tree kernel at M = 32) and
+                          verify_batch (message lanes, the fused tier:
+                          sha_windows at 16/16 bits, gather, tree);
+                     q8   "UseG16": false: the same at M = 64 and 8/8 bits;
+                     q8_resident  the q8 provider's verify_batch with
+                          FTPU_FUSED_RESIDENT=1: the resident kernel;
+                     device_sha  "HashOnHost": false, "FusedVerify": false:
+                          verify_batch hashes on the card (the digest-only
+                          SHA-256 kernel), then the comb-digest pipeline.
+                   Bitmaps must equal the expected one and the port's sw
+                   provider on a sample of >= 2,048 lanes holding every bad
+                   lane; each path's kernels must have launched; message
+                   paths must show fused_batches >= 1 (fused routes) and
+                   host_hashed_lanes == 0. One steady verify_prepared per
+                   comb route runs under torch.profiler (the card's busy
+                   and idle share of the call); on q16, verify_batch then
+                   runs in turns on the fused tier and with hashlib
+                   (FTPU_FUSED=0).
   kernel_vs_plain  the tree kernel against its plain torch version on
                    the card at the main path's shape (the block's
                    32,768-lane bucket, M = 32 and 64, points gathered
@@ -35,9 +47,23 @@ Phases, one JSON line each; any failure exits non-zero:
                    infinity. The bitmaps must be equal, and equal to
                    Python-int sums on every edge lane, every bad lane and
                    256 others. Kernel and plain times are CUDA events
-                   around warmed-up runs; the bound is computed from the
-                   shapes (tree_bound).
-
+                   around warmed-up runs; each bound is computed from the
+                   shapes and this run's data (tree_bound, sha_bound,
+                   resident_bound).
+  sha_vs_plain     the stage-A kernel (csrc/sha_windows.cu) against its
+                   plain torch version at the main path's shape (32,768
+                   lanes, NB = 8 blocks for 256-byte messages) at 8/8 and
+                   16/16 bits, and the digest-only entry against its plain
+                   version: first lanes rewritten into edge cases (message
+                   lengths 0, 1, 55, 56, 63, 64, 119, 120, 503; digest lanes
+                   with digest 0 and all-ones; w = 1, w = n - 1, r = 1),
+                   garbage in every block past a lane's count. Windows and
+                   words equal on every lane, words equal hashlib, edge
+                   windows equal Python ints.
+  resident_vs_plain  the resident kernel (csrc/fused_resident.cu) against
+                   its plain version and the tiered kernels on the q8 route
+                   (3 keys, K = 4) over the same lanes plus the block's bad
+                   lanes; beyond the edge lanes, the expected bitmap.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -78,6 +104,23 @@ DESIGN_CADD_IMAD = 17 * DESIGN_MULMOD_IMAD + 23 * (2 * L - 1)
 INT32_IMAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
+# stage A: the least 32-bit operations of one SHA-256 compression (48
+# schedule words of 2 sigmas of 2 funnel shifts + 1 shift + 1 LOP3, and
+# the 4-term sum in 2 IADD3; 64 rounds of 2 Sigmas of 3 funnel shifts + 1
+# LOP3, ch and maj one LOP3 each, T1's 5 terms in 2 IADD3, e = d + T1 and
+# a = T1 + S0 + maj one IADD3 each; 8 final adds), and of one 256-bit
+# product mod n (8 x 8 partial products of 32-bit limbs, a low and a high
+# IMAD each, and a Montgomery reduction of the same size: n is not a
+# Solinas prime). The same 64-per-clock int32 rate covers shifts, logic,
+# 3-input adds and multiply-adds on sm_90 (CUDA C Programming Guide,
+# arithmetic instruction throughput).
+SHA_BLOCK_OPS = 48 * 10 + 64 * 14 + 8
+MODN_MUL_OPS = 2 * 2 * 8 * 8
+
+# the provider's launch-count stats, one per kernel
+TREE, SHA = "tree_kernel_launches", "sha_windows_launches"
+DIGEST, RESIDENT = "sha256_launches", "resident_launches"
+
 BAD_KINDS = ("flipped", "high_s", "bad_der", "wrong_key", "r_ge_n")
 
 
@@ -110,6 +153,33 @@ def tree_bound(B: int, M: int) -> tuple[float, str, float]:
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             design_ops / INT32_IMAD_PER_S * 1e3)
+
+
+def sha_bound(live_blocks: int, B: int, nwin: int, nbytes_in: int,
+              digest_only: bool = False) -> tuple[float, str]:
+    """Least time for stage A on these inputs (ms): SHA-256's operations
+    over this run's live blocks plus the two mod-n products per lane, or
+    the bytes it must move (the live blocks and per-lane inputs read
+    once, windows and words written once), whichever is larger."""
+    ops = live_blocks * SHA_BLOCK_OPS + (0 if digest_only
+                                         else B * 2 * MODN_MUL_OPS)
+    nbytes = nbytes_in + B * (8 * 8 + (0 if digest_only else 4 * nwin))
+    t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def resident_bound(live_blocks: int, B: int, live: int,
+                   nbytes_in: int) -> tuple[float, str]:
+    """Least time for the resident kernel (ms): stage A's operations plus
+    the tree's at M = 64 over the lanes it verifies, against the bytes
+    of its inputs plus the 64 gathered points of each verified lane."""
+    ops = (live_blocks * SHA_BLOCK_OPS + live * 2 * MODN_MUL_OPS
+           + live * (63 * CADD_IMAD + CHECK_IMAD))
+    nbytes = nbytes_in + live * 64 * 3 * L * 4 + B
+    t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 # -- pool workers (spawned processes: module-level, torch-free) --
@@ -241,57 +311,115 @@ def profile_call(fn) -> dict:
             "top_ms": {k[:70]: v for k, v in top}}
 
 
-def run_route(name, cfg, blk, sw_bits, sample, card):
-    from fabric_tpu_torch.bccsp import factory
-    from fabric_tpu_torch.ops import ptree
+def counted(prov, label, need, fn):
+    """Run one path with every kernel count set to 0 just before it and
+    read just after; fail if a kernel of the path never launched or the
+    provider's own counts disagree. Returns (result, counts by provider
+    stat name, stat deltas, seconds)."""
+    from fabric_tpu_torch.bccsp.cuda import LAUNCH_COUNTERS
 
-    prov = factory.new_bccsp(cfg)
-    pr = blk["prepared"]
-    ptree.launches = 0
+    before = dict(prov.stats)
+    for mod, attr in LAUNCH_COUNTERS.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    first = prov.verify_prepared(**pr)
-    first_s = time.perf_counter() - t0
-    steady = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        got_prep = prov.verify_prepared(**pr)
-        steady.append(time.perf_counter() - t0)
-    profiled = profile_call(lambda: prov.verify_prepared(**pr))
-    t0 = time.perf_counter()
-    got_batch = prov.verify_batch(blk["items"])
-    batch_s = time.perf_counter() - t0
-    launches = ptree.launches
+    out = fn()
+    secs = time.perf_counter() - t0
+    got = {k: getattr(mod, attr) for k, (mod, attr) in LAUNCH_COUNTERS.items()}
+    delta = {k: v - before[k] for k, v in prov.stats.items()
+             if isinstance(v, int)}
+    for k in need:
+        check(got[k] > 0, f"{label}: {k} stayed 0")
+    for k in got:
+        check(delta[k] == got[k], f"{label}: the provider counts {delta[k]} "
+              f"{k}, the wrappers {got[k]}")
+    return out, got, delta, secs
 
+
+def check_bits(label, got, blk, sw_bits, sample):
     exp = blk["expected"]
-    for label, got in (("verify_prepared (first)", first),
-                       ("verify_prepared", got_prep),
-                       ("verify_batch", got_batch)):
-        got = np.asarray(got, dtype=bool)
-        check(got.shape == exp.shape, f"{name} {label} shape")
-        check(bool((got == exp).all()),
-              f"{name} {label} != expected at lanes "
-              f"{np.nonzero(got != exp)[0][:10].tolist()}")
-        check(bool((got[sample] == sw_bits).all()),
-              f"{name} {label} != sw on the sample")
-    check(launches > 0, f"{name}: the tree kernel was never launched")
-    check(prov.stats["tree_kernel_launches"] == launches,
-          f"{name}: provider launch count disagrees")
-    steady_s = statistics.median(steady)
-    emit({"phase": "main_path", "route": name, "ok": True, "card": card,
-          "lanes": blk["n"], "bad_lanes": int((~exp).sum()),
-          "sample_vs_sw": int(len(sample)),
-          "tree_kernel_launches": launches,
-          "table_build_s": prov.stats["table_build_s"],
-          "first_verify_prepared_s": first_s,
-          "verify_prepared_steady_s": steady_s,
-          "verify_prepared_steady_all_s": steady,
-          "sigs_per_s_commit_path": blk["n"] / steady_s,
-          "verify_batch_s": batch_s,
-          "verify_prepared_profiled": profiled,
-          "host_hashed_lanes": prov.stats["host_hashed_lanes"],
-          "q16_builds": prov.stats["q16_builds"],
-          "q8_builds": prov.stats["q8_builds"]})
-    return prov, launches
+    got = np.asarray(got, dtype=bool)
+    check(got.shape == exp.shape, f"{label} shape")
+    check(bool((got == exp).all()),
+          f"{label} != expected at lanes "
+          f"{np.nonzero(got != exp)[0][:10].tolist()}")
+    check(bool((got[sample] == sw_bits).all()), f"{label} != sw on the sample")
+
+
+def alternate_host_hash(prov, blk, sw_bits, sample) -> dict:
+    """verify_batch on the fused tier and with hashlib (FTPU_FUSED=0), in
+    turns (fused, host, host, fused) on one provider: the two ways of
+    hashing compared within one call. Seconds per call, by mode."""
+    times: dict = {"fused": [], "host_hash": []}
+    saved = os.environ.pop("FTPU_FUSED", None)
+    try:
+        for mode in ("fused", "host_hash", "host_hash", "fused"):
+            if mode == "host_hash":
+                os.environ["FTPU_FUSED"] = "0"
+            t0 = time.perf_counter()
+            got = prov.verify_batch(blk["items"])
+            times[mode].append(time.perf_counter() - t0)
+            os.environ.pop("FTPU_FUSED", None)
+            check_bits(f"verify_batch ({mode})", got, blk, sw_bits, sample)
+    finally:
+        if saved is not None:
+            os.environ["FTPU_FUSED"] = saved
+    return times
+
+
+def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
+              batch_need, fused: bool, alternate: bool = False):
+    """One route of the main path: verify_prepared (the commit path, when
+    `prepared`) and verify_batch (message lanes), each counted; with
+    `alternate`, verify_batch in turns with host hashing. Returns
+    {path: kernel counts}."""
+    rec = {"phase": "main_path", "route": name, "ok": True, "card": card,
+           "lanes": blk["n"], "bad_lanes": int((~blk["expected"]).sum()),
+           "sample_vs_sw": int(len(sample))}
+    counts = {}
+    if prepared:
+        pr = blk["prepared"]
+        first, counts["verify_prepared"], _, first_s = counted(
+            prov, f"{name} verify_prepared", (TREE,),
+            lambda: prov.verify_prepared(**pr))
+        check_bits(f"{name} verify_prepared (first)", first, blk, sw_bits,
+                   sample)
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = prov.verify_prepared(**pr)
+            steady.append(time.perf_counter() - t0)
+        check_bits(f"{name} verify_prepared", got, blk, sw_bits, sample)
+        steady_s = statistics.median(steady)
+        rec.update({
+            "verify_prepared_launches": counts["verify_prepared"],
+            "table_build_s": prov.stats["table_build_s"],
+            "first_verify_prepared_s": first_s,
+            "verify_prepared_steady_s": steady_s,
+            "verify_prepared_steady_all_s": steady,
+            "sigs_per_s_commit_path": blk["n"] / steady_s,
+            "verify_prepared_profiled": profile_call(
+                lambda: prov.verify_prepared(**pr))})
+    got, counts["verify_batch"], delta, batch_s = counted(
+        prov, f"{name} verify_batch", batch_need,
+        lambda: prov.verify_batch(blk["items"]))
+    check_bits(f"{name} verify_batch", got, blk, sw_bits, sample)
+    check(delta["host_hashed_lanes"] == 0,
+          f"{name}: {delta['host_hashed_lanes']} lanes hashed on the host")
+    check((delta["fused_batches"] >= 1) == fused,
+          f"{name}: fused_batches moved by {delta['fused_batches']}")
+    rec.update({"verify_batch_s": batch_s,
+                "verify_batch_launches": counts["verify_batch"],
+                "verify_batch_stats": {k: delta[k] for k in (
+                    "fused_batches", "fused_lanes", "comb_batches",
+                    "host_hashed_lanes", "host_hash_fallbacks")},
+                "table_build_s": prov.stats["table_build_s"],
+                "q16_builds": prov.stats["q16_builds"],
+                "q8_builds": prov.stats["q8_builds"]})
+    if alternate:
+        rec["verify_batch_alternating_s"] = alternate_host_hash(
+            prov, blk, sw_bits, sample)
+    emit(rec)
+    return counts
 
 
 # -- kernel vs plain --
@@ -449,10 +577,216 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# -- stage A and the resident kernel vs plain --
+
+EDGE_LENS = (0, 1, 55, 56, 63, 64, 119, 120, 503)
+# lanes after the message-length edges: digest 0, digest all-ones, w = 1,
+# w = n - 1, r = 1
+LANE_D0, LANE_D1, LANE_W1, LANE_WN, LANE_R1 = range(9, 14)
+N_EDGE = 14
+
+
+def stage_lanes(prov, blk):
+    """The main path's fused lanes at its shape (the provider's bucket,
+    its block count for the block's messages) with the edge lanes
+    written in, garbage in every block past a lane's count, every 16th
+    block lane a digest lane with its true digest. Tensors on the card."""
+    import torch
+
+    from fabric_tpu_torch.ops import p256, sha256
+
+    n = blk["n"]
+    N = p256.N
+    bucket = prov._bucket(n)
+    rng = np.random.default_rng(1234)
+    msgs = [it.message for it in blk["items"]] + [b""] * (bucket - n)
+    for j, ln in enumerate(EDGE_LENS):
+        msgs[j] = rng.bytes(ln)
+    nb = prov._nb_bucket(max(len(m) for m in msgs))
+    blocks, counts = sha256.pack_messages(msgs, nb)
+    past = np.arange(nb)[None, :] >= counts[:, None]
+    blocks[past] = rng.integers(0, 1 << 32, size=(int(past.sum()), 16),
+                                dtype=np.uint32)
+    has_digest = np.zeros(bucket, bool)
+    digests = np.zeros((bucket, 8), np.uint32)
+    dl = np.arange(N_EDGE + 15, n, 16)
+    has_digest[dl] = True
+    digests[dl] = np.frombuffer(b"".join(blk["digests"][i] for i in dl),
+                                ">u4").reshape(-1, 8)
+    has_digest[[LANE_D0, LANE_D1]] = True
+    digests[LANE_D1] = 0xFFFFFFFF
+    nblocks = np.where(has_digest, 0, counts).astype(np.int32)
+
+    pr = blk["prepared"]
+
+    def pad(a, shape, dtype):
+        out = np.zeros(shape, dtype)
+        out[:len(a)] = a
+        return out
+
+    r8, rpn8, w8 = (pad(pr[k], (bucket, 32), np.uint8)
+                    for k in ("r", "rpn", "w"))
+    w8[LANE_W1] = np.frombuffer((1).to_bytes(32, "big"), np.uint8)
+    w8[LANE_WN] = np.frombuffer((N - 1).to_bytes(32, "big"), np.uint8)
+    r8[LANE_R1] = np.frombuffer((1).to_bytes(32, "big"), np.uint8)
+    rpn8[LANE_R1] = np.frombuffer((1 + N).to_bytes(32, "big"), np.uint8)
+    key_map, slot = {}, np.zeros(bucket, np.int32)
+    for i, k in enumerate(pr["keys"]):
+        key_map.setdefault(k.x_bytes().tobytes() + k.y_bytes().tobytes(), i)
+    slot[:n] = pr["key_idx"]
+    key_idx, K, q_flat, g16, q16 = prov._resolve_tables(key_map, slot)
+    check(not q16 and K == 4, f"stage lanes want the q8 route, got K={K}")
+    dev = prov.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return dict(
+        msgs=msgs, counts=counts, nb=nb, has_digest_np=has_digest,
+        digests_np=digests, nblocks_np=nblocks, premask_np=pad(
+            pr["der_ok"], (bucket,), bool),
+        blocks=put(blocks.view(np.int32)), nblocks=put(nblocks),
+        counts_t=put(counts), digests=put(digests.view(np.int32)),
+        has_digest=put(has_digest), r8=put(r8), rpn8=put(rpn8), w8=put(w8),
+        key_idx=put(key_idx), premask=put(pad(pr["der_ok"], (bucket,),
+                                              bool)), q_flat=q_flat, K=K)
+
+
+def _int_windows(u: int, wbits: int) -> list[int]:
+    return [(u >> (wbits * k)) & ((1 << wbits) - 1)
+            for k in range(256 // wbits)]
+
+
+def sha_vs_plain(st, card):
+    """Stage A and the digest-only entry against their plain versions,
+    hashlib and (on the edge lanes) Python ints; times and bounds."""
+    import torch
+
+    from fabric_tpu_torch.ops import fused_verify as fv
+    from fabric_tpu_torch.ops import limb, p256, sha256
+
+    N = p256.N
+    B = st["blocks"].shape[0]
+    want = np.stack([np.frombuffer(hashlib.sha256(m).digest(), ">u4")
+                     for m in st["msgs"]]).astype(np.int64)
+    want_fused = np.where(st["has_digest_np"][:, None],
+                          st["digests_np"].astype(np.int64), want)
+    r_l, w_l = (limb.be_bytes_to_limbs(st[k]) for k in ("r8", "w8"))
+    args = (st["blocks"], st["nblocks"], st["digests"], st["has_digest"],
+            r_l, w_l)
+    live = int(st["nblocks_np"].sum())
+    nbytes_in = live * 64 + B * (4 + 32 + 1 + 2 * L * 4)
+    r_int = [limb.limbs_to_int(x) for x in r_l[:N_EDGE].cpu().numpy()]
+    w_int = [limb.limbs_to_int(x) for x in w_l[:N_EDGE].cpu().numpy()]
+    res = {}
+    for wb in (8, 16):
+        k1, k2, kw = fv.sha_windows(*args, wbits_g=wb, wbits_q=wb)
+        p1, p2, pw = fv.sha_windows_plain(*args, wb, wb)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in ((k1, p1), (k2, p2), (kw, pw)))
+        check(err == 0, f"sha_windows {wb}/{wb}: kernel != plain")
+        check(bool((kw.cpu().numpy() == want_fused).all()),
+              f"sha_windows {wb}/{wb}: words != hashlib")
+        k1h, k2h, kwh = (t.cpu().numpy() for t in (k1, k2, kw))
+        for i in range(N_EDGE):
+            e = int.from_bytes(b"".join(int(x).to_bytes(4, "big")
+                                        for x in kwh[i]), "big")
+            check(k1h[i].tolist() == _int_windows(e * w_int[i] % N, wb)
+                  and k2h[i].tolist() == _int_windows(
+                      r_int[i] * w_int[i] % N, wb),
+                  f"sha_windows {wb}/{wb}: edge lane {i} != Python ints")
+        ms = cuda_ms(lambda: fv.sha_windows(*args, wbits_g=wb, wbits_q=wb),
+                     10)
+        plain_ms = cuda_ms(lambda: fv.sha_windows_plain(*args, wb, wb), 2)
+        bound_ms, bound_by = sha_bound(live, B, 2 * 256 // wb, nbytes_in)
+        res[wb] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "sha_vs_plain", "wbits": wb, "ok": True, "card": card,
+              "lanes": B, "nb": st["nb"], "live_blocks": live,
+              "edge_lanes": N_EDGE, **res[wb]})
+
+    # the digest-only entry: every lane hashed (no digest lanes)
+    dargs = (st["blocks"], st["counts_t"])
+    kd = sha256.sha256_blocks(*dargs)
+    pd = sha256.sha256_plain(*dargs)
+    torch.cuda.synchronize()
+    err = int((kd - pd).abs().max())
+    check(err == 0, "sha256_blocks: kernel != plain")
+    check(bool((kd.cpu().numpy() == want).all()),
+          "sha256_blocks: words != hashlib")
+    live = int(st["counts"].sum())
+    bound_ms, bound_by = sha_bound(live, B, 0, live * 64 + B * 4,
+                                   digest_only=True)
+    res["digest"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: sha256.sha256_blocks(*dargs), 10),
+        plain_ms=cuda_ms(lambda: sha256.sha256_plain(*dargs), 2),
+        bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "sha_vs_plain", "entry": "sha256_blocks", "ok": True,
+          "card": card, "lanes": B, "nb": st["nb"], "live_blocks": live,
+          **res["digest"]})
+    return res
+
+
+def resident_vs_plain(st, blk, card):
+    """The resident kernel against its plain version and the tiered
+    kernels on the q8 tables; beyond the edge lanes, the expected
+    bitmap."""
+    import torch
+
+    from fabric_tpu_torch.ops import comb, limb
+    from fabric_tpu_torch.ops import fused_verify as fv
+
+    args = (st["blocks"], st["nblocks"], st["key_idx"], st["q_flat"],
+            st["r8"], st["rpn8"], st["w8"], st["premask"], st["digests"],
+            st["has_digest"])
+    g8 = comb.g_tables_on(st["q_flat"].device)
+    k = fv.fused_verify_resident(*args)
+    r_l, rpn_l, w_l = (limb.be_bytes_to_limbs(st[x])
+                       for x in ("r8", "rpn8", "w8"))
+    plain = fv.resident_plain(st["blocks"], st["nblocks"], st["key_idx"],
+                              st["q_flat"], r_l, rpn_l, w_l, st["premask"],
+                              st["digests"], st["has_digest"], g8)
+    tiered = fv.fused_verify_with_tables(*args)
+    torch.cuda.synchronize()
+    kh, ph, th = (t.cpu().numpy() for t in (k, plain, tiered))
+    err = int(np.abs(kh.astype(np.int64) - ph).max())
+    check(err == 0, f"resident: kernel != plain at lanes "
+          f"{np.nonzero(kh != ph)[0][:10].tolist()}")
+    check(bool((kh == th).all()), "resident != the tiered kernels")
+    n = blk["n"]
+    exp = np.zeros(len(kh), bool)
+    exp[:n] = blk["expected"]
+    check(bool((kh[N_EDGE:] == exp[N_EDGE:]).all()),
+          "resident != expected bitmap beyond the edge lanes")
+    B = len(kh)
+    pm = st["premask_np"]
+    live_lanes = int(pm.sum())
+    live_blocks = int(st["nblocks_np"][pm].sum())
+    nbytes_in = live_blocks * 64 + B * (4 + 32 + 1 + 4 + 3 * L * 4 + 1)
+    bound_ms, bound_by = resident_bound(live_blocks, B, live_lanes,
+                                        nbytes_in)
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: fv.fused_verify_resident(*args), 5),
+               plain_ms=cuda_ms(lambda: fv.resident_plain(
+                   st["blocks"], st["nblocks"], st["key_idx"], st["q_flat"],
+                   r_l, rpn_l, w_l, st["premask"], st["digests"],
+                   st["has_digest"], g8), 2),
+               bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "resident_vs_plain", "ok": True, "card": card, "lanes": B,
+          "K": st["K"], "accepts": int(kh.sum()), "live_lanes": live_lanes,
+          "bad_lanes": len(blk["kind_of"]), "edge_lanes": N_EDGE,
+          "table_bytes": fv.resident_table_bytes(st["K"]),
+          "tiered_ms": cuda_ms(lambda: fv.fused_verify_with_tables(*args), 5),
+          **res})
+    return res
+
+
 def drive(args, pool, nproc, card):
-    """The block, the sw sample, both main-path routes and both
-    kernel-vs-plain checks; returns [(launches, kernel numbers)] for
-    M = 32 and M = 64."""
+    """The block, the sw sample, every main-path route and every kernel
+    comparison; returns the kernels line's entries."""
+    from fabric_tpu_torch.bccsp import factory
+
     blk = make_block(args.seed, args.txs, pool, nproc)
     emit({"phase": "block", "ok": True, "lanes": blk["n"],
           "bad_lanes": {k: sum(1 for v in blk["kind_of"].values()
@@ -477,13 +811,64 @@ def drive(args, pool, nproc, card):
           "sample_pool_s": sw_pool_s,
           "sw_per_sig_ms_one_core": sw_per_sig_ms})
 
-    prov16, launches16 = run_route("q16", {"Default": "CUDA"}, blk, sw_bits,
-                                   sample, card)
-    prov8, launches8 = run_route(
-        "q8", {"Default": "CUDA", "CUDA": {"UseG16": False}}, blk, sw_bits,
-        sample, card)
-    return [(launches16, kernel_vs_plain(prov16, blk, 32, card, pool, nproc)),
-            (launches8, kernel_vs_plain(prov8, blk, 64, card, pool, nproc))]
+    route = dict(blk=blk, sw_bits=sw_bits, sample=sample, card=card)
+    prov16 = factory.new_bccsp({"Default": "CUDA"})
+    c16 = run_route("q16", prov16, prepared=True, fused=True,
+                    batch_need=(SHA, TREE), alternate=True, **route)
+    prov8 = factory.new_bccsp({"Default": "CUDA", "CUDA": {"UseG16": False}})
+    c8 = run_route("q8", prov8, prepared=True, fused=True,
+                   batch_need=(SHA, TREE), **route)
+    os.environ["FTPU_FUSED_RESIDENT"] = "1"
+    try:
+        cres = run_route("q8_resident", prov8, prepared=False, fused=True,
+                         batch_need=(RESIDENT,), **route)
+    finally:
+        del os.environ["FTPU_FUSED_RESIDENT"]
+    check(cres["verify_batch"][TREE] == 0 and
+          cres["verify_batch"][SHA] == 0,
+          "q8_resident: the tiered kernels ran beside the resident one")
+    provsha = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "UseG16": False, "HashOnHost": False, "FusedVerify": False}})
+    # the block's Q8 table, already built on this card by prov8: the
+    # route times the device-SHA path, not a second table build
+    provsha._q8_cache.update(prov8._q8_cache)
+    csha = run_route("device_sha", provsha, prepared=False, fused=False,
+                     batch_need=(DIGEST, TREE), **route)
+
+    tree32 = kernel_vs_plain(prov16, blk, 32, card, pool, nproc)
+    tree64 = kernel_vs_plain(prov8, blk, 64, card, pool, nproc)
+    st = stage_lanes(prov8, blk)
+    sha = sha_vs_plain(st, card)
+    res = resident_vs_plain(st, blk, card)
+
+    def n(counts, k):
+        return sum(c[k] for c in counts.values())
+
+    src = "fabric_tpu_torch/csrc/"
+    return [
+        dict(name="ptree.tree_verify_points (M=32)", source=src + "ptree.cu",
+             replaces="fabric_tpu/ops/ptree.py:335",
+             launches=n(c16, TREE), **tree32),
+        dict(name="ptree.tree_verify_points (M=64)", source=src + "ptree.cu",
+             replaces="fabric_tpu/ops/ptree.py:335",
+             launches=n(c8, TREE) + n(csha, TREE), **tree64),
+        dict(name="fused_verify.sha_windows (16/16)",
+             source=src + "sha_windows.cu",
+             replaces="fabric_tpu/ops/fused_verify.py:200",
+             launches=n(c16, SHA), **sha[16]),
+        dict(name="fused_verify.sha_windows (8/8)",
+             source=src + "sha_windows.cu",
+             replaces="fabric_tpu/ops/fused_verify.py:200",
+             launches=n(c8, SHA), **sha[8]),
+        dict(name="sha256.sha256_blocks (digest-only entry)",
+             source=src + "sha_windows.cu",
+             replaces="fabric_tpu/ops/sha256.py:87",
+             launches=n(csha, DIGEST), **sha["digest"]),
+        dict(name="fused_verify.fused_verify_resident",
+             source=src + "fused_resident.cu",
+             replaces="fabric_tpu/ops/fused_verify.py:442",
+             launches=n(cres, RESIDENT), **res),
+    ]
 
 
 def main() -> int:
@@ -520,12 +905,8 @@ def main() -> int:
         pool.close()
         pool.join()
 
-    emit({"kernels": [
-        {"name": f"ptree.tree_verify_points (M={M})", "route": "cuda",
-         "source": "fabric_tpu_torch/csrc/ptree.cu",
-         "replaces": "fabric_tpu/ops/ptree.py:335", "launches": launches,
-         **nums, "library_ms": None}
-        for M, (launches, nums) in zip((32, 64), res)]})
+    emit({"kernels": [{"name": k.pop("name"), "route": "cuda", **k,
+                       "library_ms": None} for k in res]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

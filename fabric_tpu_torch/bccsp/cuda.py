@@ -1,24 +1,41 @@
 """CUDA BCCSP provider — batched P-256 verification on the card.
 
 The port's counterpart of fabric_tpu/bccsp/tpu.py TPUProvider, for the
-slice the port has so far: the P-256 comb-digest path. Everything but
-the batch paths delegates to the port's SWProvider (the pkcs11-style
-containment of the reference). A batch is staged on the host — strict
-DER, low-S and range gates, w = s^-1 mod n, message lanes hashed with
-hashlib — and verified on the card: limb conversion, the u1/u2 scalar
-stage, the comb gather from resident tables and the tree kernel
-(ops/comb.py, ops/ptree.py).
+slices the port has so far: the P-256 comb-digest path and the fused
+verify tier. Everything but the batch paths delegates to the port's
+SWProvider (the pkcs11-style containment of the reference). A batch is
+staged on the host — strict DER, low-S and range gates, w = s^-1 mod n —
+and verified on the card.
 
-Device errors propagate: this slice has no breaker and no sw fallback.
-Not ported yet (ROADMAP): the breaker and faults seam, native batch
-prep, adaptive Q16 residency and warm-dir restore, non-P-256 ECDSA
-lanes, the fused and resident tiers, the Shamir ladder for batches over
-MaxKeys, Ed25519, pairings and the mesh.
+Message lanes (`verify_batch` items without a digest) take one of three
+routes, chosen as `_verify_batch_device` chooses them:
+
+  * the fused tier (`FusedVerify`, on for a CUDA device): the host packs
+    SHA-padded blocks (`sha256.pack_messages`) and never hashes; the
+    card runs stage A (SHA-256, u1/u2, windows: csrc/sha_windows.cu),
+    the gather and the tree kernel — or, on the q8 route with
+    FTPU_FUSED_RESIDENT=1 and the key set's tables within
+    `fused_verify.RESIDENT_TABLE_BUDGET`, the one resident kernel
+    (csrc/fused_resident.cu);
+  * `HashOnHost: false` with the fused tier off: SHA-256 on the card
+    (the digest-only kernel), then the comb-digest pipeline;
+  * `HashOnHost: true` (the default) with the fused tier off: hashlib on
+    the host, then the comb-digest pipeline.
+
+A batch holding a message over `MaxBlocks` SHA blocks is hashed on the
+host (`host_hash_fallbacks`): routing by size, as the reference does.
+
+Device errors propagate: the port has no breaker and no sw fallback yet,
+and no counterpart of `_try_fused`'s demotion to host hashing. Not
+ported yet (ROADMAP): the breaker and faults seam, native batch prep,
+adaptive Q16 residency and warm-dir restore, non-P-256 ECDSA lanes, the
+Shamir ladder for batches over MaxKeys, Ed25519, pairings and the mesh.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -31,7 +48,7 @@ from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
 from fabric_tpu_torch.common import torchenv
-from fabric_tpu_torch.ops import comb, limb, ptree
+from fabric_tpu_torch.ops import comb, fused_verify, limb, ptree, sha256
 
 logger = logging.getLogger("fabric_tpu_torch.bccsp.cuda")
 
@@ -43,6 +60,14 @@ Q8_CACHE_SETS = 16
 
 LADDER = ("a batch over more than MaxKeys distinct keys takes the Shamir "
           "ladder, which a later slice of the port adds")
+
+# provider stat -> (module, attribute) of each kernel wrapper's launch count
+LAUNCH_COUNTERS = {
+    "tree_kernel_launches": (ptree, "launches"),
+    "sha_windows_launches": (fused_verify, "sha_windows_launches"),
+    "sha256_launches": (sha256, "launches"),
+    "resident_launches": (fused_verify, "resident_launches"),
+}
 
 
 def host_prep_scalars(pub, signature):
@@ -67,7 +92,10 @@ class CUDAProvider(api.BCCSP):
     def __init__(self, *, device=None, min_batch: int = 16,
                  max_keys: int = 16, chunk: int = 32768,
                  use_g16: bool | None = None,
-                 table_cache_bytes: int = 6 << 30):
+                 table_cache_bytes: int = 6 << 30,
+                 hash_on_host: bool = True,
+                 fused_verify: bool | None = None,
+                 max_blocks: int = 64):
         self.device = torchenv.resolve_device(device)
         self._sw = swmod.SWProvider()
         self._min_batch = min_batch
@@ -80,6 +108,15 @@ class CUDAProvider(api.BCCSP):
         self._use_g16 = (self.device.type == "cuda" if use_g16 is None
                          else use_g16)
         self._table_cache_bytes = table_cache_bytes
+        # with the fused tier off: hash message lanes with hashlib (True)
+        # or with the SHA-256 kernel on the card (False)
+        self._hash_on_host = hash_on_host
+        # the fused tier; None = on for a CUDA device, off on the CPU
+        # (FTPU_FUSED=0/1 overrides, see _fused_enabled)
+        self._fused_verify = fused_verify
+        # the largest power-of-two SHA block count a device batch pads
+        # its messages to; a longer message sends its batch to hashlib
+        self._max_blocks = max_blocks
         # per-key-set tables, least recently used first: Q16 bounded by
         # bytes, Q8 (~1.97 MB per key slot) by count
         self._lock = threading.Lock()
@@ -87,9 +124,30 @@ class CUDAProvider(api.BCCSP):
         self._q16_bytes = 0
         self._q8_cache: OrderedDict = OrderedDict()
         self.stats = {"comb_batches": 0, "host_hashed_lanes": 0,
+                      "host_hash_fallbacks": 0, "fused_batches": 0,
+                      "fused_lanes": 0,
                       "q8_builds": 0, "q16_builds": 0,
                       "q16_oversize_skips": 0, "nonp256_sw_lanes": 0,
-                      "table_build_s": 0.0, "tree_kernel_launches": 0}
+                      "table_build_s": 0.0, "tree_kernel_launches": 0,
+                      "sha_windows_launches": 0, "sha256_launches": 0,
+                      "resident_launches": 0}
+
+    def _fused_enabled(self) -> bool:
+        """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
+        then the knob, then on for a CUDA device and off for the CPU."""
+        env = os.environ.get("FTPU_FUSED")
+        if env is not None:
+            return env != "0"
+        if self._fused_verify is not None:
+            return self._fused_verify
+        return self.device.type == "cuda"
+
+    @staticmethod
+    def _fused_resident_enabled() -> bool:
+        """The resident kernel's gate: FTPU_FUSED_RESIDENT=1 (default
+        off, as in the reference; the tiered pair is the serving
+        configuration)."""
+        return os.environ.get("FTPU_FUSED_RESIDENT") == "1"
 
     # -- everything non-batch delegates --
 
@@ -115,21 +173,26 @@ class CUDAProvider(api.BCCSP):
     # -- the item path --
 
     def verify_batch(self, items: Sequence[api.VerifyItem]) -> list[bool]:
-        """The P-256 branch of fabric_tpu's `_verify_batch_device` with
-        the host hashing message lanes: every lane reaches the card as a
-        digest lane. Lanes on non-ECDSA keys reject; a P-256 key with a
+        """The P-256 branch of fabric_tpu's `_verify_batch_device`.
+        Message lanes take the fused tier, the device-SHA route or host
+        hashing (see the module docstring); digest lanes are digests on
+        every route. Lanes on non-ECDSA keys reject; a P-256 key with a
         digest other than 32 bytes verifies on the sw path; an ECDSA key
         on another curve raises NotImplementedError."""
         if len(items) < self._min_batch:
             return self._sw.verify_batch(items)
         n = len(items)
         bucket = self._bucket(n)
+        fused = self._fused_enabled()
+        hash_here = self._hash_on_host and not fused
         premask = np.zeros(bucket, dtype=bool)
         r_b = np.zeros((bucket, 32), dtype=np.uint8)
         rpn_b = np.zeros((bucket, 32), dtype=np.uint8)
         w_b = np.zeros((bucket, 32), dtype=np.uint8)
         key_idx = np.zeros(bucket, dtype=np.int32)
         digests = np.zeros((bucket, 8), dtype=np.uint32)
+        has_digest = np.zeros(bucket, dtype=bool)
+        msgs = [b""] * bucket
         key_map: dict[bytes, int] = {}
         sw_lanes: list[int] = []
         hashed = 0
@@ -152,16 +215,48 @@ class CUDAProvider(api.BCCSP):
             kb = pub.x_bytes().tobytes() + pub.y_bytes().tobytes()
             key_idx[i] = key_map.setdefault(kb, len(key_map))
             digest = it.digest
-            if digest is None:
+            if digest is None and hash_here:
                 # an empty message still hashes to SHA-256(b"")
                 digest = self._sw.hash(it.message)
                 hashed += 1
-            digests[i] = np.frombuffer(digest, dtype=">u4")
+            if digest is not None:
+                digests[i] = np.frombuffer(digest, dtype=">u4")
+                has_digest[i] = True
+            else:
+                msgs[i] = it.message
+        nb = None                   # None: every live lane is a digest lane
+        pending = np.nonzero(premask & ~has_digest)[0]
+        if len(pending):
+            max_len = max(len(msgs[i]) for i in pending)
+            nb = self._nb_bucket(max_len)
+            if nb is None:
+                # a message over the block budget: hash the batch's
+                # message lanes on the host instead
+                self.stats["host_hash_fallbacks"] += 1
+                logger.info("message of %d bytes exceeds the %d-block "
+                            "device budget; hashing the batch host-side",
+                            max_len, self._max_blocks)
+                for i in pending:
+                    digests[i] = np.frombuffer(self._sw.hash(msgs[i]),
+                                               dtype=">u4")
+                has_digest[pending] = True
+                hashed += len(pending)
         self.stats["host_hashed_lanes"] += hashed
         result = [False] * n
         if key_map:
-            out = self._dispatch_comb_digest(bucket, key_map, key_idx, r_b,
-                                             rpn_b, w_b, premask, digests)
+            if nb is None:
+                out = self._dispatch_comb_digest(bucket, key_map, key_idx,
+                                                 r_b, rpn_b, w_b, premask,
+                                                 digests)
+            else:
+                blocks, nblocks = sha256.pack_messages(msgs, nb)
+                # digest lanes skip the device hash: no live block
+                nblocks[has_digest] = 0
+                dispatch = (self._dispatch_fused_verify if fused
+                            else self._dispatch_device_sha)
+                out = dispatch(bucket, key_map, key_idx, blocks, nblocks,
+                               r_b, rpn_b, w_b, premask, digests,
+                               has_digest)
             result = out()[:n].tolist()
         if sw_lanes:
             self.stats["nonp256_sw_lanes"] += len(sw_lanes)
@@ -266,39 +361,96 @@ class CUDAProvider(api.BCCSP):
             b *= 2
         return b
 
+    def _nb_bucket(self, max_len: int) -> int | None:
+        """Power-of-two SHA block count covering max_len, else None."""
+        nb = 1
+        while sha256.max_message_len(nb) < max_len:
+            nb *= 2
+            if nb > self._max_blocks:
+                return None
+        return nb
+
     def _dispatch_comb_digest(self, bucket, key_map, key_idx, r8, rpn8, w8,
                               premask, digests):
         """Enqueue the comb-digest pipeline for a staged batch, one kernel
         launch per `chunk` lanes; returns a thunk that waits and hands
         back the (bucket,) numpy verdicts."""
-        if len(key_map) > self._max_keys:
-            raise NotImplementedError(LADDER)
-        key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map,
-                                                            key_idx)
+        key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
         self.stats["comb_batches"] += 1
-        dev = self.device
         words = digests.astype(np.int64)      # torch has no uint32 ops
-        launches0 = ptree.launches
+        return self._chunked(bucket, lambda c: comb.comb_verify_with_tables(
+            c(words), c(key_idx), q_flat,
+            limb.be_bytes_to_limbs(c(r8)), limb.be_bytes_to_limbs(c(rpn8)),
+            limb.be_bytes_to_limbs(c(w8)), c(premask), g16=g16, q16=q16))
+
+    def _dispatch_device_sha(self, bucket, key_map, key_idx, blocks,
+                             nblocks, r8, rpn8, w8, premask, digests,
+                             has_digest):
+        """`HashOnHost: false` with the fused tier off (fabric_tpu's
+        `_comb_pipeline_locked` fused body): SHA-256 on the card by the
+        digest-only kernel, the lanes' digests where they have one, then
+        the comb-digest pipeline; one chunk at a time."""
+        key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
+        self.stats["comb_batches"] += 1
+        blocks = blocks.view(np.int32)
+        words = digests.astype(np.int64)
+
+        def run(c):
+            hashed = sha256.sha256_blocks(c(blocks), c(nblocks))
+            dw = torch.where(c(has_digest)[:, None], c(words), hashed)
+            return comb.comb_verify_with_tables(
+                dw, c(key_idx), q_flat, limb.be_bytes_to_limbs(c(r8)),
+                limb.be_bytes_to_limbs(c(rpn8)),
+                limb.be_bytes_to_limbs(c(w8)), c(premask), g16=g16, q16=q16)
+        return self._chunked(bucket, run)
+
+    def _dispatch_fused_verify(self, bucket, key_map, key_idx, blocks,
+                               nblocks, r8, rpn8, w8, premask, digests,
+                               has_digest):
+        """The fused tier, one chunk at a time: padded SHA blocks and
+        compact u8 scalars go to the card, the verdicts come back. The
+        tiered pair (stage A, gather, tree), or the resident kernel as
+        fabric_tpu's `_fused_pipeline` picks it: only on the q8 route,
+        only with FTPU_FUSED_RESIDENT=1, only within the budget."""
+        key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
+        resident = (not q16 and self._fused_resident_enabled()
+                    and fused_verify.resident_table_bytes(K)
+                    <= fused_verify.RESIDENT_TABLE_BUDGET)
+        self.stats["fused_batches"] += 1
+        self.stats["fused_lanes"] += int(np.sum(premask & ~has_digest))
+        blocks = blocks.view(np.int32)
+        digests = digests.view(np.int32)
+
+        def run(c):
+            args = (c(blocks), c(nblocks), c(key_idx), q_flat, c(r8),
+                    c(rpn8), c(w8), c(premask), c(digests), c(has_digest))
+            if resident:
+                return fused_verify.fused_verify_resident(*args)
+            return fused_verify.fused_verify_with_tables(
+                *args, g16=g16, q16=q16)
+        return self._chunked(bucket, run)
+
+    def _chunked(self, bucket, run):
+        """Call run(c) for each `chunk` of the bucket, c(a) putting a
+        chunk of host array `a` on the card; count the kernels launched
+        and return a thunk that waits for the (bucket,) numpy verdicts."""
+        before = {k: getattr(*c) for k, c in LAUNCH_COUNTERS.items()}
         outs = []
-
-        def put(a, lo):
-            return torch.from_numpy(
-                np.ascontiguousarray(a[lo:lo + self._chunk])).to(dev)
-
         for lo in range(0, bucket, self._chunk):
-            outs.append(comb.comb_verify_with_tables(
-                put(words, lo), put(key_idx, lo), q_flat,
-                limb.be_bytes_to_limbs(put(r8, lo)),
-                limb.be_bytes_to_limbs(put(rpn8, lo)),
-                limb.be_bytes_to_limbs(put(w8, lo)), put(premask, lo),
-                g16=g16, q16=q16))
-        self.stats["tree_kernel_launches"] += ptree.launches - launches0
+            def c(a, lo=lo):
+                return torch.from_numpy(np.ascontiguousarray(
+                    a[lo:lo + self._chunk])).to(self.device)
+            outs.append(run(c))
+        for k, c in LAUNCH_COUNTERS.items():
+            self.stats[k] += getattr(*c) - before[k]
         return lambda: torch.cat(outs).cpu().numpy()
 
     def _resolve_tables(self, key_map, key_idx):
         """Canonical slot order + the key set's tables: Q16 (with G16)
         when it fits the byte budget, else Q8 with the 8-bit G table.
         Returns (key_idx remapped, K, q_flat, g16 or None, q16?)."""
+        if len(key_map) > self._max_keys:
+            raise NotImplementedError(LADDER)
         order, key_idx = self._canonical_key_order(key_map, key_idx)
         K = 1
         while K < len(order):

@@ -7,7 +7,8 @@ package's `TPU:` block (`TpuOpts`):
 
     {"Default": "CUDA",
      "CUDA": {"Device": "cuda:0" | "cpu", "MinBatch": 16, "MaxKeys": 16,
-              "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144}}
+              "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144,
+              "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64}}
 
 With no Device the provider runs on cuda:0 and raises where CUDA is
 absent; "cpu" runs the plain torch versions (the tests' choice).
@@ -30,6 +31,13 @@ class CudaOpts:
     # None = on for the card, off on the CPU
     use_g16: Optional[bool] = None
     table_cache_bytes: int = 6 << 30
+    # with the fused tier off: hash message lanes on the host (True) or
+    # with the SHA-256 kernel on the card (False)
+    hash_on_host: bool = True
+    # the fused tier (device SHA-256 + scalars + windows); None = on for
+    # the card, off on the CPU; FTPU_FUSED=0/1 overrides
+    fused_verify: Optional[bool] = None
+    max_blocks: int = 64
 
 
 @dataclass
@@ -52,6 +60,10 @@ class FactoryOpts:
                 use_g16=(bool(c["UseG16"]) if c.get("UseG16") is not None
                          else None),
                 table_cache_bytes=int(c.get("TableCacheMB", 6144)) << 20,
+                hash_on_host=bool(c.get("HashOnHost", True)),
+                fused_verify=(bool(c["FusedVerify"])
+                              if c.get("FusedVerify") is not None else None),
+                max_blocks=int(c.get("MaxBlocks", 64)),
             ),
         )
 
@@ -69,5 +81,8 @@ def new_bccsp(opts) -> BCCSP:
         return CUDAProvider(device=c.device, min_batch=c.min_batch,
                             max_keys=c.max_keys, chunk=c.chunk,
                             use_g16=c.use_g16,
-                            table_cache_bytes=c.table_cache_bytes)
+                            table_cache_bytes=c.table_cache_bytes,
+                            hash_on_host=c.hash_on_host,
+                            fused_verify=c.fused_verify,
+                            max_blocks=c.max_blocks)
     raise ValueError(f"unknown BCCSP default {opts.default!r}")

@@ -4,7 +4,8 @@ Each source under csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ctypes. Libraries land in
 fabric_tpu_torch/_build/ (git-ignored), named by the sha256 of their
-source, so an edited source rebuilds and an unchanged one is reused.
+source and of every csrc/ header it includes (transitively), so an
+edited source or header rebuilds and an unchanged one is reused.
 `nvcc -Xptxas -v` reports registers and spills; each build writes that
 report beside the library as <name>.ptxas.log.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +34,22 @@ KERNELS = {
         # pts, r, rpn, premask, consts, out, B, M, stream -> cudaError_t
         "ptree_verify_launch": ([_VOIDP] * 6 + [_INT, _INT, _VOIDP], _INT),
         "ptree_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "sha_windows": ("sha_windows.cu", {
+        # blocks, nblocks, digests, has_digest, r, w, consts_n, shc, w1,
+        # w2, words, B, NB, wbits_g, wbits_q, stream -> cudaError_t
+        "sha_windows_launch": ([_VOIDP] * 11 + [_INT] * 4 + [_VOIDP], _INT),
+        # blocks, nblocks, shc, words, B, NB, stream -> cudaError_t
+        "sha256_digest_launch": ([_VOIDP] * 4 + [_INT] * 2 + [_VOIDP], _INT),
+        "sha_windows_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "fused_resident": ("fused_resident.cu", {
+        # blocks, nblocks, digests, has_digest, key_idx, r, rpn, w,
+        # premask, consts_n, consts_p, shc, g_tab, q_tab, out, B, NB, K,
+        # stream -> cudaError_t
+        "fused_resident_launch": ([_VOIDP] * 15 + [_INT] * 3 + [_VOIDP],
+                                  _INT),
+        "fused_resident_error_string": ([_INT], ctypes.c_char_p),
     }),
 }
 
@@ -51,10 +69,36 @@ def nvcc_path() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[str]:
+    """Kernel `name`'s source and every file it includes with
+    `#include "..."` (relative to the including file), transitively."""
+    out: list[str] = []
+    todo = [os.path.join(_CSRC, KERNELS[name][0])]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            incs = _INCLUDE.findall(f.read())
+        todo += [os.path.join(os.path.dirname(path), i.decode())
+                 for i in incs]
+    return out
+
+
 def _paths(name: str) -> tuple[str, str, str]:
-    src = os.path.join(_CSRC, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    srcs = sources(name)
+    src = srcs[0]
+    h = hashlib.sha256()
+    for path in sorted(srcs):
+        with open(path, "rb") as f:
+            data = f.read()
+        h.update(os.path.relpath(path, _CSRC).encode() + b"\0")
+        h.update(hashlib.sha256(data).digest())
+    digest = h.hexdigest()[:16]
     lib = os.path.join(torchenv.BUILD_DIR, f"lib{name}-{digest}.so")
     log = os.path.join(torchenv.BUILD_DIR, f"{name}.ptxas.log")
     return src, lib, log

@@ -282,34 +282,44 @@ def _windows(u: torch.Tensor, wbits: int = WBITS) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def comb_gather_points(u1, u2, key_idx, g_flat, q_flat, K: int,
-                       g16=None, q16: bool = False) -> torch.Tensor:
-    """The per-signature comb points, (B, M, 3, L): M = 16 or 32 G-side
-    plus 16 or 32 Q-side, by window width. A plain index_select on the
+def gather_from_windows(w1, w2, key_idx, g_flat, q_flat, K: int,
+                        g16=None, q16: bool = False) -> torch.Tensor:
+    """The per-signature comb points from window indices, (B, M, 3, L):
+    M = 16 or 32 G-side plus 16 or 32 Q-side, by window width (w1 of 16
+    bits with g16, w2 of 16 bits with q16). A plain index_select on the
     tables (XLA's gather in the JAX package, outside any Pallas kernel)."""
-    B = u1.shape[0]
-    dev = u1.device
+    B = w1.shape[0]
+    dev = w1.device
     if g16 is not None:
         win = torch.arange(NWIN_G16, dtype=torch.int64, device=dev)
-        g_idx = win * NENT_G16 + _windows(u1, 16)
+        g_idx = win * NENT_G16 + w1
         g_tab = g16
     else:
         win = torch.arange(NWIN, dtype=torch.int64, device=dev)
-        g_idx = win * NENT + _windows(u1)
+        g_idx = win * NENT + w1
         g_tab = g_flat
     key = key_idx.to(torch.int64)[:, None]
     if q16:
         win = torch.arange(NWIN_G16, dtype=torch.int64, device=dev)
-        q_idx = (win * K + key) * NENT_G16 + _windows(u2, 16)
+        q_idx = (win * K + key) * NENT_G16 + w2
     else:
         win = torch.arange(NWIN, dtype=torch.int64, device=dev)
-        q_idx = (win * K + key) * NENT + _windows(u2)
-    idx = torch.cat([g_idx, q_idx], dim=1)
+        q_idx = (win * K + key) * NENT + w2
     n_g = g_idx.shape[1]
-    pts_g = g_tab.index_select(0, idx[:, :n_g].reshape(-1))
-    pts_q = q_flat.index_select(0, idx[:, n_g:].reshape(-1))
+    pts_g = g_tab.index_select(0, g_idx.reshape(-1))
+    pts_q = q_flat.index_select(0, q_idx.reshape(-1))
     return torch.cat([pts_g.reshape(B, n_g, 3, L),
                       pts_q.reshape(B, -1, 3, L)], dim=1)
+
+
+def comb_gather_points(u1, u2, key_idx, g_flat, q_flat, K: int,
+                       g16=None, q16: bool = False) -> torch.Tensor:
+    """The per-signature comb points of canonical scalars u1, u2: their
+    windows, then `gather_from_windows`."""
+    return gather_from_windows(
+        _windows(u1, 16 if g16 is not None else WBITS),
+        _windows(u2, 16 if q16 else WBITS), key_idx, g_flat, q_flat, K,
+        g16=g16, q16=q16)
 
 
 def _tree_reduce(X, Y, Z):

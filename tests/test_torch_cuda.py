@@ -1,14 +1,15 @@
-"""The port's CUDA kernel and provider on the card.
+"""The port's CUDA kernels and provider on the card.
 
 Card-only: every test is marked `cuda` and skips where CUDA is absent
-(the tree kernel has no CPU mode). The file imports neither jax nor
+(a CUDA kernel has no CPU mode). The file imports neither jax nor
 fabric_tpu, so it also runs on the card's machine, which has neither
 (from the repo root, without tests/conftest.py, which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The kernel is held to its plain torch version on the same inputs and to
-Python-int sums (exact equality); the provider to its sw provider.
+Each kernel is held to its plain torch version on the same inputs (the
+tree kernel also to Python-int sums, the SHA kernels to hashlib): exact
+equality. The provider, on every message route, to its sw provider.
 """
 
 import hashlib
@@ -19,7 +20,8 @@ import torch
 
 from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import factory, sw, utils
-from fabric_tpu_torch.ops import comb, limb, p256, ptree
+from fabric_tpu_torch.ops import comb, fused_verify, limb, p256, ptree
+from fabric_tpu_torch.ops import sha256
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +29,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the tree kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -87,7 +89,12 @@ def test_kernel_rejects_non_contiguous(dev):
                                  .transpose(0, 1), *args[1:])
 
 
-def test_provider_on_the_card_matches_sw(dev):
+def test_provider_on_the_card_matches_sw(dev, monkeypatch):
+    """Message lanes down every route on the card: the fused tier on the
+    q16 and q8 routes, the resident kernel, SHA-256 on the card with the
+    fused tier off; each route's kernels launch once."""
+    monkeypatch.delenv("FTPU_FUSED", raising=False)
+    monkeypatch.delenv("FTPU_FUSED_RESIDENT", raising=False)
     rng = np.random.default_rng(11)
     csp = sw.SWProvider()
     privs = [sw.ECDSAPrivateKey(int(rng.integers(1, 1 << 62)))
@@ -105,9 +112,146 @@ def test_provider_on_the_card_matches_sw(dev):
         items.append(api.VerifyItem(key=privs[k].public_key(),
                                     signature=sig, message=msg))
     want = csp.verify_batch(items)
-    for cfg in ({}, {"UseG16": False}):
+    kernels = ("tree_kernel_launches", "sha_windows_launches",
+               "sha256_launches", "resident_launches")
+    for cfg, resident, launched in (
+            ({}, False, {"tree_kernel_launches", "sha_windows_launches"}),
+            ({"UseG16": False}, False,
+             {"tree_kernel_launches", "sha_windows_launches"}),
+            ({"UseG16": False}, True, {"resident_launches"}),
+            ({"UseG16": False, "HashOnHost": False, "FusedVerify": False},
+             False, {"tree_kernel_launches", "sha256_launches"})):
+        if resident:
+            monkeypatch.setenv("FTPU_FUSED_RESIDENT", "1")
         prov = factory.new_bccsp({"Default": "CUDA", "CUDA": cfg})
         assert prov.device.type == "cuda"
         got = prov.verify_batch(items)
         assert got == want
-        assert prov.stats["tree_kernel_launches"] == 1
+        assert {k: prov.stats[k] for k in kernels} == {
+            k: int(k in launched) for k in kernels}
+        assert prov.stats["host_hashed_lanes"] == 0
+        monkeypatch.delenv("FTPU_FUSED_RESIDENT", raising=False)
+
+
+# -- the fused tier's kernels --
+
+EDGE_LENS = (0, 1, 55, 56, 63, 64, 119, 120, 503)
+
+
+def _stage(B, seed):
+    """B lanes at NB = 8: the edge lengths, random ones, garbage past
+    every count; digest lanes with digest 0 and all-ones; w = 1,
+    w = n - 1, r = 1; key slots in [0, 4) with one out of range."""
+    rng = np.random.default_rng(seed)
+    N = p256.N
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 504, size=B)]
+    for j, n in enumerate(EDGE_LENS):
+        msgs[j] = rng.bytes(n)
+    blocks, counts = sha256.pack_messages(msgs, 8)
+    past = np.arange(8)[None, :] >= counts[:, None]
+    blocks[past] = rng.integers(0, 1 << 32, size=(int(past.sum()), 16),
+                                dtype=np.uint32)
+    has = np.zeros(B, bool)
+    has[[9, 10]] = True
+    dig = np.zeros((B, 8), np.uint32)
+    dig[10] = 0xFFFFFFFF
+    rs = [int.from_bytes(rng.bytes(32), "big") % N for _ in range(B)]
+    ws = [int.from_bytes(rng.bytes(32), "big") % N for _ in range(B)]
+    ws[11], ws[12], rs[13] = 1, N - 1, 1
+    key_idx = rng.integers(0, 4, size=B).astype(np.int32)
+    key_idx[14] = 4
+    return dict(msgs=msgs, blocks=blocks, counts=counts, has=has, dig=dig,
+                nblocks=np.where(has, 0, counts).astype(np.int32),
+                r=limb.ints_to_limbs(rs), w=limb.ints_to_limbs(ws),
+                key_idx=key_idx, premask=rng.random(B) < 0.9)
+
+
+def _on(dev, st, *names):
+    return [torch.as_tensor(st[n]).to(dev) for n in names]
+
+
+def test_sha256_kernel_matches_plain_and_hashlib(dev):
+    st = _stage(300, seed=1)
+    blocks, counts = _on(dev, st, "blocks", "counts")
+    before = sha256.launches
+    got = sha256.sha256_blocks(blocks, counts)
+    assert sha256.launches == before + 1
+    plain = sha256.sha256_plain(blocks, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    want = np.stack([np.frombuffer(hashlib.sha256(m).digest(), ">u4")
+                     for m in st["msgs"]]).astype(np.int64)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("wbits", [(8, 8), (16, 16)])
+def test_sha_windows_kernel_matches_plain(dev, wbits):
+    st = _stage(300, seed=2)
+    args = _on(dev, st, "blocks", "nblocks", "dig", "has", "r", "w")
+    before = fused_verify.sha_windows_launches
+    got = fused_verify.sha_windows(*args, wbits_g=wbits[0], wbits_q=wbits[1])
+    assert fused_verify.sha_windows_launches == before + 1
+    plain = fused_verify.sha_windows_plain(*args, *wbits)
+    torch.cuda.synchronize()
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+
+def _q8_ints(keys) -> np.ndarray:
+    """The 8-bit Q table of `keys` over Python ints (build_q_tables'
+    chain), canonical limbs: seconds, where the eager build on the card
+    takes ~15 s of launches."""
+    nwin, nent = comb.NWIN, comb.NENT
+    out = np.zeros((nwin, len(keys), nent, 3, limb.L), np.int32)
+    out[:, :, 0, 1, 0] = 1
+    for k, (x, y) in enumerate(keys):
+        base = (x, y, 1)
+        for i in range(nwin):
+            acc, ents = base, [base]
+            for _ in range(2, nent):
+                acc = p256.cadd_int(acc, base)
+                ents.append(acc)
+            out[i, k, 1:] = limb.ints_to_limbs(
+                [c % p256.P for e in ents for c in e]).reshape(
+                    nent - 1, 3, limb.L)
+            for _ in range(comb.WBITS):
+                base = p256.cdbl_int(base)
+    return out.reshape(nwin * len(keys) * nent, 3, limb.L)
+
+
+def test_resident_kernel_matches_plain_and_tiered(dev):
+    """Random scalars give rejects on almost every lane; the stage-A,
+    gather and tree parts are held separately above, so here the point
+    is the kernel = its plain version = the tiered kernels, lane by
+    lane, an out-of-range key slot rejecting."""
+    st = _stage(160, seed=3)
+    keys = [p256.to_affine_int(p256.scalar_mul_int(
+        d, (p256.GX, p256.GY, 1))) for d in (3, 5, 7, 11)]
+    q8 = torch.as_tensor(_q8_ints(keys), device=dev)
+    r8 = np.zeros((160, 32), np.uint8)
+    for i, row in enumerate(st["r"]):
+        r8[i] = np.frombuffer(limb.limbs_to_int(row).to_bytes(32, "big"),
+                              np.uint8)
+    w8 = np.zeros((160, 32), np.uint8)
+    for i, row in enumerate(st["w"]):
+        w8[i] = np.frombuffer(limb.limbs_to_int(row).to_bytes(32, "big"),
+                              np.uint8)
+    blocks, nblocks, key_idx, dig, has, premask = _on(
+        dev, st, "blocks", "nblocks", "key_idx", "dig", "has", "premask")
+    r8_t, w8_t = (torch.as_tensor(a, device=dev) for a in (r8, w8))
+    args = (blocks, nblocks, key_idx, q8, r8_t, r8_t, w8_t, premask, dig,
+            has)
+    before = fused_verify.resident_launches
+    got = fused_verify.fused_verify_resident(*args)
+    assert fused_verify.resident_launches == before + 1
+    r_l, w_l = (limb.be_bytes_to_limbs(a) for a in (r8_t, w8_t))
+    plain = fused_verify.resident_plain(
+        blocks, nblocks, key_idx, q8, r_l, r_l, w_l, premask, dig, has,
+        comb.g_tables_on(dev))
+    ok = (key_idx >= 0) & (key_idx < 4)
+    tiered = fused_verify.fused_verify_with_tables(
+        blocks, nblocks, key_idx.clamp(0, 3), q8, r8_t, r8_t, w8_t,
+        premask & ok, dig, has)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got, tiered)
+    assert not bool(got[14])

@@ -4,7 +4,12 @@ The provider is built as a user would (`new_bccsp`) with Device "cpu",
 so every kernel wrapper runs its plain version. Its bitmaps are held
 against fabric_tpu.bccsp.sw.SWProvider (the JAX package's oracle, here
 on its OpenSSL or pure-Python backend) and against the expected bitmap
-known by construction: exact equality.
+known by construction: exact equality. Each provider finds its key set's
+8-bit Q table already cached, built from Python ints (its own eager
+build costs ~12 s on the CPU; tests/test_torch_comb.py holds that build
+to the same ints). The message routes (fused tier, resident kernel,
+device SHA, host hashing, the MaxBlocks cutoff) are told apart by the
+provider's stats.
 """
 
 import hashlib
@@ -20,7 +25,8 @@ from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import factory, sw, utils
 from fabric_tpu_torch.bccsp.cuda import CUDAProvider, host_prep_scalars
 from fabric_tpu_torch.common import torchenv
-from fabric_tpu_torch.ops import ptree
+from fabric_tpu_torch.ops import fused_verify, ptree
+from tests.test_torch_comb import _q8_ints
 
 N = utils.P256_N
 
@@ -104,20 +110,45 @@ def _items(block, api_mod, pubs, dead):
 
 
 @pytest.fixture(scope="module")
-def provider():
-    return factory.new_bccsp({"Default": "CUDA",
-                              "CUDA": {"Device": "cpu", "MinBatch": 4}})
+def q8_seed(block):
+    """(cache key, 8-bit Q table) for the block's key set, K = 4 (slot 3
+    repeats slot 0), in the provider's canonical key order."""
+    order = sorted(p.x_bytes().tobytes() + p.y_bytes().tobytes()
+                   for p in block["pubs"])
+    keys = [(int.from_bytes(kb[:32], "big"), int.from_bytes(kb[32:], "big"))
+            for kb in order]
+    return tuple(order), torch.as_tensor(_q8_ints(keys + keys[:1]))
+
+
+def _seeded(q8_seed, **cuda):
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "Device": "cpu", "MinBatch": 4, **cuda}})
+    key, table = q8_seed
+    prov._q8_cache[key] = table
+    return prov
+
+
+@pytest.fixture(scope="module")
+def provider(q8_seed):
+    return _seeded(q8_seed)
 
 
 def test_factory_builds_the_configured_providers():
     prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {
         "Device": "cpu", "MinBatch": 8, "MaxKeys": 4, "Chunk": 64,
-        "UseG16": False, "TableCacheMB": 512}})
+        "UseG16": False, "TableCacheMB": 512, "HashOnHost": False,
+        "FusedVerify": True, "MaxBlocks": 4}})
     assert isinstance(prov, CUDAProvider)
     assert prov.device == torch.device("cpu")
     assert (prov._min_batch, prov._max_keys, prov._chunk) == (8, 4, 64)
     assert prov._use_g16 is False
     assert prov._table_cache_bytes == 512 << 20
+    assert (prov._hash_on_host, prov._fused_verify, prov._max_blocks) == (
+        False, True, 4)
+    # the TpuOpts names and defaults
+    dflt = factory.FactoryOpts.from_config({"Default": "CUDA"}).cuda
+    assert (dflt.hash_on_host, dflt.fused_verify, dflt.max_blocks) == (
+        True, None, 64)
     assert isinstance(factory.new_bccsp({"Default": "SW"}), sw.SWProvider)
     with pytest.raises(ValueError):
         factory.new_bccsp({"Default": "TPU"})
@@ -232,3 +263,78 @@ def test_over_max_keys_raises(block):
         "Device": "cpu", "MinBatch": 4, "MaxKeys": 2}})
     with pytest.raises(NotImplementedError):
         prov.verify_batch(_items(block, api, block["pubs"], _DeadKey()))
+
+
+def test_fused_knob_resolution(monkeypatch):
+    """FTPU_FUSED first, then FusedVerify, then on for a CUDA device and
+    off for the CPU (fabric_tpu's _fused_enabled)."""
+    monkeypatch.delenv("FTPU_FUSED", raising=False)
+    auto = factory.new_bccsp({"Default": "CUDA", "CUDA": {"Device": "cpu"}})
+    off = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "Device": "cpu", "FusedVerify": False}})
+    on = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "Device": "cpu", "FusedVerify": True}})
+    assert (auto._fused_enabled(), off._fused_enabled(),
+            on._fused_enabled()) == (False, False, True)
+    monkeypatch.setattr(auto, "device", torch.device("cuda", 0))
+    monkeypatch.setattr(off, "device", torch.device("cuda", 0))
+    assert auto._fused_enabled() and not off._fused_enabled()
+    monkeypatch.setenv("FTPU_FUSED", "0")
+    assert not auto._fused_enabled() and not on._fused_enabled()
+    monkeypatch.setenv("FTPU_FUSED", "1")
+    assert off._fused_enabled()
+    monkeypatch.delenv("FTPU_FUSED_RESIDENT", raising=False)
+    assert not CUDAProvider._fused_resident_enabled()
+    monkeypatch.setenv("FTPU_FUSED_RESIDENT", "1")
+    assert CUDAProvider._fused_resident_enabled()
+
+
+# route -> (CUDA knobs, environment, resident budget or None)
+ROUTES = {
+    "host_hash": ({}, {}, None),
+    "fused": ({"FusedVerify": True}, {}, None),
+    "fused_env": ({}, {"FTPU_FUSED": "1"}, None),
+    "fused_env_off": ({"FusedVerify": True}, {"FTPU_FUSED": "0"}, None),
+    "resident": ({"FusedVerify": True}, {"FTPU_FUSED_RESIDENT": "1"}, None),
+    "resident_over_budget": ({"FusedVerify": True},
+                             {"FTPU_FUSED_RESIDENT": "1"}, 0),
+    "device_sha": ({"HashOnHost": False, "FusedVerify": False}, {}, None),
+    "over_max_blocks": ({"FusedVerify": True, "MaxBlocks": 2}, {}, None),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_message_routes(route, block, q8_seed, monkeypatch):
+    """The block's mixed digest and message lanes down every message
+    route: the same verdicts, and stats that show which route ran."""
+    cfg, env, budget = ROUTES[route]
+    for name in ("FTPU_FUSED", "FTPU_FUSED_RESIDENT"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    if budget is not None:
+        monkeypatch.setattr(fused_verify, "RESIDENT_TABLE_BUDGET", budget)
+    resident_calls = []
+    orig = fused_verify.fused_verify_resident
+    monkeypatch.setattr(fused_verify, "fused_verify_resident",
+                        lambda *a, **k: resident_calls.append(1)
+                        or orig(*a, **k))
+    prov = _seeded(q8_seed, **cfg)
+    got = prov.verify_batch(_items(block, api, block["pubs"], _DeadKey()))
+    np.testing.assert_array_equal(got, block["expected"])
+    msg_lanes = sum(not ln["as_digest"] and ln["kind"] in (
+        "ok", "tampered", "wrong_key") for ln in block["lanes"])
+    fused = route.startswith(("fused", "resident")) and route != \
+        "fused_env_off"
+    host = route in ("host_hash", "fused_env_off", "over_max_blocks")
+    st = prov.stats
+    assert st["fused_batches"] == int(fused)
+    assert st["fused_lanes"] == (msg_lanes if fused else 0)
+    assert st["comb_batches"] == int(not fused)
+    assert st["host_hashed_lanes"] == (msg_lanes if host else 0)
+    assert st["host_hash_fallbacks"] == int(route == "over_max_blocks")
+    assert len(resident_calls) == int(route == "resident")
+    # the plain versions on the CPU are not kernel launches
+    assert all(st[k] == 0 for k in (
+        "tree_kernel_launches", "sha_windows_launches", "sha256_launches",
+        "resident_launches"))
