@@ -10,6 +10,12 @@ Phases, one JSON line each; any failure exits non-zero:
                    no CUDA device -> exit 2, nothing printed
   build            every kernel under fabric_tpu_torch/csrc, one nvcc per
                    source, started together; ptxas registers and spills
+  field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
+                   (csrc/field_selftest.cu) against Python ints: mul, add,
+                   sub and the 13-bit conversion on edge operands (0, 1,
+                   p - 1, p, p + 1, 2^256 - 1, 2^256 + 2^243 - 1) and seeded
+                   random ones, RCB15 Alg. 4 on P + P, P + (-P), P + inf,
+                   inf + inf and random points; words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -19,9 +25,11 @@ Phases, one JSON line each; any failure exits non-zero:
                    route, each path driven with every kernel count set to
                    0 just before it and read just after:
                      q16  G16/Q16 resident: verify_prepared (digest lanes,
-                          the commit path; tree kernel at M = 32) and
+                          the commit path; the tree kernel's windows entry,
+                          which gathers by itself, at M = 32) and
                           verify_batch (message lanes, the fused tier:
-                          sha_windows at 16/16 bits, gather, tree);
+                          sha_windows at 16/16 bits, then the windows
+                          entry);
                      q8   "UseG16": false: the same at M = 64 and 8/8 bits;
                      q8_resident  the q8 provider's verify_batch with
                           FTPU_FUSED_RESIDENT=1: the resident kernel;
@@ -34,22 +42,25 @@ Phases, one JSON line each; any failure exits non-zero:
                    paths must show fused_batches >= 1 (fused routes) and
                    host_hashed_lanes == 0. One steady verify_prepared per
                    comb route runs under torch.profiler (the card's busy
-                   and idle share of the call); on q16, verify_batch then
+                   and idle share of the call; no index_select gather
+                   kernel may run in it); on q16, verify_batch then
                    runs in turns on the fused tier and with hashlib
                    (FTPU_FUSED=0).
-  kernel_vs_plain  the tree kernel against its plain torch version on
-                   the card at the main path's shape (the block's
-                   32,768-lane bucket, M = 32 and 64, points gathered
-                   from the providers' tables), the first 4,096 lanes
-                   rewritten into edge cases: all-infinity entries,
-                   P + P, P + (-P), a sum at infinity, premask off, rpn =
-                   x(R) with a wrong r, a wrong r, half the entries at
-                   infinity. The bitmaps must be equal, and equal to
-                   Python-int sums on every edge lane, every bad lane and
-                   256 others. Kernel and plain times are CUDA events
-                   around warmed-up runs; each bound is computed from the
-                   shapes and this run's data (tree_bound, sha_bound,
-                   resident_bound).
+  kernel_vs_plain  both entries of the tree kernel against their plain
+                   torch versions on the card at the main path's shape
+                   (the block's 32,768-lane bucket, M = 32 and 64, windows
+                   and tables of the providers' routes), the first 4,096
+                   lanes made edge cases: all windows 0 (all infinity),
+                   half of them 0, premask off, rpn = x(R) with a wrong r,
+                   a wrong r, a key slot out of range (both entries), and
+                   in the gathered points alone P + P, P + (-P), a sum at
+                   infinity (the points entry). The bitmaps must equal the
+                   plain versions, and Python-int sums on every edge lane,
+                   every bad lane and 256 others. Kernel and plain times
+                   are CUDA events around warmed-up runs, with one row per
+                   threads-per-lane count T in 1, 2, 4, 8; each bound is
+                   computed from the shapes and this run's data
+                   (tree_bound, sha_bound, resident_bound).
   sha_vs_plain     the stage-A kernel (csrc/sha_windows.cu) against its
                    plain torch version at the main path's shape (32,768
                    lanes, NB = 8 blocks for 256-byte messages) at 8/8 and
@@ -63,7 +74,8 @@ Phases, one JSON line each; any failure exits non-zero:
   resident_vs_plain  the resident kernel (csrc/fused_resident.cu) against
                    its plain version and the tiered kernels on the q8 route
                    (3 keys, K = 4) over the same lanes plus the block's bad
-                   lanes; beyond the edge lanes, the expected bitmap.
+                   lanes; beyond the edge lanes, the expected bitmap; its
+                   time at each T in 1, 2, 4, 8.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -89,15 +101,12 @@ sys.path.insert(0, ROOT)
 # lane. A complete add for a = -3 is 14 field multiplies (RCB15 Alg. 4:
 # 12M + 2m_b), the check 2; a 256-bit product is 8 x 8 partial products of
 # 32-bit limbs, a low and a high IMAD each, and P-256's Solinas fold needs
-# no multiply.
+# no multiply. Since the kernels' redesign this is also their own design's
+# multiply count (csrc/p256_field.cuh).
 L = 20
 FIELD_MUL_IMAD = 2 * 8 * 8
 CADD_IMAD = 14 * FIELD_MUL_IMAD
 CHECK_IMAD = 2 * FIELD_MUL_IMAD
-# the kernel's own design (13-bit limbs, RCB15 Alg. 1): 17 mulmods of
-# product, fold_hi and two folds at 2^256, and 23 add/subs of one fold
-DESIGN_MULMOD_IMAD = 2 * L * L + (2 * L - 1) + L
-DESIGN_CADD_IMAD = 17 * DESIGN_MULMOD_IMAD + 23 * (2 * L - 1)
 # H100 SXM: 132 SMs x 64 int32 multiply-adds per clock (CUDA C
 # Programming Guide, arithmetic instruction throughput, cc 9.0) x
 # 1.98 GHz boost; 3.35 TB/s HBM3
@@ -140,19 +149,18 @@ def smi_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def tree_bound(B: int, M: int) -> tuple[float, str, float]:
+def tree_bound(B: int, M: int, extra_bytes: int = 0) -> tuple[float, str]:
     """Least time for the tree kernel's work on these inputs (ms): the
     int32 multiply-adds the function needs over the card's rate, or the
-    bytes it must move (each input read once, the output written once)
-    over HBM bandwidth, whichever is larger; which one; and the time the
-    kernel's own design would take at the same rate."""
+    bytes it must move (each lane's M points read once, r, rpn and
+    premask read once, the output written once, plus `extra_bytes`: the
+    windows entry's windows and key slots) over HBM bandwidth, whichever
+    is larger; and which one."""
     ops = B * ((M - 1) * CADD_IMAD + CHECK_IMAD)
-    design_ops = B * ((M - 1) * DESIGN_CADD_IMAD + 2 * DESIGN_MULMOD_IMAD)
-    nbytes = B * (M * 3 * L * 4 + 2 * L * 4 + 1) + B
+    nbytes = B * (M * 3 * L * 4 + 2 * L * 4 + 1) + B + extra_bytes
     t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes",
-            design_ops / INT32_IMAD_PER_S * 1e3)
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def sha_bound(live_blocks: int, B: int, nwin: int, nbytes_in: int,
@@ -308,7 +316,9 @@ def profile_call(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
             "device_activities": len(by_name),
-            "top_ms": {k[:70]: v for k, v in top}}
+            "top_ms": {k[:70]: v for k, v in top},
+            "gather_kernels": [k[:70] for k in by_name
+                               if "indexselect" in k.lower().replace("_", "")]}
 
 
 def counted(prov, label, need, fn):
@@ -390,6 +400,10 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
             steady.append(time.perf_counter() - t0)
         check_bits(f"{name} verify_prepared", got, blk, sw_bits, sample)
         steady_s = statistics.median(steady)
+        prof = profile_call(lambda: prov.verify_prepared(**pr))
+        check(not prof["gather_kernels"],
+              f"{name}: the commit path ran a gather kernel "
+              f"{prof['gather_kernels']}")
         rec.update({
             "verify_prepared_launches": counts["verify_prepared"],
             "table_build_s": prov.stats["table_build_s"],
@@ -397,8 +411,7 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
             "verify_prepared_steady_s": steady_s,
             "verify_prepared_steady_all_s": steady,
             "sigs_per_s_commit_path": blk["n"] / steady_s,
-            "verify_prepared_profiled": profile_call(
-                lambda: prov.verify_prepared(**pr))})
+            "verify_prepared_profiled": prof})
     got, counts["verify_batch"], delta, batch_s = counted(
         prov, f"{name} verify_batch", batch_need,
         lambda: prov.verify_batch(blk["items"]))
@@ -425,8 +438,11 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
 # -- kernel vs plain --
 
 EDGE_KINDS = ("inf", "p_plus_p", "p_minus_p", "sum_inf", "premask_off",
-              "rpn_hit", "wrong_r", "half_inf")
+              "rpn_hit", "wrong_r", "half_inf", "key_oob")
+# kinds written into the gathered points, which the points entry alone sees
+POINT_KINDS = ("p_plus_p", "p_minus_p", "sum_inf")
 EDGE_LANES = 4096
+T_CHOICES = (1, 2, 4, 8)
 
 
 def _int_sum_chunk(lanes):
@@ -458,9 +474,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
-    """The block's lanes gathered from `prov`'s tables, the first
-    EDGE_LANES of them rewritten into edge cases (kind = lane % 8), run
-    through the kernel and the plain version on the card."""
+    """The block's lanes on `prov`'s route (windows and tables), the
+    first EDGE_LANES made edge cases (kind = lane % 9), through both
+    entries of the tree kernel and their plain versions on the card."""
     import torch
 
     from fabric_tpu_torch.ops import comb, limb, p256, ptree
@@ -473,7 +489,8 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
     for i, k in enumerate(pr["keys"]):
         key_map.setdefault(k.x_bytes().tobytes() + k.y_bytes().tobytes(), i)
     slot[:n] = pr["key_idx"]
-    key_idx, K, q_flat, g16, q16 = prov._resolve_tables(key_map, slot)
+    key_np, K, q_flat, g16, q16 = prov._resolve_tables(key_map, slot)
+    _, g_tab, wbits_g, wbits_q = comb.route_tables(q_flat, g16, q16)
 
     def put(a, shape, dtype):
         out = np.zeros(shape, dtype)
@@ -485,30 +502,37 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
     r, rpn, w = (limb.be_bytes_to_limbs(put(pr[k], (bucket, 32), np.uint8))
                  for k in ("r", "rpn", "w"))
     premask = put(pr["der_ok"], (bucket,), bool)
-    pts = comb.comb_points(words, torch.from_numpy(key_idx).to(dev), q_flat,
-                           r, w, g16=g16, q16=q16).contiguous()
-    M = pts.shape[1]
+    key = torch.from_numpy(key_np).to(dev)
+    w1, w2 = comb.comb_windows(words, r, w, wbits_g, wbits_q)
+    M = w1.shape[1] + w2.shape[1]
     check(M == M_expect, f"route gives M={M}, expected {M_expect}")
 
-    # edge lanes: lane i < EDGE_LANES takes kind i % 8
+    # edge lanes: lane i < EDGE_LANES takes kind i % 9; first the kinds
+    # both entries see (windows, key slots, premask)
     E = EDGE_LANES
     kinds = np.arange(E) % len(EDGE_KINDS)
     at = {k: torch.from_numpy(np.nonzero(kinds == j)[0]).to(dev)
           for j, k in enumerate(EDGE_KINDS)}
+    for wt in (w1, w2):
+        wt[at["inf"]] = 0
+        wt[at["half_inf"], ::2] = 0
+    premask[at["premask_off"]] = False
+    # the points entry gathers the lane's own key slot; the windows entry
+    # is handed a slot out of range and must reject without reading
+    pts = ptree.gather_rows(w1, w2, key, g_tab, q_flat, K, wbits_g,
+                            wbits_q).contiguous()
+    key[at["key_oob"]] = K
+    wargs = (w1, w2, key, g_tab, q_flat, K, wbits_g, wbits_q)
 
+    # then the kinds written into the gathered points (the points entry)
     def neg_y(y):
         return p256.FP.canonical(p256.FP.submod(torch.zeros_like(y), y))
 
-    pts[at["inf"]] = 0
-    pts[at["inf"], :, 1, 0] = 1
     pts[at["p_plus_p"], 1] = pts[at["p_plus_p"], 0]
     pts[at["p_minus_p"], 1] = pts[at["p_minus_p"], 0]
     pts[at["p_minus_p"], 1, 1] = neg_y(pts[at["p_minus_p"], 0, 1])
     pts[at["sum_inf"], 1::2] = pts[at["sum_inf"], 0::2]
     pts[at["sum_inf"], 1::2, 1] = neg_y(pts[at["sum_inf"], 0::2, 1])
-    pts[at["half_inf"], ::2] = 0
-    pts[at["half_inf"], ::2, 1, 0] = 1
-    premask[at["premask_off"]] = False
 
     # Python-int sums: every edge lane, every bad lane, 256 other lanes
     rng = blk["rng"]
@@ -522,7 +546,7 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
         kind, x = EDGE_KINDS[kinds[lane]], x_of[lane]
         if x is None:
             continue
-        if kind in ("p_plus_p", "p_minus_p", "half_inf"):
+        if kind in ("p_plus_p", "p_minus_p", "half_inf", "key_oob"):
             rv = x % p256.N
             r_h[lane] = limb.int_to_limbs(rv)
             rpn_h[lane] = limb.int_to_limbs(
@@ -535,46 +559,80 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
                 (limb.limbs_to_int(r_h[lane]) + 1) % p256.N)
     r[:E] = torch.from_numpy(r_h).to(dev)
     rpn[:E] = torch.from_numpy(rpn_h).to(dev)
+    targs = (r, rpn, premask)
 
-    got_k = ptree.tree_verify_points(pts, r, rpn, premask)
-    got_p = ptree.tree_verify_plain(pts, r, rpn, premask)
+    got = {"points": ptree.tree_verify_points(pts, *targs),
+           "windows": ptree.tree_verify_windows(*wargs, *targs)}
+    plain = {"points": ptree.tree_verify_plain(pts, *targs),
+             "windows": ptree.tree_verify_windows_plain(*wargs, *targs)}
     torch.cuda.synchronize()
-    k_h, p_h = got_k.cpu().numpy(), got_p.cpu().numpy()
-    max_abs_err = int(np.abs(k_h.astype(np.int64) - p_h).max())
-    check(max_abs_err == 0,
-          f"M={M}: kernel != plain at lanes "
-          f"{np.nonzero(k_h != p_h)[0][:10].tolist()}")
+    k_h = {e: t.cpu().numpy() for e, t in got.items()}
+    max_abs_err = 0
+    for e in got:
+        p_h = plain[e].cpu().numpy()
+        err = int(np.abs(k_h[e].astype(np.int64) - p_h).max())
+        check(err == 0, f"M={M} {e} entry: kernel != plain at lanes "
+              f"{np.nonzero(k_h[e] != p_h)[0][:10].tolist()}")
+        max_abs_err = max(max_abs_err, err)
 
-    pm_h, r_c, rpn_c = (t.cpu().numpy() for t in (premask, r, rpn))
+    pm_h, r_c, rpn_c, key_h = (t.cpu().numpy() for t in (premask, r, rpn,
+                                                         key))
     accept_kinds = {"p_plus_p", "p_minus_p", "half_inf", "rpn_hit"}
     for lane, x in x_of.items():
+        kind = EDGE_KINDS[kinds[lane]] if lane < E else None
         want = (bool(pm_h[lane]) and x is not None and x in (
             limb.limbs_to_int(r_c[lane]), limb.limbs_to_int(rpn_c[lane])))
-        check(bool(k_h[lane]) == want,
-              f"M={M} lane {lane}: kernel {bool(k_h[lane])} != ints {want}")
-        if lane < E and bool(pm_h[lane]):
-            check(want == (EDGE_KINDS[kinds[lane]] in accept_kinds),
-                  f"M={M} edge lane {lane} ({EDGE_KINDS[kinds[lane]]}) "
-                  f"gave {want}")
+        check(bool(k_h["points"][lane]) == want,
+              f"M={M} lane {lane}: points entry {bool(k_h['points'][lane])}"
+              f" != ints {want}")
+        if kind not in POINT_KINDS:
+            want_w = want and 0 <= key_h[lane] < K
+            check(bool(k_h["windows"][lane]) == want_w,
+                  f"M={M} lane {lane}: windows entry "
+                  f"{bool(k_h['windows'][lane])} != ints {want_w}")
+        if kind is not None and kind != "key_oob" and bool(pm_h[lane]):
+            check(want == (kind in accept_kinds),
+                  f"M={M} edge lane {lane} ({kind}) gave {want}")
+    check(not k_h["windows"][:E][kinds == EDGE_KINDS.index("key_oob")].any(),
+          f"M={M}: a key slot out of range accepted")
     exp = np.zeros(bucket, bool)
     exp[:n] = blk["expected"]
-    check(bool((k_h[E:] == exp[E:]).all()),
-          f"M={M}: kernel != expected bitmap beyond the edge lanes")
+    for e in got:
+        check(bool((k_h[e][E:] == exp[E:]).all()),
+              f"M={M}: {e} entry != expected bitmap beyond the edge lanes")
 
-    ms = cuda_ms(lambda: ptree.tree_verify_points(pts, r, rpn, premask), 10)
-    plain_ms = cuda_ms(lambda: ptree.tree_verify_plain(pts, r, rpn, premask),
-                       2)
-    bound_ms, bound_by, design_ms = tree_bound(bucket, M)
+    # one row per threads-per-lane count; the wrappers' own T is timed
+    # again for the kernels line
+    by_t = {}
+    for T in T_CHOICES:
+        for e, fn in (("points", lambda: ptree.tree_verify_points(
+                pts, *targs, threads_per_lane=T)),
+                      ("windows", lambda: ptree.tree_verify_windows(
+                          *wargs, *targs, threads_per_lane=T))):
+            check(torch.equal(fn(), plain[e]), f"M={M} T={T}: {e} entry "
+                  "!= plain")
+            by_t.setdefault(T, {})[f"{e}_ms"] = cuda_ms(fn, 10)
+    ms = cuda_ms(lambda: ptree.tree_verify_windows(*wargs, *targs), 10)
+    points_ms = cuda_ms(lambda: ptree.tree_verify_points(pts, *targs), 10)
+    plain_ms = cuda_ms(lambda: ptree.tree_verify_windows_plain(
+        *wargs, *targs), 2)
+    bound_ms, bound_by = tree_bound(bucket, M, bucket * (M + 1) * 4)
+    t_used = ptree.THREADS_PER_LANE
     emit({"phase": "kernel_vs_plain", "M": M, "lanes": bucket, "ok": True,
-          "card": card, "edge_lanes": E,
-          "edge_accepts": {k: int(k_h[:E][kinds == j].sum())
-                           for j, k in enumerate(EDGE_KINDS)},
-          "int_checked_lanes": len(x_of), "accepts": int(k_h.sum()),
-          "max_abs_err": max_abs_err, "kernel_ms": ms, "plain_ms": plain_ms,
+          "card": card, "edge_lanes": E, "threads_per_lane": t_used,
+          "edge_accepts": {e: {k: int(k_h[e][:E][kinds == j].sum())
+                               for j, k in enumerate(EDGE_KINDS)}
+                           for e in k_h},
+          "int_checked_lanes": len(x_of),
+          "accepts": {e: int(v.sum()) for e, v in k_h.items()},
+          "max_abs_err": max_abs_err, "windows_ms": ms,
+          "points_ms": points_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by,
-          "design_imad_ms": design_ms})
+          "share_of_bound": bound_ms / ms, "ms_by_threads_per_lane": by_t})
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, threads_per_lane=t_used,
+                points_entry_ms=points_ms)
 
 
 # -- stage A and the resident kernel vs plain --
@@ -766,20 +824,68 @@ def resident_vs_plain(st, blk, card):
     nbytes_in = live_blocks * 64 + B * (4 + 32 + 1 + 4 + 3 * L * 4 + 1)
     bound_ms, bound_by = resident_bound(live_blocks, B, live_lanes,
                                         nbytes_in)
-    res = dict(max_abs_err=err,
-               ms=cuda_ms(lambda: fv.fused_verify_resident(*args), 5),
+    by_t = {}
+    for T in T_CHOICES:
+        check(torch.equal(fv.fused_verify_resident(
+            *args, threads_per_lane=T), plain),
+              f"resident T={T}: kernel != plain")
+        by_t[T] = cuda_ms(lambda: fv.fused_verify_resident(
+            *args, threads_per_lane=T), 5)
+    ms = cuda_ms(lambda: fv.fused_verify_resident(*args), 5)
+    res = dict(max_abs_err=err, ms=ms,
                plain_ms=cuda_ms(lambda: fv.resident_plain(
                    st["blocks"], st["nblocks"], st["key_idx"], st["q_flat"],
                    r_l, rpn_l, w_l, st["premask"], st["digests"],
                    st["has_digest"], g8), 2),
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms,
+               threads_per_lane=fv.RESIDENT_THREADS_PER_LANE)
     emit({"phase": "resident_vs_plain", "ok": True, "card": card, "lanes": B,
           "K": st["K"], "accepts": int(kh.sum()), "live_lanes": live_lanes,
           "bad_lanes": len(blk["kind_of"]), "edge_lanes": N_EDGE,
           "table_bytes": fv.resident_table_bytes(st["K"]),
           "tiered_ms": cuda_ms(lambda: fv.fused_verify_with_tables(*args), 5),
-          **res})
+          "ms_by_threads_per_lane": by_t, **res})
     return res
+
+
+def field_vs_ints(card, seed: int) -> None:
+    """The nvcc-built field core against Python ints (ptree.field_selftest
+    and its plain version): edge operands in 13-bit form, every pair, and
+    seeded random ones; Alg. 4 on the edge point pairs and random points.
+    Every output word must be equal."""
+    import torch
+
+    from fabric_tpu_torch.ops import limb, p256, ptree
+
+    P = p256.P
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, P - 1, P, P + 1, (1 << 256) - 1,
+             (1 << 256) + (1 << 243) - 1]
+    rand = [int.from_bytes(rng.bytes(32), "big") for _ in range(512)]
+    pairs = [(a, b) for a in edges for b in edges] + list(
+        zip(rand[::2], rand[1::2]))
+    a13 = limb.ints_to_limbs([a for a, _ in pairs])
+    b13 = limb.ints_to_limbs([b for _, b in pairs])
+    g = (p256.GX, p256.GY, 1)
+    pts = [p256.scalar_mul_int(int(k), g) for k in rng.integers(1, 1 << 62,
+                                                                 size=64)]
+    inf, neg_g = (0, 1, 0), (p256.GX, P - p256.GY, 1)
+    adds = [(g, g), (g, neg_g), (g, inf), (inf, inf)] + list(
+        zip(pts[::2], pts[1::2]))
+
+    def rows(ps):
+        return np.stack([np.concatenate([limb.int_to_limbs(c % P)
+                                         for c in q]) for q in ps])
+    cpu = [torch.as_tensor(x) for x in (a13, b13, rows(a for a, _ in adds),
+                                        rows(b for _, b in adds))]
+    got = ptree.field_selftest(*(x.cuda() for x in cpu))
+    want = ptree.field_selftest_plain(*cpu)
+    torch.cuda.synchronize()
+    bad = [int((g_.cpu() != w_).any(dim=1).sum()) for g_, w_ in zip(got, want)]
+    check(bad == [0, 0], f"field core != Python ints on {bad} cases")
+    emit({"phase": "field_vs_ints", "ok": True, "card": card,
+          "op_cases": len(pairs), "add_cases": len(adds), "mismatches": 0})
 
 
 def drive(args, pool, nproc, card):
@@ -787,6 +893,7 @@ def drive(args, pool, nproc, card):
     comparison; returns the kernels line's entries."""
     from fabric_tpu_torch.bccsp import factory
 
+    field_vs_ints(card, args.seed)
     blk = make_block(args.seed, args.txs, pool, nproc)
     emit({"phase": "block", "ok": True, "lanes": blk["n"],
           "bad_lanes": {k: sum(1 for v in blk["kind_of"].values()
@@ -846,10 +953,10 @@ def drive(args, pool, nproc, card):
 
     src = "fabric_tpu_torch/csrc/"
     return [
-        dict(name="ptree.tree_verify_points (M=32)", source=src + "ptree.cu",
+        dict(name="ptree.tree_verify_windows (M=32)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
              launches=n(c16, TREE), **tree32),
-        dict(name="ptree.tree_verify_points (M=64)", source=src + "ptree.cu",
+        dict(name="ptree.tree_verify_windows (M=64)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
              launches=n(c8, TREE) + n(csha, TREE), **tree64),
         dict(name="fused_verify.sha_windows (16/16)",
@@ -897,7 +1004,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-          "ptxas": {k: kernels.ptxas_report(k) for k in kernels.KERNELS}})
+          "ptxas": {k: kernels.ptxas_report(k) for k in kernels.KERNELS},
+          "sass": {k: kernels.sass_mix(k) for k in ("ptree",
+                                                    "fused_resident")}})
 
     nproc = os.cpu_count() or 1
     with mp.get_context("spawn").Pool(nproc) as pool:

@@ -1,0 +1,57 @@
+// A self-test of the P-256 field core (p256_field.cuh) on the card: per
+// case, the same bodies the host build of the header runs in
+// tests/test_torch_p256_field_host.py, so that the nvcc-built core is held
+// to Python ints on the same edge operands. Not a port of a TPU kernel and
+// not on any verify path; ops/ptree.py field_selftest launches it.
+//
+//   cases i < n_ops: a13, b13 (n_ops, 20) int32 13-bit limbs -> out_ops
+//     (n_ops, 32) uint32: a mod p, a + b, a - b, a * b (canonical words);
+//   cases n_ops + j < n_ops + n_add: p13, q13 (n_add, 60) int32 points ->
+//     out_add (n_add, 24) uint32: X3, Y3, Z3 of RCB15 Alg. 4.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "p256_field.cuh"
+
+namespace {
+
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS)
+field_selftest_kernel(const int* __restrict__ a13,
+                      const int* __restrict__ b13, int n_ops,
+                      const int* __restrict__ p13,
+                      const int* __restrict__ q13, int n_add,
+                      uint32_t* __restrict__ out_ops,
+                      uint32_t* __restrict__ out_add) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_ops) {
+    fe_selftest_ops(a13 + 20 * i, b13 + 20 * i, out_ops + 32 * i);
+  } else if (i - n_ops < n_add) {
+    const int j = i - n_ops;
+    fe_selftest_add(p13 + 60 * j, q13 + 60 * j, out_add + 24 * j);
+  }
+}
+
+}  // namespace
+
+// Enqueues the kernel on `stream`; returns cudaGetLastError().
+extern "C" int field_selftest_launch(const void* a13, const void* b13,
+                                     int n_ops, const void* p13,
+                                     const void* q13, int n_add,
+                                     void* out_ops, void* out_add,
+                                     void* stream) {
+  const int n = n_ops + n_add;
+  if (n <= 0) return 0;
+  field_selftest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(a13), static_cast<const int*>(b13), n_ops,
+      static_cast<const int*>(p13), static_cast<const int*>(q13), n_add,
+      static_cast<uint32_t*>(out_ops), static_cast<uint32_t*>(out_add));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* field_selftest_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

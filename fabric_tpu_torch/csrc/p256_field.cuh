@@ -1,0 +1,394 @@
+// The P-256 base field and its complete addition on 32-bit limbs, shared by
+// the tree kernel (ptree.cu) and the resident kernel (fused_resident.cu).
+//
+// A field element is 8 little-endian uint32_t words holding any value in
+// [0, 2^256) of its residue class (p < 2^256 < 2p, so a value has at most
+// two forms): add, sub and mul take and return such values, and only
+// fe_canonical, used by the check and the self-test, subtracts p once to
+// reach [0, p); no operation spends a compare-and-select on it. Every
+// function is __forceinline__ and works on values and fixed-size arrays
+// indexed only by compile-time constants (the loops are fully unrolled),
+// so that nothing reaches the stack: the operands live in registers. The
+// code is portable C++ (uint64_t accumulators, no inline PTX), so the host
+// compiler builds the same header for tests/test_torch_p256_field_host.py;
+// carry chains in PTX are a later tuning.
+//
+// The rest of the port speaks 13-bit limbs: 20 little-endian int32 limbs,
+// semi-reduced (limbs in [0, 2^13], value < 2^256 + 2^243), as the comb
+// tables, r and rpn are laid out. fe_from13 converts them on load.
+//
+// Multiplication: an 8 x 8 schoolbook product to 16 words, then P-256's
+// Solinas reduction (FIPS 186-4 D.2.3, s1 + 2s2 + 2s3 + s4 + s5 - d1 - d2
+// - d3 - d4) in signed 64-bit column sums, and the carry out of bit 256
+// folded back with 2^256 == d = 2^224 - 2^192 - 2^96 + 1 (mod p). Add and
+// sub fold their carry or borrow the same way.
+//
+// Complete addition: RCB15 (Renes, Costello, Batina, "Complete addition
+// formulas for prime order elliptic curves", 2015) Algorithm 4, for
+// a = -3: 12 multiplications, 2 by the constant b, 29 additions. It has no
+// exceptional cases (P + P, P + (-P), P + inf, inf + inf), and its output
+// may alias its inputs.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+struct Fe {
+  uint32_t w[8];
+};
+
+struct Pt {
+  Fe X, Y, Z;
+};
+
+// p = 2^256 - 2^224 + 2^192 + 2^96 - 1, word i
+__host__ __device__ __forceinline__ constexpr uint32_t fe_p_word(int i) {
+  return i < 3 ? 0xFFFFFFFFu : i < 6 ? 0u : i == 6 ? 1u : 0xFFFFFFFFu;
+}
+
+// d = 2^256 - p = 2^224 - 2^192 - 2^96 + 1, word i: 2^256 == d (mod p)
+__host__ __device__ __forceinline__ constexpr uint32_t fe_d_word(int i) {
+  return i == 0 ? 1u : i < 3 ? 0u : i < 6 ? 0xFFFFFFFFu
+                                         : i == 6 ? 0xFFFFFFFEu : 0u;
+}
+
+// the curve constant b, word i
+__host__ __device__ __forceinline__ constexpr uint32_t fe_b_word(int i) {
+  return i == 0   ? 0x27D2604Bu
+         : i == 1 ? 0x3BCE3C3Eu
+         : i == 2 ? 0xCC53B0F6u
+         : i == 3 ? 0x651D06B0u
+         : i == 4 ? 0x769886BCu
+         : i == 5 ? 0xB3EBBD55u
+         : i == 6 ? 0xAA3A93E7u
+                  : 0x5AC635D8u;
+}
+
+__device__ __forceinline__ Fe fe_zero() {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_b() {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = fe_b_word(i);
+  return r;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.w[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.w[i] ^ b.w[i];
+  return acc == 0;
+}
+
+// x in [0, 2^256) -> x mod p in [0, p): one conditional subtraction
+// (2^256 < 2p).
+__device__ __forceinline__ Fe fe_canonical(const Fe& x) {
+  Fe t;
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t d = static_cast<int64_t>(x.w[i]) - fe_p_word(i) + br;
+    t.w[i] = static_cast<uint32_t>(d);
+    br = d >> 32;                     // 0 or -1
+  }
+  const bool keep = br != 0;          // x < p
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = keep ? x.w[i] : t.w[i];
+  return r;
+}
+
+// Signed column sums (each well inside int64) -> words; returns the signed
+// carry out of bit 256.
+__device__ __forceinline__ int64_t fe_carry_cols(Fe& r,
+                                                 const int64_t (&c)[8]) {
+  int64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t s = c[i] + carry;
+    r.w[i] = static_cast<uint32_t>(s);
+    carry = s >> 32;                  // arithmetic: floor division
+  }
+  return carry;
+}
+
+// x + t * 2^256 with |t| < 2^31, as columns of x + t * (2^224 - 2^192 -
+// 2^96 + 1).
+__device__ __forceinline__ int64_t fe_fold_top(Fe& x, int64_t t) {
+  int64_t c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = x.w[i];
+  c[0] += t;
+  c[3] -= t;
+  c[6] -= t;
+  c[7] += t;
+  return fe_carry_cols(x, c);
+}
+
+// x + t * 2^256 (mod p) -> [0, 2^256), for x in [0, 2^256) and
+// |t| <= 2^12. The first fold leaves a value in (-2^237, 2^256 + 2^237),
+// so its carry t2 is -1, 0 or 1; folding t2 once more (rarely needed, so a
+// branch) lands in [0, 2^256): t2 = 1 left low words below 2^237, t2 = -1
+// left them above 2^256 - 2^237, and the fold moves them by less than
+// 2^224.
+__device__ __forceinline__ Fe fe_reduce_top(Fe x, int64_t t) {
+  const int64_t t2 = fe_fold_top(x, t);
+  if (t2 != 0) fe_fold_top(x, t2);
+  return x;
+}
+
+// x + (d & m), one pass; returns the carry out of bit 256.
+__device__ __forceinline__ uint64_t fe_add_d_pass(Fe& x, uint32_t m) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c += static_cast<uint64_t>(x.w[i]) + (fe_d_word(i) & m);
+    x.w[i] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  return c;
+}
+
+// x - (d & m), one pass; returns the borrow (0 or -1).
+__device__ __forceinline__ int64_t fe_sub_d_pass(Fe& x, uint32_t m) {
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t t = static_cast<int64_t>(x.w[i]) - (fe_d_word(i) & m) + br;
+    x.w[i] = static_cast<uint32_t>(t);
+    br = t >> 32;
+  }
+  return br;
+}
+
+// x + d (m all ones) or x (m zero), for x in [0, 2^256), mod p: a carry out
+// of bit 256 leaves x + d - 2^256 < d, and adding d once more (rare, so a
+// branch) cannot carry.
+__device__ __forceinline__ void fe_add_d(Fe& x, uint32_t m) {
+  if (fe_add_d_pass(x, m) != 0) fe_add_d_pass(x, 0xFFFFFFFFu);
+}
+
+// x - d (m all ones) or x (m zero), mod p: a borrow leaves x - d + 2^256
+// >= 2^256 - d, and subtracting d once more (rare) cannot borrow.
+__device__ __forceinline__ void fe_sub_d(Fe& x, uint32_t m) {
+  if (fe_sub_d_pass(x, m) != 0) fe_sub_d_pass(x, 0xFFFFFFFFu);
+}
+
+// a + b: a carry out of bit 256 is worth d (mod p)
+__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
+  Fe s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c += static_cast<uint64_t>(a.w[i]) + b.w[i];
+    s.w[i] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  fe_add_d(s, 0u - static_cast<uint32_t>(c));
+  return s;
+}
+
+// a - b: a borrow from bit 256 is worth -d (mod p), the multiple-of-p
+// offset that brings the difference back into [0, 2^256)
+__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
+  Fe r;
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t d = static_cast<int64_t>(a.w[i]) - b.w[i] + br;
+    r.w[i] = static_cast<uint32_t>(d);
+    br = d >> 32;
+  }
+  fe_sub_d(r, static_cast<uint32_t>(br));
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  uint32_t c[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) c[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t t = static_cast<uint64_t>(a.w[i]) * b.w[j] + c[i + j] +
+                         carry;
+      c[i + j] = static_cast<uint32_t>(t);
+      carry = t >> 32;
+    }
+    c[i + 8] = static_cast<uint32_t>(carry);
+  }
+  // Solinas: s1 + 2s2 + 2s3 + s4 + s5 - d1 - d2 - d3 - d4, by word
+  int64_t v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = c[k];
+  int64_t col[8];
+  col[0] = v[0] + v[8] + v[9] - v[11] - v[12] - v[13] - v[14];
+  col[1] = v[1] + v[9] + v[10] - v[12] - v[13] - v[14] - v[15];
+  col[2] = v[2] + v[10] + v[11] - v[13] - v[14] - v[15];
+  col[3] = v[3] + 2 * (v[11] + v[12]) + v[13] - v[15] - v[8] - v[9];
+  col[4] = v[4] + 2 * (v[12] + v[13]) + v[14] - v[9] - v[10];
+  col[5] = v[5] + 2 * (v[13] + v[14]) + v[15] - v[10] - v[11];
+  col[6] = v[6] + 3 * v[14] + 2 * v[15] + v[13] - v[8] - v[9];
+  col[7] = v[7] + 3 * v[15] + v[8] - v[10] - v[11] - v[12] - v[13];
+  Fe r;
+  const int64_t top = fe_carry_cols(r, col);     // in [-4, 6]
+  return fe_reduce_top(r, top);
+}
+
+// 20 semi-reduced 13-bit limbs (each in [0, 2^13], so a limb may carry into
+// the next) -> [0, 2^256). Word j gathers the limbs that start in its 32
+// bits, shifted into place, plus the carry from word j - 1; the bits past
+// 256 (below 2^6 for these inputs) fold back.
+__device__ __forceinline__ Fe fe_from13(const int* l) {
+  Fe r;
+  uint64_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 20; ++i) {
+      if (13 * i >= 32 * j && 13 * i < 32 * (j + 1))
+        acc += static_cast<uint64_t>(static_cast<uint32_t>(l[i]))
+               << (13 * i - 32 * j);
+    }
+    r.w[j] = static_cast<uint32_t>(acc);
+    acc >>= 32;
+  }
+  return fe_reduce_top(r, static_cast<int64_t>(acc));
+}
+
+// (8,) big-endian words, word 0 the most significant -> a field element
+// (a value below 2^256; r and rpn are canonical)
+__device__ __forceinline__ Fe fe_from_be_words(const uint32_t (&words)[8]) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = words[7 - i];
+  return r;
+}
+
+__device__ __forceinline__ Pt pt_infinity() {
+  Pt p;
+  p.X = fe_zero();
+  p.Y = fe_zero();
+  p.Y.w[0] = 1;
+  p.Z = fe_zero();
+  return p;
+}
+
+// RCB15 Algorithm 4 (a = -3), step for step; out may alias p or q.
+__device__ __forceinline__ void pt_add(Pt& out, const Pt& p, const Pt& q) {
+  const Fe b = fe_b();
+  Fe t0 = fe_mul(p.X, q.X);                 // 1
+  Fe t1 = fe_mul(p.Y, q.Y);                 // 2
+  Fe t2 = fe_mul(p.Z, q.Z);                 // 3
+  Fe t3 = fe_add(p.X, p.Y);                 // 4
+  Fe t4 = fe_add(q.X, q.Y);                 // 5
+  t3 = fe_mul(t3, t4);                      // 6
+  t4 = fe_add(t0, t1);                      // 7
+  t3 = fe_sub(t3, t4);                      // 8
+  t4 = fe_add(p.Y, p.Z);                    // 9
+  Fe X3 = fe_add(q.Y, q.Z);                 // 10
+  t4 = fe_mul(t4, X3);                      // 11
+  X3 = fe_add(t1, t2);                      // 12
+  t4 = fe_sub(t4, X3);                      // 13
+  X3 = fe_add(p.X, p.Z);                    // 14
+  Fe Y3 = fe_add(q.X, q.Z);                 // 15
+  X3 = fe_mul(X3, Y3);                      // 16
+  Y3 = fe_add(t0, t2);                      // 17
+  Y3 = fe_sub(X3, Y3);                      // 18
+  Fe Z3 = fe_mul(b, t2);                    // 19
+  X3 = fe_sub(Y3, Z3);                      // 20
+  Z3 = fe_add(X3, X3);                      // 21
+  X3 = fe_add(X3, Z3);                      // 22
+  Z3 = fe_sub(t1, X3);                      // 23
+  X3 = fe_add(t1, X3);                      // 24
+  Y3 = fe_mul(b, Y3);                       // 25
+  t1 = fe_add(t2, t2);                      // 26
+  t2 = fe_add(t1, t2);                      // 27
+  Y3 = fe_sub(Y3, t2);                      // 28
+  Y3 = fe_sub(Y3, t0);                      // 29
+  t1 = fe_add(Y3, Y3);                      // 30
+  Y3 = fe_add(t1, Y3);                      // 31
+  t1 = fe_add(t0, t0);                      // 32
+  t0 = fe_add(t1, t0);                      // 33
+  t0 = fe_sub(t0, t2);                      // 34
+  t1 = fe_mul(t4, Y3);                      // 35
+  t2 = fe_mul(t0, Y3);                      // 36
+  Y3 = fe_mul(X3, Z3);                      // 37
+  Y3 = fe_add(Y3, t2);                      // 38
+  X3 = fe_mul(t3, X3);                      // 39
+  X3 = fe_sub(X3, t1);                      // 40
+  Z3 = fe_mul(t4, Z3);                      // 41
+  t1 = fe_mul(t3, t0);                      // 42
+  Z3 = fe_add(Z3, t1);                      // 43
+  out.X = X3;
+  out.Y = Y3;
+  out.Z = Z3;
+}
+
+// The verify check on R = (X : Y : Z): Z != 0 and X == r*Z or X == rpn*Z
+// (mod p), compared in canonical form. Invariant under projective scaling
+// of R.
+__device__ __forceinline__ bool pt_check(const Pt& R, const Fe& r,
+                                         const Fe& rpn) {
+  const Fe x = fe_canonical(R.X);
+  const bool ok1 = fe_eq(x, fe_canonical(fe_mul(r, R.Z)));
+  const bool ok2 = fe_eq(x, fe_canonical(fe_mul(rpn, R.Z)));
+  return !fe_is_zero(fe_canonical(R.Z)) && (ok1 || ok2);
+}
+
+// The self-test's per-case bodies, run by field_selftest.cu on the card and
+// by the host build in the tests. ops: a and b in 13-bit limbs -> out[0:8]
+// a mod p, [8:16] a + b, [16:24] a - b, [24:32] a * b, canonical words
+// (the operations chained as the kernels chain them, on the converted
+// values, which may be >= p).
+__device__ __forceinline__ void fe_selftest_ops(const int* a13, const int* b13,
+                                                uint32_t* out) {
+  const Fe a = fe_from13(a13);
+  const Fe b = fe_from13(b13);
+  const Fe res[4] = {fe_canonical(a), fe_canonical(fe_add(a, b)),
+                     fe_canonical(fe_sub(a, b)),
+                     fe_canonical(fe_mul(a, b))};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[8 * k + i] = res[k].w[i];
+}
+
+// add: two points of 3 x 20 13-bit limbs -> out[0:24] X3, Y3, Z3 words
+__device__ __forceinline__ void fe_selftest_add(const int* p13, const int* q13,
+                                                uint32_t* out) {
+  Pt p, q;
+  p.X = fe_from13(p13);
+  p.Y = fe_from13(p13 + 20);
+  p.Z = fe_from13(p13 + 40);
+  q.X = fe_from13(q13);
+  q.Y = fe_from13(q13 + 20);
+  q.Z = fe_from13(q13 + 40);
+  pt_add(p, p, q);                          // aliased output on purpose
+  const Fe X = fe_canonical(p.X), Y = fe_canonical(p.Y),
+           Z = fe_canonical(p.Z);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    out[i] = X.w[i];
+    out[8 + i] = Y.w[i];
+    out[16 + i] = Z.w[i];
+  }
+}
+
+}  // namespace

@@ -76,11 +76,16 @@ sha_windows_kernel(const uint32_t* __restrict__ blocks,
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  uint32_t words[8];
-  int u1[L], u2[L];
-  sha_scalars(lane, blocks, NB, nblocks, digests, has_digest, r, w, Cn, K,
-              words, u1, u2);
   const size_t b = static_cast<size_t>(lane);
+  uint32_t words[8];
+  int rl[L], wl[L], u1[L], u2[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    rl[i] = r[b * L + i];
+    wl[i] = w[b * L + i];
+  }
+  sha_scalars(lane, blocks, NB, nblocks, digests, has_digest, rl, wl, Cn, K,
+              words, u1, u2);
   windows<WG>(w1 + b * (256 / WG), u1);
   windows<WQ>(w2 + b * (256 / WQ), u2);
 #pragma unroll

@@ -27,6 +27,21 @@ __device__ __forceinline__ void words_to_limbs(int (&e)[L],
   }
 }
 
+// (32,) big-endian bytes of a 256-bit value (16-byte aligned) -> (8,)
+// big-endian words, word 0 the most significant, as the digest words.
+__device__ __forceinline__ void be_bytes_to_words(uint32_t (&words)[8],
+                                                  const uint8_t* src) {
+  const uint4* v = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 q = __ldg(v + h);
+    const uint32_t part[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      words[4 * h + k] = __byte_perm(part[k], 0, 0x0123);   // byte swap
+  }
+}
+
 // Window i of WB bits of a canonical scalar: bits [i*WB, (i+1)*WB), which
 // span at most three 13-bit limbs for WB <= 16 (a 16-bit window can start
 // near a limb's top and take two more; the last one spans limbs 18-19).
@@ -49,14 +64,14 @@ __device__ __forceinline__ void windows(int* __restrict__ out,
 
 // Lane `lane`'s digest words, u1 and u2. blocks (B, NB, 16) words,
 // nblocks (B,) live counts, digests (B, 8) words taken where has_digest
-// is set, r and w (B, 20) canonical limbs; Cn the packed mod-n constants
-// and K the SHA constants, both in shared memory.
+// is set; rl and wl the lane's r and w as canonical limbs; Cn the packed
+// mod-n constants and K the SHA constants, both in shared memory.
 __device__ __forceinline__ void sha_scalars(
     int lane, const uint32_t* __restrict__ blocks, int NB,
     const int* __restrict__ nblocks, const uint32_t* __restrict__ digests,
-    const uint8_t* __restrict__ has_digest, const int* __restrict__ r,
-    const int* __restrict__ w, const int* Cn, const uint32_t* K,
-    uint32_t (&words)[8], int (&u1)[L], int (&u2)[L]) {
+    const uint8_t* __restrict__ has_digest, int (&rl)[L], int (&wl)[L],
+    const int* Cn, const uint32_t* K, uint32_t (&words)[8], int (&u1)[L],
+    int (&u2)[L]) {
   const size_t b = static_cast<size_t>(lane);
   if (has_digest[b]) {
 #pragma unroll
@@ -65,13 +80,8 @@ __device__ __forceinline__ void sha_scalars(
     const int live = min(max(nblocks[b], 0), NB);
     sha256_lane(words, blocks + b * NB * 16, live, K);
   }
-  int e[L], rl[L], wl[L], t[L];
+  int e[L], t[L];
   words_to_limbs(e, words);
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    rl[i] = r[b * L + i];
-    wl[i] = w[b * L + i];
-  }
   mulmod(t, e, wl, Cn);
   canonical(u1, t, Cn);
   mulmod(t, rl, wl, Cn);

@@ -11,6 +11,8 @@ report beside the library as <name>.ptxas.log.
 
 Nothing here runs at import: `load` builds on first use, and
 `build_all` (used by chip_smoke.py) starts one nvcc per source at once.
+`sass_mix` counts a built library's SASS instructions by opcode
+(`cuobjdump -sass`), the instruction mix PERF.md reads.
 """
 
 from __future__ import annotations
@@ -31,9 +33,18 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "ptree": ("ptree.cu", {
-        # pts, r, rpn, premask, consts, out, B, M, stream -> cudaError_t
-        "ptree_verify_launch": ([_VOIDP] * 6 + [_INT, _INT, _VOIDP], _INT),
+        # pts, r, rpn, premask, out, B, M, T, stream -> cudaError_t
+        "ptree_verify_launch": ([_VOIDP] * 5 + [_INT] * 3 + [_VOIDP], _INT),
+        # w1, w2, key_idx, g_tab, q_tab, r, rpn, premask, out, B, K,
+        # wbits_g, wbits_q, T, stream -> cudaError_t
+        "ptree_windows_launch": ([_VOIDP] * 9 + [_INT] * 5 + [_VOIDP], _INT),
         "ptree_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "field_selftest": ("field_selftest.cu", {
+        # a13, b13, n_ops, p13, q13, n_add, out_ops, out_add, stream
+        "field_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2
+                                  + [_INT] + [_VOIDP] * 3, _INT),
+        "field_selftest_error_string": ([_INT], ctypes.c_char_p),
     }),
     "sha_windows": ("sha_windows.cu", {
         # blocks, nblocks, digests, has_digest, r, w, consts_n, shc, w1,
@@ -45,9 +56,9 @@ KERNELS = {
     }),
     "fused_resident": ("fused_resident.cu", {
         # blocks, nblocks, digests, has_digest, key_idx, r, rpn, w,
-        # premask, consts_n, consts_p, shc, g_tab, q_tab, out, B, NB, K,
-        # stream -> cudaError_t
-        "fused_resident_launch": ([_VOIDP] * 15 + [_INT] * 3 + [_VOIDP],
+        # premask, consts_n, shc, g_tab, q_tab, out, B, NB, K, T, stream
+        # -> cudaError_t
+        "fused_resident_launch": ([_VOIDP] * 14 + [_INT] * 4 + [_VOIDP],
                                   _INT),
         "fused_resident_error_string": ([_INT], ctypes.c_char_p),
     }),
@@ -152,6 +163,36 @@ def ptxas_report(name: str) -> list[str]:
     with open(log) as f:
         return [" ".join(ln.split()) for ln in f
                 if "registers" in ln or "spill" in ln]
+
+
+# "/*0120*/  @!P0 IMAD.WIDE.U32 R2, ..." -> "IMAD.WIDE.U32"
+_SASS_OP = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+"
+                      r"(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+
+
+def sass_mix(name: str, top: int = 12) -> dict:
+    """The SASS instruction mix of each kernel in `name`'s built library,
+    by `cuobjdump -sass` from nvcc's toolkit: {kernel: {"instructions": n,
+    "top": {opcode with modifiers: count}}}. Static counts: the tree's
+    loop body is one straight-line complete addition, so its mix is the
+    per-addition mix."""
+    exe = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([exe, "-sass", build(name)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    mix: dict = {}
+    fn = None
+    for ln in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            mix[fn] = {}
+            continue
+        m = _SASS_OP.match(ln)
+        if fn and m:
+            mix[fn][m.group(1)] = mix[fn].get(m.group(1), 0) + 1
+    return {f: {"instructions": sum(c.values()),
+                "top": dict(sorted(c.items(), key=lambda kv: -kv[1])[:top])}
+            for f, c in mix.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,9 +14,10 @@ case.
 
 Every table is built with the torch `cadd`/`cdbl` on the tensors' device
 (the JAX package leaves this to XLA, outside any Pallas kernel), and so
-are the u1 = e*w, u2 = r*w (mod n) scalar stage and the gather. The
-per-signature tree sum is ops/ptree.py: the CUDA kernel on the card,
-its plain version on the CPU.
+is the u1 = e*w, u2 = r*w (mod n) scalar stage. The gather and the
+per-signature tree sum are ops/ptree.py: on the card one CUDA kernel
+that reads each lane's table rows by window, on the CPU the plain
+gather and tree.
 """
 
 from __future__ import annotations
@@ -282,34 +283,30 @@ def _windows(u: torch.Tensor, wbits: int = WBITS) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def route_tables(q_flat, g16=None, q16: bool = False, g_flat=None):
+    """A route's tables and widths: (K, G table, G window bits, Q window
+    bits). The 16-bit G table with g16, else g_flat (default
+    g_tables_on(device)); Q windows of 16 bits with q16 (a
+    build_q16_tables table), else 8 (build_q_tables)."""
+    K = q_flat.shape[0] // (NWIN_G16 * NENT_G16 if q16 else NWIN * NENT)
+    wbits_q = 16 if q16 else WBITS
+    if g16 is not None:
+        return K, g16, 16, wbits_q
+    if g_flat is None:
+        g_flat = g_tables_on(q_flat.device)
+    return K, g_flat, WBITS, wbits_q
+
+
 def gather_from_windows(w1, w2, key_idx, g_flat, q_flat, K: int,
                         g16=None, q16: bool = False) -> torch.Tensor:
     """The per-signature comb points from window indices, (B, M, 3, L):
     M = 16 or 32 G-side plus 16 or 32 Q-side, by window width (w1 of 16
     bits with g16, w2 of 16 bits with q16). A plain index_select on the
-    tables (XLA's gather in the JAX package, outside any Pallas kernel)."""
-    B = w1.shape[0]
-    dev = w1.device
-    if g16 is not None:
-        win = torch.arange(NWIN_G16, dtype=torch.int64, device=dev)
-        g_idx = win * NENT_G16 + w1
-        g_tab = g16
-    else:
-        win = torch.arange(NWIN, dtype=torch.int64, device=dev)
-        g_idx = win * NENT + w1
-        g_tab = g_flat
-    key = key_idx.to(torch.int64)[:, None]
-    if q16:
-        win = torch.arange(NWIN_G16, dtype=torch.int64, device=dev)
-        q_idx = (win * K + key) * NENT_G16 + w2
-    else:
-        win = torch.arange(NWIN, dtype=torch.int64, device=dev)
-        q_idx = (win * K + key) * NENT + w2
-    n_g = g_idx.shape[1]
-    pts_g = g_tab.index_select(0, g_idx.reshape(-1))
-    pts_q = q_flat.index_select(0, q_idx.reshape(-1))
-    return torch.cat([pts_g.reshape(B, n_g, 3, L),
-                      pts_q.reshape(B, -1, 3, L)], dim=1)
+    tables (ptree.gather_rows; XLA's gather in the JAX package, outside
+    any Pallas kernel)."""
+    g_tab, wbits_g = (g16, 16) if g16 is not None else (g_flat, WBITS)
+    return ptree.gather_rows(w1, w2, key_idx, g_tab, q_flat, K, wbits_g,
+                             16 if q16 else WBITS)
 
 
 def comb_gather_points(u1, u2, key_idx, g_flat, q_flat, K: int,
@@ -341,19 +338,23 @@ def _tree_reduce(X, Y, Z):
     return X[:, 0], Y[:, 0], Z[:, 0]
 
 
+def comb_windows(digest_words, r, w, wbits_g: int, wbits_q: int):
+    """The scalar stage: u1 = e*w, u2 = r*w (mod n, canonical), then
+    their comb windows (w1 of wbits_g bits, w2 of wbits_q)."""
+    e = limb.words_be_to_limbs(digest_words)
+    u1 = FN.canonical(FN.mulmod(e, w))
+    u2 = FN.canonical(FN.mulmod(r, w))
+    return _windows(u1, wbits_g), _windows(u2, wbits_q)
+
+
 def comb_points(digest_words, key_idx, q_flat, r, w, g16=None,
                 q16: bool = False, g_flat=None) -> torch.Tensor:
     """The scalar stage and the gather: u1 = e*w, u2 = r*w (mod n,
     canonical), then the (B, M, 3, L) comb points."""
-    ent = NWIN_G16 * NENT_G16 if q16 else NWIN * NENT
-    K = q_flat.shape[0] // ent
-    if g16 is None and g_flat is None:
-        g_flat = g_tables_on(q_flat.device)
-    e = limb.words_be_to_limbs(digest_words)
-    u1 = FN.canonical(FN.mulmod(e, w))
-    u2 = FN.canonical(FN.mulmod(r, w))
-    return comb_gather_points(u1, u2, key_idx, g_flat, q_flat, K,
-                              g16=g16, q16=q16)
+    K, g_tab, wbits_g, wbits_q = route_tables(q_flat, g16, q16, g_flat)
+    w1, w2 = comb_windows(digest_words, r, w, wbits_g, wbits_q)
+    return ptree.gather_rows(w1, w2, key_idx, g_tab, q_flat, K, wbits_g,
+                             wbits_q)
 
 
 def comb_verify_with_tables(digest_words, key_idx, q_flat, r, rpn, w,
@@ -362,13 +363,15 @@ def comb_verify_with_tables(digest_words, key_idx, q_flat, r, rpn, w,
     """Batched ECDSA accept/reject against prebuilt tables.
 
     digest_words: (B, 8) int64 SHA-256 words; key_idx: (B,) int32 in
-    [0, K); q_flat: build_q_tables (q16=False) or build_q16_tables
-    (q16=True); r, rpn, w: (B, L) int32 canonical limbs; premask (B,)
-    bool; g16: the 16-bit G table or None for the 8-bit one (g_flat,
-    default g_tables_on(device)). The points are summed and checked by
-    ptree.tree_verify_points: the kernel on the card, its plain version
-    on the CPU.
+    [0, K) (a slot outside rejects); q_flat: build_q_tables (q16=False)
+    or build_q16_tables (q16=True); r, rpn, w: (B, L) int32 canonical
+    limbs; premask (B,) bool; g16: the 16-bit G table or None for the
+    8-bit one (g_flat, default g_tables_on(device)). The scalar stage
+    runs here; the gather, sum and check are
+    ptree.tree_verify_windows: on the card one kernel that reads each
+    lane's table rows itself, on the CPU its plain version.
     """
-    pts = comb_points(digest_words, key_idx, q_flat, r, w, g16=g16,
-                      q16=q16, g_flat=g_flat)
-    return ptree.tree_verify_points(pts, r, rpn, premask)
+    K, g_tab, wbits_g, wbits_q = route_tables(q_flat, g16, q16, g_flat)
+    w1, w2 = comb_windows(digest_words, r, w, wbits_g, wbits_q)
+    return ptree.tree_verify_windows(w1, w2, key_idx, g_tab, q_flat, K,
+                                     wbits_g, wbits_q, r, rpn, premask)

@@ -7,9 +7,8 @@ card computes the rest:
   stage A (`sha_windows`): per lane, SHA-256 over its live blocks (or
     its precomputed digest), the digest as 13-bit limbs, u1 = e*w and
     u2 = r*w (mod n, canonical) and the comb windows of u1 and u2;
-  stage B: the table gather (`gather_from_windows`, plain torch, XLA's
-    gather in the JAX package) and the tree kernel
-    (`ptree.tree_verify_points`), as on the comb-digest path;
+  stage B: the gather, the sum and the check in one kernel
+    (`ptree.tree_verify_windows`), as on the comb-digest path;
   the resident variant (`fused_verify_resident`): one kernel runs stage
     A at 8-bit windows, the gather from the g8/q8 tables and the
     64-point sum and check; only the verdicts come back.
@@ -30,7 +29,6 @@ import functools
 import torch
 
 from fabric_tpu_torch.ops import comb, limb, p256, ptree, sha256
-from fabric_tpu_torch.ops.comb import gather_from_windows
 from fabric_tpu_torch.ops.limb import L
 
 # The resident kernel gathers 64 random table rows per lane from the g8
@@ -42,6 +40,10 @@ from fabric_tpu_torch.ops.limb import L
 # key slots, so key sets of up to 8 keys (K is a power of two) qualify.
 H100_L2_BYTES = 50 << 20
 RESIDENT_TABLE_BUDGET = H100_L2_BYTES // 2
+
+# the resident kernel's threads per lane, from chip_smoke.py's per-T
+# timing on the H100 (PERF.md)
+RESIDENT_THREADS_PER_LANE = 1
 
 # kernel launches since import (or since a caller last set them to 0)
 sha_windows_launches = 0
@@ -85,14 +87,13 @@ def sha_windows_plain(blocks, nblocks, digests, has_digest, r_l, w_l,
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check_stage_a(blocks, nblocks, digests, has_digest, r_l, w_l,
-                   extra=()):
+def _check_stage_a(blocks, nblocks, digests, has_digest, extra):
+    """Shapes, types, devices and (for CUDA) contiguity of stage A's
+    inputs and `extra`, (name, tensor, shape, dtypes) rows."""
     sha256.check_blocks(blocks, nblocks)
     B = blocks.shape[0]
     want = [("digests", digests, (B, 8), sha256.WORD_DTYPES),
-            ("has_digest", has_digest, (B,), (torch.bool,)),
-            ("r", r_l, (B, L), (torch.int32,)),
-            ("w", w_l, (B, L), (torch.int32,)), *extra]
+            ("has_digest", has_digest, (B,), (torch.bool,)), *extra]
     for name, t, shape, dtypes in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -135,14 +136,17 @@ def sha_windows(blocks, nblocks, digests, has_digest, r_l, w_l, *,
     if wbits_g not in WBITS_OK or wbits_q != wbits_g:
         raise ValueError(f"window widths must be 8/8 or 16/16, got "
                          f"{wbits_g}/{wbits_q}")
-    _check_stage_a(blocks, nblocks, digests, has_digest, r_l, w_l)
+    B = blocks.shape[0]
+    _check_stage_a(blocks, nblocks, digests, has_digest, [
+        ("r", r_l, (B, L), (torch.int32,)),
+        ("w", w_l, (B, L), (torch.int32,))])
     if blocks.device.type == "cpu":
         return sha_windows_plain(blocks, nblocks, digests, has_digest, r_l,
                                  w_l, wbits_g, wbits_q)
     from fabric_tpu_torch import kernels
 
     lib = kernels.load("sha_windows")
-    B, NB = blocks.shape[0], blocks.shape[1]
+    NB = blocks.shape[1]
     dev = blocks.device
     w1 = torch.empty((B, 256 // wbits_g), dtype=torch.int32, device=dev)
     w2 = torch.empty((B, 256 // wbits_q), dtype=torch.int32, device=dev)
@@ -169,8 +173,8 @@ def _scalar_limbs(r8, rpn8, w8):
 def fused_verify_with_tables(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
                              premask, digests, has_digest, g16=None,
                              q16: bool = False, g_flat=None):
-    """The tiered fused pipeline: stage A (`sha_windows`), the table
-    gather and the tree (`ptree.tree_verify_points`); verdicts equal
+    """The tiered fused pipeline: stage A (`sha_windows`), then the
+    gather and the tree (`ptree.tree_verify_windows`); verdicts equal
     `comb.comb_verify_with_tables` over the lanes' SHA-256 digests.
 
     blocks/nblocks/digests/has_digest as `sha_windows`; key_idx (B,)
@@ -178,17 +182,12 @@ def fused_verify_with_tables(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
     on the tensors' device); premask (B,) bool; tables as
     `comb.comb_verify_with_tables`.
     """
-    ent = (comb.NWIN_G16 * comb.NENT_G16 if q16 else comb.NWIN * comb.NENT)
-    K = q_flat.shape[0] // ent
-    if g16 is None and g_flat is None:
-        g_flat = comb.g_tables_on(q_flat.device)
+    K, g_tab, wbits_g, wbits_q = comb.route_tables(q_flat, g16, q16, g_flat)
     r_l, rpn_l, w_l = _scalar_limbs(r8, rpn8, w8)
     w1, w2, _ = sha_windows(blocks, nblocks, digests, has_digest, r_l, w_l,
-                            wbits_g=16 if g16 is not None else comb.WBITS,
-                            wbits_q=16 if q16 else comb.WBITS)
-    pts = gather_from_windows(w1, w2, key_idx, g_flat, q_flat, K, g16=g16,
-                              q16=q16)
-    return ptree.tree_verify_points(pts, r_l, rpn_l, premask)
+                            wbits_g=wbits_g, wbits_q=wbits_q)
+    return ptree.tree_verify_windows(w1, w2, key_idx, g_tab, q_flat, K,
+                                     wbits_g, wbits_q, r_l, rpn_l, premask)
 
 
 # ---------------------------------------------------------------------------
@@ -210,22 +209,26 @@ def resident_plain(blocks, nblocks, key_idx, q_flat, r_l, rpn_l, w_l,
     K = q_flat.shape[0] // (comb.NWIN * comb.NENT)
     w1, w2, _ = sha_windows_plain(blocks, nblocks, digests, has_digest, r_l,
                                   w_l)
-    key_ok = (key_idx >= 0) & (key_idx < K)
-    pts = gather_from_windows(w1, w2, key_idx.clamp(0, K - 1), g_flat,
-                              q_flat, K)
-    return ptree.tree_verify_plain(pts, r_l, rpn_l, premask & key_ok)
+    return ptree.tree_verify_windows_plain(
+        w1, w2, key_idx, g_flat, q_flat, K, comb.WBITS, comb.WBITS, r_l,
+        rpn_l, premask)
 
 
 def fused_verify_resident(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
-                          premask, digests, has_digest, g_flat=None):
+                          premask, digests, has_digest, g_flat=None, *,
+                          threads_per_lane=RESIDENT_THREADS_PER_LANE):
     """The single-kernel variant: SHA + scalars + 8-bit windows + the
     gather from the g8/q8 tables + the 64-point tree and check, with
     only the (B,) bool verdicts leaving the kernel. q_flat must be an
     8-bit table (comb.build_q_tables); callers keep
     resident_table_bytes(K) within RESIDENT_TABLE_BUDGET. Verdicts equal
     `fused_verify_with_tables` on the 8-bit tables. CPU tensors run the
-    plain version; CUDA tensors launch csrc/fused_resident.cu."""
+    plain version; CUDA tensors launch csrc/fused_resident.cu with
+    `threads_per_lane` threads a lane (1, 2, 4 or 8)."""
     global resident_launches
+    if threads_per_lane not in ptree.T_CHOICES:
+        raise ValueError(f"threads_per_lane must be one of "
+                         f"{ptree.T_CHOICES}, got {threads_per_lane}")
     ent = comb.NWIN * comb.NENT
     if q_flat.dim() != 3 or q_flat.shape[0] % ent or \
             tuple(q_flat.shape[1:]) != (3, L):
@@ -234,17 +237,23 @@ def fused_verify_resident(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
     K = q_flat.shape[0] // ent
     if g_flat is None:
         g_flat = comb.g_tables_on(q_flat.device)
-    r_l, rpn_l, w_l = _scalar_limbs(r8, rpn8, w8)
     B = blocks.shape[0]
-    _check_stage_a(blocks, nblocks, digests, has_digest, r_l, w_l, extra=[
+    _check_stage_a(blocks, nblocks, digests, has_digest, [
+        ("r8", r8, (B, 32), (torch.uint8,)),
+        ("rpn8", rpn8, (B, 32), (torch.uint8,)),
+        ("w8", w8, (B, 32), (torch.uint8,)),
         ("key_idx", key_idx, (B,), (torch.int32,)),
-        ("rpn", rpn_l, (B, L), (torch.int32,)),
         ("premask", premask, (B,), (torch.bool,)),
         ("g_flat", g_flat, (ent, 3, L), (torch.int32,)),
         ("q_flat", q_flat, (K * ent, 3, L), (torch.int32,))])
     if blocks.device.type == "cpu":
-        return resident_plain(blocks, nblocks, key_idx, q_flat, r_l, rpn_l,
-                              w_l, premask, digests, has_digest, g_flat)
+        return resident_plain(blocks, nblocks, key_idx, q_flat,
+                              *_scalar_limbs(r8, rpn8, w8), premask, digests,
+                              has_digest, g_flat)
+    for name, t in (("r8", r8), ("rpn8", rpn8), ("w8", w8),
+                    ("g_flat", g_flat), ("q_flat", q_flat)):
+        if t.data_ptr() % 16:                 # rows read as 16-byte loads
+            raise ValueError(f"{name} must be 16-byte aligned")
     from fabric_tpu_torch import kernels
 
     lib = kernels.load("fused_resident")
@@ -254,14 +263,13 @@ def fused_verify_resident(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
     with torch.cuda.device(dev):
         err = lib.fused_resident_launch(
             blocks.data_ptr(), nblocks.data_ptr(), digests.data_ptr(),
-            has_digest.data_ptr(), key_idx.data_ptr(), r_l.data_ptr(),
-            rpn_l.data_ptr(), w_l.data_ptr(), premask.data_ptr(),
+            has_digest.data_ptr(), key_idx.data_ptr(), r8.data_ptr(),
+            rpn8.data_ptr(), w8.data_ptr(), premask.data_ptr(),
             _consts_n_on(str(dev)).data_ptr(),
-            ptree._consts_on(str(dev)).data_ptr(),
             sha256.sha_consts_on(str(dev)).data_ptr(), g_flat.data_ptr(),
             q_flat.data_ptr(), out.data_ptr(), ctypes.c_int(B),
             ctypes.c_int(blocks.shape[1]), ctypes.c_int(K),
-            ctypes.c_void_p(stream))
+            ctypes.c_int(threads_per_lane), ctypes.c_void_p(stream))
     _raise_on(err, "fused_resident", lib, "fused_resident_error_string")
     resident_launches += 1
     return out

@@ -69,6 +69,34 @@ def cadd_int(p1, p2):
     return (X3, Y3, Z3)
 
 
+def cadd4_int(p1, p2):
+    """Complete projective addition over Python ints by RCB15 Alg. 4
+    (a = -3), step for step as the CUDA kernels' `pt_add`
+    (csrc/p256_field.cuh): on canonical inputs the outputs equal the
+    kernels' words. The same group element as cadd_int, another
+    projective representative."""
+    X1, Y1, Z1 = p1
+    X2, Y2, Z2 = p2
+    t0 = X1 * X2 % P
+    t1 = Y1 * Y2 % P
+    t2 = Z1 * Z2 % P
+    t3 = ((X1 + Y1) * (X2 + Y2) - t0 - t1) % P
+    t4 = ((Y1 + Z1) * (Y2 + Z2) - t1 - t2) % P
+    Y3 = ((X1 + Z1) * (X2 + Z2) - t0 - t2) % P
+    X3 = 3 * (Y3 - B * t2) % P
+    Z3 = (t1 - X3) % P
+    X3 = (t1 + X3) % P
+    t2 = 3 * t2 % P
+    Y3 = 3 * (B * Y3 - t2 - t0) % P
+    t0 = (3 * t0 - t2) % P
+    t1 = t4 * Y3 % P
+    t2 = t0 * Y3 % P
+    Y3 = (X3 * Z3 + t2) % P
+    X3 = (t3 * X3 - t1) % P
+    Z3 = (t4 * Z3 + t3 * t0) % P
+    return (X3, Y3, Z3)
+
+
 def cdbl_int(p1):
     """Exception-free projective doubling over ints (RCB15 Alg. 6,
     a = -3): handles infinity and 2-torsion."""

@@ -81,6 +81,97 @@ def test_kernel_matches_plain_and_ints(dev, M):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+def test_points_entry_every_t(dev, T):
+    """Every threads-per-lane count, at the routes' M = 32 and 64 and at
+    counts T does not divide (M < T included)."""
+    for M in (3, 32, 64):
+        pts, r, rpn, premask, want = _lanes(40, M, seed=100 + M)
+        args = [torch.as_tensor(a, device=dev)
+                for a in (pts, r, rpn, premask)]
+        got = ptree.tree_verify_points(*args, threads_per_lane=T)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _window_case(dev, B, seed):
+    """Windows over the g8 table and a q8 table of keys 3 and 5 (K = 2):
+    all-zero windows (infinity), windows above 8 bits, a key slot out of
+    range on each side, one lane premasked off; r from Python-int sums on
+    every third lane."""
+    rng = np.random.default_rng(seed)
+    keys = [p256.to_affine_int(p256.scalar_mul_int(
+        d, (p256.GX, p256.GY, 1))) for d in (3, 5)]
+    g8 = comb.g_tables_on(dev)
+    q8 = torch.as_tensor(_q8_ints(keys), device=dev)
+    w1 = rng.integers(0, 256, (B, 32)).astype(np.int32)
+    w2 = rng.integers(0, 256, (B, 32)).astype(np.int32)
+    w1[0] = w2[0] = 0
+    w1[1, ::2] = 0
+    w1[2] += 256 * 3
+    key = rng.integers(0, 2, B).astype(np.int32)
+    key[3], key[4] = 2, -1
+    t = {k: torch.as_tensor(v, device=dev)
+         for k, v in (("w1", w1), ("w2", w2), ("key", key))}
+    pts = ptree.gather_rows(t["w1"] & 255, t["w2"], t["key"].clamp(0, 1),
+                            g8, q8, 2, 8, 8).cpu().numpy()
+    xs = []
+    for b in range(B):
+        acc = (0, 1, 0)
+        for m in range(64):
+            acc = p256.cadd_int(acc, tuple(
+                limb.limbs_to_int(pts[b, m, c]) for c in range(3)))
+        aff = p256.to_affine_int(acc)
+        xs.append(aff[0] if aff else None)
+    r = limb.ints_to_limbs([((x or 1) + (b % 3 != 0)) % p256.N
+                            for b, x in enumerate(xs)])
+    premask = np.ones(B, bool)
+    premask[5] = False
+    want = np.array([b % 3 == 0 and premask[b] and 0 <= key[b] < 2
+                     and x is not None and x < p256.N
+                     for b, x in enumerate(xs)])
+    r_t = torch.as_tensor(r, device=dev)
+    return (t["w1"], t["w2"], t["key"], g8, q8, 2, 8, 8, r_t, r_t,
+            torch.as_tensor(premask, device=dev)), want
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+def test_windows_entry_matches_plain_and_ints(dev, T):
+    args, want = _window_case(dev, 48, seed=5)
+    before = ptree.launches
+    got = ptree.tree_verify_windows(*args, threads_per_lane=T)
+    assert ptree.launches == before + 1
+    plain = ptree.tree_verify_windows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert want.sum() >= 10
+
+
+def test_field_core_matches_ints(dev):
+    """The nvcc build of csrc/p256_field.cuh on the edge operands of the
+    host test: mul, add, sub, the 13-bit conversion and Alg. 4's add."""
+    P = p256.P
+    edges = [0, 1, P - 1, P, P + 1, (1 << 256) - 1,
+             (1 << 256) + (1 << 243) - 1]
+    a = limb.ints_to_limbs([x for x in edges for _ in edges])
+    b = limb.ints_to_limbs([y for _ in edges for y in edges])
+    g = (p256.GX, p256.GY, 1)
+    pts = [g, (p256.GX, P - p256.GY, 1), (0, 1, 0),
+           p256.scalar_mul_int(7, g)]
+
+    def rows(ps):
+        return np.stack([np.concatenate([limb.int_to_limbs(c) for c in q])
+                         for q in ps])
+    p13 = rows([pts[0], pts[0], pts[0], pts[2], pts[3]])
+    q13 = rows([pts[0], pts[1], pts[2], pts[2], pts[0]])
+    cpu = [torch.as_tensor(x) for x in (a, b, p13, q13)]
+    got = ptree.field_selftest(*(x.to(dev) for x in cpu))
+    want = ptree.field_selftest_plain(*cpu)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_)
+
+
 def test_kernel_rejects_non_contiguous(dev):
     pts, r, rpn, premask, _ = _lanes(8, 4, seed=1)
     args = [torch.as_tensor(a, device=dev) for a in (pts, r, rpn, premask)]
@@ -255,3 +346,7 @@ def test_resident_kernel_matches_plain_and_tiered(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, plain) and torch.equal(got, tiered)
     assert not bool(got[14])
+    for T in (1, 2, 8):
+        again = fused_verify.fused_verify_resident(*args, threads_per_lane=T)
+        torch.cuda.synchronize()
+        assert torch.equal(again, plain)

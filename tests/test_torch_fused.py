@@ -160,7 +160,8 @@ def test_library_names_follow_included_headers(tmp_path, monkeypatch):
     shutil.copytree(kernels._CSRC, src)
     monkeypatch.setattr(kernels, "_CSRC", str(src))
     assert {os.path.basename(f) for f in kernels.sources("fused_resident")} \
-        == {"fused_resident.cu", "stage_a.cuh", "field13.cuh", "sha256.cuh"}
+        == {"fused_resident.cu", "stage_a.cuh", "field13.cuh", "sha256.cuh",
+            "tree_sum.cuh", "p256_field.cuh"}
 
     def names():
         return {k: kernels._paths(k)[1] for k in kernels.KERNELS}
@@ -173,6 +174,12 @@ def test_library_names_follow_included_headers(tmp_path, monkeypatch):
     assert second["ptree"] == first["ptree"]
     assert second["sha_windows"] != first["sha_windows"]
     assert second["fused_resident"] != first["fused_resident"]
+    with open(src / "p256_field.cuh", "a") as f:
+        f.write("\n// edited\n")
+    third = names()
+    assert third["sha_windows"] == second["sha_windows"]
+    for k in ("ptree", "fused_resident", "field_selftest"):
+        assert third[k] != second[k]
     with open(src / "field13.cuh", "a") as f:
         f.write("\n// edited\n")
     third = names()

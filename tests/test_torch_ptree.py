@@ -172,3 +172,141 @@ def test_tree_verify_points_matches_jax_interpret(g8):
         torch.as_tensor(premask)).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.any() and not want.all()
+
+
+# -- the windows entry (the card's route gathers inside the kernel) --
+
+def _q8_ints(keys) -> np.ndarray:
+    """The 8-bit Q table of `keys`, (32 * K * 256, 3, L) canonical limbs,
+    over Python ints: T[(i*K + k)*256 + j] = j * 2^(8i) * Q_k."""
+    out = np.zeros((32, len(keys), 256, 3, L), np.int32)
+    out[:, :, 0, 1, 0] = 1
+    for k, (x, y) in enumerate(keys):
+        base = (x, y, 1)
+        for i in range(32):
+            acc, ents = base, [base]
+            for _ in range(2, 256):
+                acc = jp256.cadd_int(acc, base)
+                ents.append(acc)
+            out[i, k, 1:] = jlimb.ints_to_limbs(
+                [c % jp256.P for e in ents for c in e]).reshape(255, 3, L)
+            for _ in range(8):
+                base = jp256.cdbl_int(base)
+    return out.reshape(-1, 3, L)
+
+
+@pytest.fixture(scope="module")
+def windows_case(g8):
+    """48 lanes of windows over the g8 table and a K = 2 q8 table: u1, u2
+    random 256-bit scalars (their 8-bit windows), lane 0 all zero
+    (infinity), lane 1 half zero, lane 2 windows above 8 bits, key slots
+    2 and -1 (out of range), lane 5 premasked off; r = x(R) on every third
+    lane (Python-int sums), wrong elsewhere."""
+    B, K = 48, 2
+    keys = [jp256.to_affine_int(jp256.scalar_mul_int(
+        d, (jp256.GX, jp256.GY, 1))) for d in (3, 5)]
+    q8 = _q8_ints(keys)
+    rng = np.random.default_rng(21)
+    u1, u2 = ([int.from_bytes(rng.bytes(32), "big") for _ in range(B)]
+              for _ in range(2))
+    u1[0] = u2[0] = 0
+    u1_l, u2_l = jlimb.ints_to_limbs(u1), jlimb.ints_to_limbs(u2)
+    key = rng.integers(0, K, B).astype(np.int32)
+    # the JAX package's eager gather, on in-range slots
+    pts = np.array(jcomb.comb_gather_points(
+        jnp.asarray(u1_l), jnp.asarray(u2_l), jnp.asarray(key), g8, q8, K))
+    w1 = np.array(jcomb._windows(jnp.asarray(u1_l)), dtype=np.int32)
+    w2 = np.array(jcomb._windows(jnp.asarray(u2_l)), dtype=np.int32)
+    w1[1, ::2] = w2[1, ::2] = 0
+    pts[1, 0::2] = 0
+    pts[1, 0::2, 1, 0] = 1
+    w1[2] += 256 * 5
+    key[3], key[4] = 2, -1
+    xs = []
+    for b in range(B):
+        acc = (0, 1, 0)
+        for m in range(64):
+            acc = jp256.cadd_int(acc, tuple(
+                jlimb.limbs_to_int(pts[b, m, c]) for c in range(3)))
+        aff = jp256.to_affine_int(acc)
+        xs.append(aff[0] if aff else None)
+    r = jlimb.ints_to_limbs([((x or 1) + (b % 3 != 0)) % jp256.N
+                             for b, x in enumerate(xs)])
+    premask = np.ones(B, bool)
+    premask[5] = False
+    want = np.array([b % 3 == 0 and premask[b] and 0 <= key[b] < K
+                     and x is not None and x < jp256.N
+                     for b, x in enumerate(xs)])
+    args = [torch.as_tensor(a) for a in (w1, w2, key, g8, q8)]
+    return dict(args=(*args[:5], K, 8, 8), pts=pts, r=torch.as_tensor(r),
+                premask=torch.as_tensor(premask), want=want, key=key)
+
+
+def test_windows_entry_matches_points_entry_and_ints(windows_case):
+    c = windows_case
+    tail = (c["r"], c["r"], c["premask"])
+    before = tptree.launches
+    got = tptree.tree_verify_windows(*c["args"], *tail).numpy()
+    assert tptree.launches == before               # the plain version
+    np.testing.assert_array_equal(got, c["want"])
+    assert 10 <= got.sum() < len(got)
+    # the port's gather = the JAX package's eager gather on in-range slots
+    w1, w2 = c["args"][:2]
+    gathered = tptree.gather_rows(w1 & 255, w2, torch.as_tensor(
+        c["key"]).clamp(0, 1), *c["args"][3:])
+    ok = (c["key"] >= 0) & (c["key"] < 2)
+    np.testing.assert_array_equal(gathered.numpy()[ok], c["pts"][ok])
+    pts_got = tptree.tree_verify_points(
+        torch.as_tensor(c["pts"]), *tail[:2],
+        c["premask"] & torch.as_tensor(ok)).numpy()
+    np.testing.assert_array_equal(got, pts_got)
+
+
+def test_windows_wrapper_rejects_bad_inputs(windows_case):
+    w1, w2, key, g8, q8, K, wg, wq = windows_case["args"]
+    r, pm = windows_case["r"], windows_case["premask"]
+
+    def call(*a, **k):
+        base = dict(zip(("w1", "w2", "key", "g", "q", "K", "wg", "wq"),
+                        (w1, w2, key, g8, q8, K, wg, wq)))
+        base.update(k)
+        return tptree.tree_verify_windows(*base.values(), r, r, pm, *a)
+
+    with pytest.raises(ValueError):
+        call(w1=w1[:, :31])                        # width != 256 / wbits_g
+    with pytest.raises(ValueError):
+        call(q=q8[:-1])                            # not K slots of 8 bits
+    with pytest.raises(ValueError):
+        call(K=0)
+    with pytest.raises(ValueError):
+        call(wg=3)                                 # not a window width
+    with pytest.raises(ValueError):
+        call(wg=4)                                 # M = 64 + 32 > 64
+    with pytest.raises(TypeError):
+        call(w2=w2.to(torch.int64))
+    with pytest.raises(TypeError):
+        call(key=key.to(torch.int64))
+    with pytest.raises(ValueError):
+        call(g=g8.to("meta"))
+    with pytest.raises(ValueError):
+        tptree.tree_verify_windows(w1, w2, key, g8, q8, K, wg, wq, r, r, pm,
+                                   threads_per_lane=3)
+    with pytest.raises(ValueError):
+        tptree.tree_verify_points(windows_case["args"][3][None, :2], r[:1],
+                                  r[:1], pm[:1], threads_per_lane=16)
+
+
+@pytest.mark.slow
+def test_windows_entry_matches_jax_tree(windows_case):
+    """The JAX package's eager tree_body on the same gathered points (its
+    64-point levels cost ~15 s eagerly on the CPU)."""
+    c = windows_case
+    ok = (c["key"] >= 0) & (c["key"] < 2)
+    lead = np.transpose(c["pts"], (2, 3, 1, 0))
+    r = c["r"].numpy()
+    pm = (c["premask"].numpy() & ok)[None, :].astype(np.int32)
+    want = np.asarray(jptree.tree_body(*map(jnp.asarray, (
+        lead[0], lead[1], lead[2], r.T[:, None, :], r.T[:, None, :], pm))))
+    got = tptree.tree_verify_windows(*c["args"], c["r"], c["r"],
+                                     c["premask"]).numpy()
+    np.testing.assert_array_equal(got, want[0])
