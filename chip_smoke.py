@@ -9,13 +9,18 @@ Phases, one JSON line each; any failure exits non-zero:
   device           the card (and nvidia-smi's name and power limit);
                    no CUDA device -> exit 2, nothing printed
   build            every kernel under fabric_tpu_torch/csrc, one nvcc per
-                   source, started together; ptxas registers and spills
+                   source, started together; ptxas registers, stack and
+                   spills per kernel (stage A's and the resident kernel's
+                   must have no stack and no spills); the SASS mix
   field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
                    (csrc/field_selftest.cu) against Python ints: mul, add,
                    sub and the 13-bit conversion on edge operands (0, 1,
                    p - 1, p, p + 1, 2^256 - 1, 2^256 + 2^243 - 1) and seeded
                    random ones, RCB15 Alg. 4 on P + P, P + (-P), P + inf,
-                   inf + inf and random points; words equal
+                   inf + inf and random points; and the mod-n core
+                   (csrc/modn32.cuh) on e = 0, 1, n - 1, n, n + 1,
+                   2^256 - 1 against w = 1, n - 1 and r = 1, n - 1, and
+                   seeded random ones; words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -25,7 +30,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    route, each path driven with every kernel count set to
                    0 just before it and read just after:
                      q16  G16/Q16 resident: verify_prepared (digest lanes,
-                          the commit path; the tree kernel's windows entry,
+                          the commit path: stage A's digest-lanes entry at
+                          16/16 bits, then the tree kernel's windows entry,
                           which gathers by itself, at M = 32) and
                           verify_batch (message lanes, the fused tier:
                           sha_windows at 16/16 bits, then the windows
@@ -35,16 +41,19 @@ Phases, one JSON line each; any failure exits non-zero:
                           FTPU_FUSED_RESIDENT=1: the resident kernel;
                      device_sha  "HashOnHost": false, "FusedVerify": false:
                           verify_batch hashes on the card (the digest-only
-                          SHA-256 kernel), then the comb-digest pipeline.
+                          SHA-256 kernel), then the comb-digest pipeline
+                          (stage A's digest-lanes entry, the tree).
                    Bitmaps must equal the expected one and the port's sw
                    provider on a sample of >= 2,048 lanes holding every bad
                    lane; each path's kernels must have launched; message
                    paths must show fused_batches >= 1 (fused routes) and
-                   host_hashed_lanes == 0. One steady verify_prepared per
-                   comb route runs under torch.profiler (the card's busy
-                   and idle share of the call; no index_select gather
-                   kernel may run in it); on q16, verify_batch then
-                   runs in turns on the fused tier and with hashlib
+                   host_hashed_lanes == 0. Each verify_prepared must raise
+                   the stage-A and tree counts by one per chunk. One
+                   steady verify_prepared per comb route runs under
+                   torch.profiler (the card's busy and idle share of the
+                   call; fewer than 20 kernels, and no index_select gather
+                   kernel, may run in it); on q16, verify_batch then runs
+                   in turns on the fused tier and with hashlib
                    (FTPU_FUSED=0).
   kernel_vs_plain  both entries of the tree kernel against their plain
                    torch versions on the card at the main path's shape
@@ -62,15 +71,16 @@ Phases, one JSON line each; any failure exits non-zero:
                    computed from the shapes and this run's data
                    (tree_bound, sha_bound, resident_bound).
   sha_vs_plain     the stage-A kernel (csrc/sha_windows.cu) against its
-                   plain torch version at the main path's shape (32,768
-                   lanes, NB = 8 blocks for 256-byte messages) at 8/8 and
-                   16/16 bits, and the digest-only entry against its plain
-                   version: first lanes rewritten into edge cases (message
-                   lengths 0, 1, 55, 56, 63, 64, 119, 120, 503; digest lanes
-                   with digest 0 and all-ones; w = 1, w = n - 1, r = 1),
-                   garbage in every block past a lane's count. Windows and
-                   words equal on every lane, words equal hashlib, edge
-                   windows equal Python ints.
+                   plain torch versions at the main path's shape (32,768
+                   lanes, NB = 8 blocks for 256-byte messages): the message
+                   entry at 8/8 and 16/16 bits, the digest-lanes entry at
+                   8/8 and 16/16 bits (every lane's digest; lane 0's digest
+                   n), and the digest-only entry: first lanes rewritten
+                   into edge cases (message lengths 0, 1, 55, 56, 63, 64,
+                   119, 120, 503; digest lanes with digest 0 and all-ones;
+                   w = 1, w = n - 1, r = 1), garbage in every block past a
+                   lane's count. Windows and words equal on every lane,
+                   words equal hashlib, edge windows equal Python ints.
   resident_vs_plain  the resident kernel (csrc/fused_resident.cu) against
                    its plain version and the tiered kernels on the q8 route
                    (3 keys, K = 4) over the same lanes plus the block's bad
@@ -96,6 +106,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from fabric_tpu_torch.stage_a_timing import device_ms  # noqa: E402
 
 # tree kernel bound: the least int32 multiply-adds the function needs per
 # lane. A complete add for a = -3 is 14 field multiplies (RCB15 Alg. 4:
@@ -163,15 +175,14 @@ def tree_bound(B: int, M: int, extra_bytes: int = 0) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def sha_bound(live_blocks: int, B: int, nwin: int, nbytes_in: int,
-              digest_only: bool = False) -> tuple[float, str]:
-    """Least time for stage A on these inputs (ms): SHA-256's operations
-    over this run's live blocks plus the two mod-n products per lane, or
-    the bytes it must move (the live blocks and per-lane inputs read
-    once, windows and words written once), whichever is larger."""
-    ops = live_blocks * SHA_BLOCK_OPS + (0 if digest_only
-                                         else B * 2 * MODN_MUL_OPS)
-    nbytes = nbytes_in + B * (8 * 8 + (0 if digest_only else 4 * nwin))
+def sha_bound(live_blocks: int, products: int,
+              nbytes: int) -> tuple[float, str]:
+    """Least time for a stage-A entry on these inputs (ms): SHA-256's
+    operations over this run's live blocks plus `products` mod-n products
+    (two a lane where the entry computes scalars), or the bytes it must
+    move (the live blocks and per-lane inputs read once, windows and
+    words written once), whichever is larger."""
+    ops = live_blocks * SHA_BLOCK_OPS + products * MODN_MUL_OPS
     t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -311,11 +322,15 @@ def profile_call(fn) -> dict:
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us() / 1e3)
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.name.startswith(("Memcpy", "Memset"))]
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
-            "device_activities": len(by_name),
+            "device_activities": len(by_name), "kernels": len(kernels),
+            "kernel_names": sorted({k[:70] for k in kernels}),
             "top_ms": {k[:70]: v for k, v in top},
             "gather_kernels": [k[:70] for k in by_name
                                if "indexselect" in k.lower().replace("_", "")]}
@@ -389,10 +404,16 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
     if prepared:
         pr = blk["prepared"]
         first, counts["verify_prepared"], _, first_s = counted(
-            prov, f"{name} verify_prepared", (TREE,),
+            prov, f"{name} verify_prepared", (TREE, SHA),
             lambda: prov.verify_prepared(**pr))
         check_bits(f"{name} verify_prepared (first)", first, blk, sw_bits,
                    sample)
+        chunks = -(-prov._bucket(blk["n"]) // prov._chunk)
+        for k in (SHA, TREE):
+            check(counts["verify_prepared"][k] == chunks,
+                  f"{name} verify_prepared: {k} "
+                  f"{counts['verify_prepared'][k]}, not one per chunk "
+                  f"({chunks})")
         steady = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -404,6 +425,8 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
         check(not prof["gather_kernels"],
               f"{name}: the commit path ran a gather kernel "
               f"{prof['gather_kernels']}")
+        check(prof["kernels"] < 20,
+              f"{name}: the commit path ran {prof['kernels']} kernels")
         rec.update({
             "verify_prepared_launches": counts["verify_prepared"],
             "table_build_s": prov.stats["table_build_s"],
@@ -460,6 +483,11 @@ def _int_sum_chunk(lanes):
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean time (ms) of one call of fn, CUDA events around `reps` calls
+    after a warm-up: the caller's cost, the wrapper's host work included
+    (which bounds calls of kernels shorter than it). A kernel's own time
+    is `device_ms`'s (fabric_tpu_torch/stage_a_timing.py: the
+    profiler's device time of its events)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -559,12 +587,15 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
                 (limb.limbs_to_int(r_h[lane]) + 1) % p256.N)
     r[:E] = torch.from_numpy(r_h).to(dev)
     rpn[:E] = torch.from_numpy(rpn_h).to(dev)
+    # the points entry takes limbs, the windows entry the host's bytes
     targs = (r, rpn, premask)
+    targs8 = (limb.limbs_to_be_bytes(r), limb.limbs_to_be_bytes(rpn),
+              premask)
 
     got = {"points": ptree.tree_verify_points(pts, *targs),
-           "windows": ptree.tree_verify_windows(*wargs, *targs)}
+           "windows": ptree.tree_verify_windows(*wargs, *targs8)}
     plain = {"points": ptree.tree_verify_plain(pts, *targs),
-             "windows": ptree.tree_verify_windows_plain(*wargs, *targs)}
+             "windows": ptree.tree_verify_windows_plain(*wargs, *targs8)}
     torch.cuda.synchronize()
     k_h = {e: t.cpu().numpy() for e, t in got.items()}
     max_abs_err = 0
@@ -608,14 +639,16 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
         for e, fn in (("points", lambda: ptree.tree_verify_points(
                 pts, *targs, threads_per_lane=T)),
                       ("windows", lambda: ptree.tree_verify_windows(
-                          *wargs, *targs, threads_per_lane=T))):
+                          *wargs, *targs8, threads_per_lane=T))):
             check(torch.equal(fn(), plain[e]), f"M={M} T={T}: {e} entry "
                   "!= plain")
             by_t.setdefault(T, {})[f"{e}_ms"] = cuda_ms(fn, 10)
-    ms = cuda_ms(lambda: ptree.tree_verify_windows(*wargs, *targs), 10)
+    call_ms = cuda_ms(lambda: ptree.tree_verify_windows(*wargs, *targs8), 10)
+    ms = device_ms(lambda: ptree.tree_verify_windows(*wargs, *targs8), 10,
+                   "ptree_windows_kernel")
     points_ms = cuda_ms(lambda: ptree.tree_verify_points(pts, *targs), 10)
     plain_ms = cuda_ms(lambda: ptree.tree_verify_windows_plain(
-        *wargs, *targs), 2)
+        *wargs, *targs8), 2)
     bound_ms, bound_by = tree_bound(bucket, M, bucket * (M + 1) * 4)
     t_used = ptree.THREADS_PER_LANE
     emit({"phase": "kernel_vs_plain", "M": M, "lanes": bucket, "ok": True,
@@ -626,11 +659,12 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
           "int_checked_lanes": len(x_of),
           "accepts": {e: int(v.sum()) for e, v in k_h.items()},
           "max_abs_err": max_abs_err, "windows_ms": ms,
-          "points_ms": points_ms, "plain_ms": plain_ms,
+          "windows_call_ms": call_ms, "points_ms": points_ms,
+          "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by,
           "share_of_bound": bound_ms / ms, "ms_by_threads_per_lane": by_t})
-    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+    return dict(max_abs_err=max_abs_err, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 share_of_bound=bound_ms / ms, threads_per_lane=t_used,
                 points_entry_ms=points_ms)
 
@@ -716,12 +750,13 @@ def _int_windows(u: int, wbits: int) -> list[int]:
 
 
 def sha_vs_plain(st, card):
-    """Stage A and the digest-only entry against their plain versions,
-    hashlib and (on the edge lanes) Python ints; times and bounds."""
+    """Stage A's two entries and the digest-only entry against their
+    plain versions, hashlib and (on the edge lanes) Python ints; times
+    and bounds."""
     import torch
 
     from fabric_tpu_torch.ops import fused_verify as fv
-    from fabric_tpu_torch.ops import limb, p256, sha256
+    from fabric_tpu_torch.ops import p256, sha256
 
     N = p256.N
     B = st["blocks"].shape[0]
@@ -729,13 +764,22 @@ def sha_vs_plain(st, card):
                      for m in st["msgs"]]).astype(np.int64)
     want_fused = np.where(st["has_digest_np"][:, None],
                           st["digests_np"].astype(np.int64), want)
-    r_l, w_l = (limb.be_bytes_to_limbs(st[k]) for k in ("r8", "w8"))
     args = (st["blocks"], st["nblocks"], st["digests"], st["has_digest"],
-            r_l, w_l)
+            st["r8"], st["w8"])
     live = int(st["nblocks_np"].sum())
-    nbytes_in = live * 64 + B * (4 + 32 + 1 + 2 * L * 4)
-    r_int = [limb.limbs_to_int(x) for x in r_l[:N_EDGE].cpu().numpy()]
-    w_int = [limb.limbs_to_int(x) for x in w_l[:N_EDGE].cpu().numpy()]
+    r_int, w_int = ([int.from_bytes(x.tobytes(), "big")
+                     for x in st[k][:N_EDGE].cpu().numpy()]
+                    for k in ("r8", "w8"))
+
+    def edge_ints(label, k1h, k2h, words, wb):
+        for i in range(N_EDGE):
+            e = int.from_bytes(b"".join(int(x).to_bytes(4, "big")
+                                        for x in words[i]), "big")
+            check(k1h[i].tolist() == _int_windows(e * w_int[i] % N, wb)
+                  and k2h[i].tolist() == _int_windows(
+                      r_int[i] * w_int[i] % N, wb),
+                  f"{label} {wb}/{wb}: edge lane {i} != Python ints")
+
     res = {}
     for wb in (8, 16):
         k1, k2, kw = fv.sha_windows(*args, wbits_g=wb, wbits_q=wb)
@@ -746,23 +790,57 @@ def sha_vs_plain(st, card):
         check(err == 0, f"sha_windows {wb}/{wb}: kernel != plain")
         check(bool((kw.cpu().numpy() == want_fused).all()),
               f"sha_windows {wb}/{wb}: words != hashlib")
-        k1h, k2h, kwh = (t.cpu().numpy() for t in (k1, k2, kw))
-        for i in range(N_EDGE):
-            e = int.from_bytes(b"".join(int(x).to_bytes(4, "big")
-                                        for x in kwh[i]), "big")
-            check(k1h[i].tolist() == _int_windows(e * w_int[i] % N, wb)
-                  and k2h[i].tolist() == _int_windows(
-                      r_int[i] * w_int[i] % N, wb),
-                  f"sha_windows {wb}/{wb}: edge lane {i} != Python ints")
-        ms = cuda_ms(lambda: fv.sha_windows(*args, wbits_g=wb, wbits_q=wb),
-                     10)
+        edge_ints("sha_windows", k1.cpu().numpy(), k2.cpu().numpy(),
+                  kw.cpu().numpy(), wb)
+        ms = device_ms(lambda: fv.sha_windows(*args, wbits_g=wb,
+                                              wbits_q=wb), 20,
+                       "sha_windows_kernel")
+        call_ms = cuda_ms(lambda: fv.sha_windows(*args, wbits_g=wb,
+                                                 wbits_q=wb), 10)
         plain_ms = cuda_ms(lambda: fv.sha_windows_plain(*args, wb, wb), 2)
-        bound_ms, bound_by = sha_bound(live, B, 2 * 256 // wb, nbytes_in)
-        res[wb] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "sha_vs_plain", "wbits": wb, "ok": True, "card": card,
-              "lanes": B, "nb": st["nb"], "live_blocks": live,
-              "edge_lanes": N_EDGE, **res[wb]})
+        # in: live blocks, nblocks, digests, has_digest, r8, w8; out: the
+        # windows and the int64 words
+        bound_ms, bound_by = sha_bound(live, 2 * B, live * 64 + B * (
+            4 + 32 + 1 + 64) + B * (4 * 2 * 256 // wb + 64))
+        res[wb] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, share_of_bound=bound_ms / ms)
+        emit({"phase": "sha_vs_plain", "entry": "sha_windows", "wbits": wb,
+              "ok": True, "card": card, "lanes": B, "nb": st["nb"],
+              "live_blocks": live, "edge_lanes": N_EDGE, **res[wb]})
+
+    # the digest-lanes entry (the commit path's scalar stage): every lane
+    # takes its digest, the fused lanes' words, lane 0's digest n itself
+    dwords = want_fused.astype(np.uint32)
+    dwords[0] = np.frombuffer(N.to_bytes(32, "big"), ">u4")
+    dg = torch.from_numpy(dwords.view(np.int32)).to(st["r8"].device)
+    dargs = (dg, st["r8"], st["w8"])
+    for wb in (8, 16):
+        k1, k2 = fv.digest_windows(*dargs, wbits_g=wb, wbits_q=wb)
+        p1, p2 = fv.digest_windows_plain(*dargs, wb, wb)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in ((k1, p1), (k2, p2)))
+        check(err == 0, f"digest_windows {wb}/{wb}: kernel != plain")
+        k1h = k1.cpu().numpy()
+        edge_ints("digest_windows", k1h, k2.cpu().numpy(), dwords, wb)
+        check(not k1h[0].any(), "digest_windows: e = n gave u1 != 0")
+        ms = device_ms(lambda: fv.digest_windows(*dargs, wbits_g=wb,
+                                                 wbits_q=wb), 20,
+                       "digest_windows_kernel")
+        call_ms = cuda_ms(lambda: fv.digest_windows(*dargs, wbits_g=wb,
+                                                    wbits_q=wb), 10)
+        plain_ms = cuda_ms(lambda: fv.digest_windows_plain(*dargs, wb, wb),
+                           2)
+        bound_ms, bound_by = sha_bound(0, 2 * B, B * (32 + 64)
+                                       + B * 4 * 2 * 256 // wb)
+        res[f"digest_lanes_{wb}"] = dict(
+            max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms)
+        emit({"phase": "sha_vs_plain", "entry": "digest_windows",
+              "wbits": wb, "ok": True, "card": card, "lanes": B,
+              "edge_lanes": N_EDGE, **res[f"digest_lanes_{wb}"]})
 
     # the digest-only entry: every lane hashed (no digest lanes)
     dargs = (st["blocks"], st["counts_t"])
@@ -774,12 +852,14 @@ def sha_vs_plain(st, card):
     check(bool((kd.cpu().numpy() == want).all()),
           "sha256_blocks: words != hashlib")
     live = int(st["counts"].sum())
-    bound_ms, bound_by = sha_bound(live, B, 0, live * 64 + B * 4,
-                                   digest_only=True)
+    bound_ms, bound_by = sha_bound(live, 0, live * 64 + B * (4 + 64))
+    ms = device_ms(lambda: sha256.sha256_blocks(*dargs), 20,
+                   "sha256_digest_kernel")
     res["digest"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: sha256.sha256_blocks(*dargs), 10),
+        max_abs_err=err, ms=ms,
+        call_ms=cuda_ms(lambda: sha256.sha256_blocks(*dargs), 10),
         plain_ms=cuda_ms(lambda: sha256.sha256_plain(*dargs), 2),
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms)
     emit({"phase": "sha_vs_plain", "entry": "sha256_blocks", "ok": True,
           "card": card, "lanes": B, "nb": st["nb"], "live_blocks": live,
           **res["digest"]})
@@ -792,7 +872,7 @@ def resident_vs_plain(st, blk, card):
     bitmap."""
     import torch
 
-    from fabric_tpu_torch.ops import comb, limb
+    from fabric_tpu_torch.ops import comb
     from fabric_tpu_torch.ops import fused_verify as fv
 
     args = (st["blocks"], st["nblocks"], st["key_idx"], st["q_flat"],
@@ -800,11 +880,7 @@ def resident_vs_plain(st, blk, card):
             st["has_digest"])
     g8 = comb.g_tables_on(st["q_flat"].device)
     k = fv.fused_verify_resident(*args)
-    r_l, rpn_l, w_l = (limb.be_bytes_to_limbs(st[x])
-                       for x in ("r8", "rpn8", "w8"))
-    plain = fv.resident_plain(st["blocks"], st["nblocks"], st["key_idx"],
-                              st["q_flat"], r_l, rpn_l, w_l, st["premask"],
-                              st["digests"], st["has_digest"], g8)
+    plain = fv.resident_plain(*args, g8)
     tiered = fv.fused_verify_with_tables(*args)
     torch.cuda.synchronize()
     kh, ph, th = (t.cpu().numpy() for t in (k, plain, tiered))
@@ -831,12 +907,11 @@ def resident_vs_plain(st, blk, card):
               f"resident T={T}: kernel != plain")
         by_t[T] = cuda_ms(lambda: fv.fused_verify_resident(
             *args, threads_per_lane=T), 5)
-    ms = cuda_ms(lambda: fv.fused_verify_resident(*args), 5)
+    ms = device_ms(lambda: fv.fused_verify_resident(*args), 5,
+                   "fused_resident_kernel")
     res = dict(max_abs_err=err, ms=ms,
-               plain_ms=cuda_ms(lambda: fv.resident_plain(
-                   st["blocks"], st["nblocks"], st["key_idx"], st["q_flat"],
-                   r_l, rpn_l, w_l, st["premask"], st["digests"],
-                   st["has_digest"], g8), 2),
+               call_ms=cuda_ms(lambda: fv.fused_verify_resident(*args), 5),
+               plain_ms=cuda_ms(lambda: fv.resident_plain(*args, g8), 2),
                bound_ms=bound_ms, bound_by=bound_by,
                share_of_bound=bound_ms / ms,
                threads_per_lane=fv.RESIDENT_THREADS_PER_LANE)
@@ -856,6 +931,7 @@ def field_vs_ints(card, seed: int) -> None:
     Every output word must be equal."""
     import torch
 
+    from fabric_tpu_torch.ops import fused_verify as fv
     from fabric_tpu_torch.ops import limb, p256, ptree
 
     P = p256.P
@@ -884,8 +960,29 @@ def field_vs_ints(card, seed: int) -> None:
     torch.cuda.synchronize()
     bad = [int((g_.cpu() != w_).any(dim=1).sum()) for g_, w_ in zip(got, want)]
     check(bad == [0, 0], f"field core != Python ints on {bad} cases")
+
+    # the mod-n core: u1 = e*w, u2 = r*w mod n, e unreduced
+    N = p256.N
+    e_edges = [0, 1, N - 1, N, N + 1, (1 << 256) - 1]
+    rnd = [int.from_bytes(rng.bytes(32), "big") for _ in range(768)]
+    cases = [(e, r, w) for e in e_edges for w in (1, N - 1, rnd[0] % N)
+             for r in (1, N - 1, rnd[1] % N)]
+    cases += [(rnd[i], rnd[i + 1] % N, rnd[i + 2] % N)
+              for i in range(0, 768, 3)]
+
+    def be(k, dtype):
+        return np.stack([np.frombuffer(c[k].to_bytes(32, "big"), dtype)
+                         for c in cases])
+    e = torch.as_tensor(be(0, ">u4").astype(np.uint32).view(np.int32))
+    r8, w8 = (torch.as_tensor(be(k, np.uint8)) for k in (1, 2))
+    got_n = fv.modn_selftest(e.cuda(), r8.cuda(), w8.cuda())
+    want_n = fv.modn_selftest_plain(e, r8, w8)
+    torch.cuda.synchronize()
+    bad_n = int((got_n.cpu() != want_n).any(dim=1).sum())
+    check(bad_n == 0, f"mod-n core != Python ints on {bad_n} cases")
     emit({"phase": "field_vs_ints", "ok": True, "card": card,
-          "op_cases": len(pairs), "add_cases": len(adds), "mismatches": 0})
+          "op_cases": len(pairs), "add_cases": len(adds),
+          "modn_cases": len(cases), "mismatches": 0})
 
 
 def drive(args, pool, nproc, card):
@@ -962,11 +1059,20 @@ def drive(args, pool, nproc, card):
         dict(name="fused_verify.sha_windows (16/16)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/fused_verify.py:200",
-             launches=n(c16, SHA), **sha[16]),
+             launches=c16["verify_batch"][SHA], **sha[16]),
         dict(name="fused_verify.sha_windows (8/8)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/fused_verify.py:200",
-             launches=n(c8, SHA), **sha[8]),
+             launches=c8["verify_batch"][SHA], **sha[8]),
+        dict(name="fused_verify.digest_windows (16/16, digest lanes)",
+             source=src + "sha_windows.cu",
+             replaces="fabric_tpu/ops/comb.py:376",
+             launches=c16["verify_prepared"][SHA], **sha["digest_lanes_16"]),
+        dict(name="fused_verify.digest_windows (8/8, digest lanes)",
+             source=src + "sha_windows.cu",
+             replaces="fabric_tpu/ops/comb.py:376",
+             launches=c8["verify_prepared"][SHA] + csha["verify_batch"][SHA],
+             **sha["digest_lanes_8"]),
         dict(name="sha256.sha256_blocks (digest-only entry)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/sha256.py:87",
@@ -1003,10 +1109,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build_all()
-    emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-          "ptxas": {k: kernels.ptxas_report(k) for k in kernels.KERNELS},
-          "sass": {k: kernels.sass_mix(k) for k in ("ptree",
-                                                    "fused_resident")}})
+    build_s = time.perf_counter() - t0
+    ptxas = {k: kernels.ptxas_summary(k) for k in kernels.KERNELS}
+    emit({"phase": "build", "ok": True, "seconds": build_s, "ptxas": ptxas,
+          "sass": {k: kernels.sass_mix(k) for k in (
+              "ptree", "sha_windows", "fused_resident")}})
+    # stage A's entries and the resident kernel keep everything in
+    # registers: no stack frame, no spills
+    for lib in ("sha_windows", "fused_resident"):
+        check(bool(ptxas[lib]), f"ptxas: no report for {lib}")
+        for fn, rep in ptxas[lib].items():
+            check(rep.get("stack") == 0 and rep.get("spill_stores") == 0
+                  and rep.get("spill_loads") == 0,
+                  f"ptxas: {fn} has a stack or spills: {rep}")
 
     nproc = os.cpu_count() or 1
     with mp.get_context("spawn").Pool(nproc) as pool:

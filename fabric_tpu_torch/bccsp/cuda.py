@@ -22,6 +22,12 @@ routes, chosen as `_verify_batch_device` chooses them:
   * `HashOnHost: true` (the default) with the fused tier off: hashlib on
     the host, then the comb-digest pipeline.
 
+Digest lanes — `verify_prepared` (the commit path), and every lane of a
+batch whose lanes all carry digests or are hashed before the card — take
+the comb-digest pipeline (`fused_verify.digest_verify_with_tables`):
+per chunk one stage-A launch (u1, u2 and the windows from the digests
+and the scalars' bytes) and one tree launch.
+
 A batch holding a message over `MaxBlocks` SHA blocks is hashed on the
 host (`host_hash_fallbacks`): routing by size, as the reference does.
 
@@ -372,16 +378,17 @@ class CUDAProvider(api.BCCSP):
 
     def _dispatch_comb_digest(self, bucket, key_map, key_idx, r8, rpn8, w8,
                               premask, digests):
-        """Enqueue the comb-digest pipeline for a staged batch, one kernel
-        launch per `chunk` lanes; returns a thunk that waits and hands
-        back the (bucket,) numpy verdicts."""
+        """Enqueue the comb-digest pipeline for a staged batch, per
+        `chunk` lanes one stage-A launch (digest lanes: u1, u2 and the
+        windows) and one tree launch; returns a thunk that waits and
+        hands back the (bucket,) numpy verdicts."""
         key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
         self.stats["comb_batches"] += 1
-        words = digests.astype(np.int64)      # torch has no uint32 ops
-        return self._chunked(bucket, lambda c: comb.comb_verify_with_tables(
-            c(words), c(key_idx), q_flat,
-            limb.be_bytes_to_limbs(c(r8)), limb.be_bytes_to_limbs(c(rpn8)),
-            limb.be_bytes_to_limbs(c(w8)), c(premask), g16=g16, q16=q16))
+        words = digests.view(np.int32)        # the same bits
+        return self._chunked(bucket, lambda c: (
+            fused_verify.digest_verify_with_tables(
+                c(words), c(key_idx), q_flat, c(r8), c(rpn8), c(w8),
+                c(premask), g16=g16, q16=q16)))
 
     def _dispatch_device_sha(self, bucket, key_map, key_idx, blocks,
                              nblocks, r8, rpn8, w8, premask, digests,
@@ -393,15 +400,16 @@ class CUDAProvider(api.BCCSP):
         key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
         self.stats["comb_batches"] += 1
         blocks = blocks.view(np.int32)
-        words = digests.astype(np.int64)
+        words = digests.view(np.int32)
 
         def run(c):
+            # int64 words masked to 32 bits -> int32, the same bits
             hashed = sha256.sha256_blocks(c(blocks), c(nblocks))
-            dw = torch.where(c(has_digest)[:, None], c(words), hashed)
-            return comb.comb_verify_with_tables(
-                dw, c(key_idx), q_flat, limb.be_bytes_to_limbs(c(r8)),
-                limb.be_bytes_to_limbs(c(rpn8)),
-                limb.be_bytes_to_limbs(c(w8)), c(premask), g16=g16, q16=q16)
+            dw = torch.where(c(has_digest)[:, None], c(words),
+                             hashed.to(torch.int32))
+            return fused_verify.digest_verify_with_tables(
+                dw, c(key_idx), q_flat, c(r8), c(rpn8), c(w8), c(premask),
+                g16=g16, q16=q16)
         return self._chunked(bucket, run)
 
     def _dispatch_fused_verify(self, bucket, key_map, key_idx, blocks,

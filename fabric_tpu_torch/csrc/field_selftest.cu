@@ -1,17 +1,23 @@
-// A self-test of the P-256 field core (p256_field.cuh) on the card: per
-// case, the same bodies the host build of the header runs in
-// tests/test_torch_p256_field_host.py, so that the nvcc-built core is held
-// to Python ints on the same edge operands. Not a port of a TPU kernel and
-// not on any verify path; ops/ptree.py field_selftest launches it.
+// Self-tests of the 32-bit cores on the card: per case, the same bodies
+// the host builds of the headers run in tests/test_torch_p256_field_host.py
+// and tests/test_torch_stage_a_host.py, so that the nvcc-built cores are
+// held to Python ints on the same edge operands. Not a port of a TPU kernel
+// and not on any verify path.
 //
+// field_selftest_launch, the P-256 field core (p256_field.cuh; ops/ptree.py
+// field_selftest):
 //   cases i < n_ops: a13, b13 (n_ops, 20) int32 13-bit limbs -> out_ops
 //     (n_ops, 32) uint32: a mod p, a + b, a - b, a * b (canonical words);
 //   cases n_ops + j < n_ops + n_add: p13, q13 (n_add, 60) int32 points ->
 //     out_add (n_add, 24) uint32: X3, Y3, Z3 of RCB15 Alg. 4.
+// modn_selftest_launch, the mod-n core (modn32.cuh; ops/fused_verify.py
+// modn_selftest): e (n, 8) 32-bit big-endian words, r8 and w8 (n, 32)
+// uint8 big-endian rows -> out (n, 16) uint32: u1 = e*w and u2 = r*w mod n.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "modn32.cuh"
 #include "p256_field.cuh"
 
 namespace {
@@ -34,6 +40,15 @@ field_selftest_kernel(const int* __restrict__ a13,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+modn_selftest_kernel(const uint32_t* __restrict__ e,
+                     const uint8_t* __restrict__ r8,
+                     const uint8_t* __restrict__ w8, int n,
+                     uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) mn_selftest(e + 8 * i, r8 + 32 * i, w8 + 32 * i, out + 16 * i);
+}
+
 }  // namespace
 
 // Enqueues the kernel on `stream`; returns cudaGetLastError().
@@ -49,6 +64,17 @@ extern "C" int field_selftest_launch(const void* a13, const void* b13,
       static_cast<const int*>(a13), static_cast<const int*>(b13), n_ops,
       static_cast<const int*>(p13), static_cast<const int*>(q13), n_add,
       static_cast<uint32_t*>(out_ops), static_cast<uint32_t*>(out_add));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int modn_selftest_launch(const void* e, const void* r8,
+                                    const void* w8, int n, void* out,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  modn_selftest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(e), static_cast<const uint8_t*>(r8),
+      static_cast<const uint8_t*>(w8), n, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,11 +8,11 @@
 //     R = sum_i g8[i*256 + w1_i] + sum_i q8[(i*K + key)*256 + w2_i]
 //     accept = premask && 0 <= key < K && Z != 0
 //              && (X == r*Z || X == rpn*Z)   (mod p)
-// Inputs: as sha_windows.cu, except that r and w come as (B, 32) uint8
-// big-endian bytes (r8, w8; the host's form, converted per lane here),
-// plus key_idx (B,) int32, rpn8 (B, 32) uint8, premask (B,) bool, g8
-// (8192, 3, 20) int32 and q8 (K*8192, 3, 20) int32 (comb.g_tables and
-// comb.build_q_tables), and T, the threads per lane; output (B,) bool.
+// Inputs: as sha_windows.cu's message entry (r8 and w8 (B, 32) uint8
+// big-endian rows), plus key_idx (B,) int32, rpn8 (B, 32) uint8, premask
+// (B,) bool, g8 (8192, 3, 20) int32 and q8 (K*8192, 3, 20) int32
+// (comb.g_tables and comb.build_q_tables), and T, the threads per lane;
+// output (B,) bool.
 //
 // What bounds it on this card: 32-bit integer operations. The 63 complete
 // additions dominate (~0.22 ms of least work at 32,768 lanes; ptree.cu's
@@ -21,9 +21,9 @@
 // the three.
 //
 // The design. A lane owns a group of T threads. Thread 0 of the group runs
-// stage A once (the 13-bit mod-n code of field13.cuh, stage A's own
-// redesign being a later step) and leaves the lane's 64 windows in shared
-// memory; after __syncwarp the group gathers and sums its 64 points as the
+// stage A once (stage_a.cuh: SHA-256 with pipelined block loads, the
+// Montgomery products of modn32.cuh, all inlined in registers) and leaves
+// the lane's 64 windows in shared memory; after __syncwarp the group gathers and sums its 64 points as the
 // tree kernel does (tree_sum.cuh, on the 32-bit field core of
 // p256_field.cuh: interleaved running sums, shuffle merges, int4 loads),
 // and thread 0 runs the check. On the TPU the tables were pinned in VMEM
@@ -71,20 +71,11 @@ fused_resident_kernel(const uint32_t* __restrict__ blocks,
                       const uint8_t* __restrict__ rpn8,
                       const uint8_t* __restrict__ w8,
                       const uint8_t* __restrict__ premask,
-                      const int* __restrict__ consts_n,
-                      const uint32_t* __restrict__ shc,
                       const int* __restrict__ g_tab,
                       const int* __restrict__ q_tab,
                       uint8_t* __restrict__ out, int B, int NB, int K,
                       int T) {
-  __shared__ int Cn[NCONST * L];
-  __shared__ uint32_t SK[SHA_NCONST];
   __shared__ uint8_t win[THREADS][2 * NWIN];   // one row per lane slot
-  for (int i = threadIdx.x; i < NCONST * L; i += blockDim.x)
-    Cn[i] = consts_n[i];
-  for (int i = threadIdx.x; i < SHA_NCONST; i += blockDim.x) SK[i] = shc[i];
-  __syncthreads();
-
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = gid / T, t = gid - lane * T;
   if (lane >= B) return;                    // the whole group leaves
@@ -95,32 +86,23 @@ fused_resident_kernel(const uint32_t* __restrict__ blocks,
     return;
   }
   uint8_t* lw = win[threadIdx.x / T];
-  uint32_t rw[8];                           // r, big-endian words
   if (t == 0) {
-    uint32_t words[8], ww[8];
-    int rl[L], wl[L], u1[L], u2[L], wg[NWIN], wq[NWIN];
-    be_bytes_to_words(rw, r8 + b * 32);
-    be_bytes_to_words(ww, w8 + b * 32);
-    words_to_limbs(rl, rw);
-    words_to_limbs(wl, ww);
-    sha_scalars(lane, blocks, NB, nblocks, digests, has_digest, rl, wl, Cn,
-                SK, words, u1, u2);
-    windows<8>(wg, u1);
-    windows<8>(wq, u2);
+    const Fe r = fe_load_be(r8 + b * 32), w = fe_load_be(w8 + b * 32);
+    uint32_t words[8];
+    stage_a_words(words, b, blocks, NB, nblocks, digests, has_digest);
+    Fe u1, u2;
+    mn_scalars(fe_from_be_words(words), r, w, u1, u2);
 #pragma unroll
     for (int i = 0; i < NWIN; ++i) {
-      lw[i] = static_cast<uint8_t>(wg[i]);
-      lw[NWIN + i] = static_cast<uint8_t>(wq[i]);
+      lw[i] = static_cast<uint8_t>(window<8>(u1, i));
+      lw[NWIN + i] = static_cast<uint8_t>(window<8>(u2, i));
     }
   }
   __syncwarp(group_mask(T));                // the windows reach the group
   const ResidentRows rows{lw, g_tab, q_tab, key, K};
   const Pt R = group_sum(rows, 2 * NWIN, t, T);
-  if (t == 0) {
-    uint32_t pw[8];
-    be_bytes_to_words(pw, rpn8 + b * 32);
-    out[b] = pt_check(R, fe_from_be_words(rw), fe_from_be_words(pw));
-  }
+  if (t == 0)
+    out[b] = pt_check(R, fe_load_be(r8 + b * 32), fe_load_be(rpn8 + b * 32));
 }
 
 }  // namespace
@@ -131,9 +113,8 @@ extern "C" int fused_resident_launch(
     const void* blocks, const void* nblocks, const void* digests,
     const void* has_digest, const void* key_idx, const void* r8,
     const void* rpn8, const void* w8, const void* premask,
-    const void* consts_n, const void* shc, const void* g_tab,
-    const void* q_tab, void* out, int B, int NB, int K, int T,
-    void* stream) {
+    const void* g_tab, const void* q_tab, void* out, int B, int NB, int K,
+    int T, void* stream) {
   if (B <= 0) return 0;
   if (NB < 1 || K < 1 || !(T == 1 || T == 2 || T == 4 || T == 8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -147,9 +128,7 @@ extern "C" int fused_resident_launch(
       static_cast<const uint8_t*>(has_digest),
       static_cast<const int*>(key_idx), static_cast<const uint8_t*>(r8),
       static_cast<const uint8_t*>(rpn8), static_cast<const uint8_t*>(w8),
-      static_cast<const uint8_t*>(premask),
-      static_cast<const int*>(consts_n), static_cast<const uint32_t*>(shc),
-      static_cast<const int*>(g_tab), static_cast<const int*>(q_tab),
+      static_cast<const uint8_t*>(premask), static_cast<const int*>(g_tab), static_cast<const int*>(q_tab),
       static_cast<uint8_t*>(out), B, NB, K, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,10 @@
 // compiler builds the same header for tests/test_torch_p256_field_host.py;
 // carry chains in PTX are a later tuning.
 //
-// The rest of the port speaks 13-bit limbs: 20 little-endian int32 limbs,
-// semi-reduced (limbs in [0, 2^13], value < 2^256 + 2^243), as the comb
-// tables, r and rpn are laid out. fe_from13 converts them on load.
+// The comb tables (and the points entry's r and rpn) are 13-bit limbs: 20
+// little-endian int32 limbs, semi-reduced (limbs in [0, 2^13], value <
+// 2^256 + 2^243); fe_from13 converts them on load. Scalars that come from
+// the host as 32-byte big-endian rows (r, rpn, w) are read by fe_load_be.
 //
 // Multiplication: an 8 x 8 schoolbook product to 16 words, then P-256's
 // Solinas reduction (FIPS 186-4 D.2.3, s1 + 2s2 + 2s3 + s4 + s5 - d1 - d2
@@ -31,6 +32,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -272,13 +274,36 @@ __device__ __forceinline__ Fe fe_from13(const int* l) {
   return fe_reduce_top(r, static_cast<int64_t>(acc));
 }
 
-// (8,) big-endian words, word 0 the most significant -> a field element
-// (a value below 2^256; r and rpn are canonical)
+// (8,) big-endian words, word 0 the most significant -> a 256-bit value
+// (here a field element; modn32.cuh reads scalars mod n the same way)
 __device__ __forceinline__ Fe fe_from_be_words(const uint32_t (&words)[8]) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.w[i] = words[7 - i];
   return r;
+}
+
+// (32,) big-endian bytes of a 256-bit value (16-byte aligned) -> (8,)
+// big-endian words, word 0 the most significant, as the digest words: two
+// 16-byte loads and a byte swap per word.
+__device__ __forceinline__ void be_bytes_to_words(uint32_t (&words)[8],
+                                                  const uint8_t* src) {
+  const uint4* v = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 q = __ldg(v + h);
+    const uint32_t part[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      words[4 * h + k] = __byte_perm(part[k], 0, 0x0123);   // byte swap
+  }
+}
+
+// A 32-byte big-endian row (r, rpn, w: the host's form) -> its value
+__device__ __forceinline__ Fe fe_load_be(const uint8_t* src) {
+  uint32_t words[8];
+  be_bytes_to_words(words, src);
+  return fe_from_be_words(words);
 }
 
 __device__ __forceinline__ Pt pt_infinity() {

@@ -16,9 +16,11 @@
 //     windows taken modulo 2^wbits); a lane whose key slot is outside
 //     [0, K) rejects. This removes the (B, M, 3, 20) intermediate that the
 //     gather wrote to device memory and the tree read back.
-// Both take r and rpn (B, 20) int32 canonical limbs and premask (B,) bool,
-// write (B,) bool, and take T, the threads per lane. A lane with premask
-// off rejects without reading its points.
+// The points entry takes r and rpn as (B, 20) int32 canonical limbs, the
+// windows entry as r8 and rpn8 (B, 32) uint8 big-endian rows (the host's
+// form, read per lane by fe_load_be). Both take premask (B,) bool, write
+// (B,) bool, and take T, the threads per lane. A lane with premask off
+// rejects without reading its points.
 //
 // What bounds it on this card: 32-bit integer operations. A complete
 // addition needs 14 field products at the least (RCB15 Alg. 4 for a = -3:
@@ -54,21 +56,31 @@ constexpr int MAX_POINTS = 64;
 constexpr int THREADS = 128;
 constexpr int L13 = 20;                     // 13-bit limbs per value
 
-// Lane rows of the points entry: the lane's M points, one after another.
+// Lane rows of the points entry: the lane's M points, one after another,
+// and its r and rpn as 13-bit limbs.
 struct PointRows {
   const int* base;
+  const int* r13;
+  const int* rpn13;
   __device__ __forceinline__ const int* row(int m) const {
     return base + static_cast<size_t>(m) * PT_INTS;
   }
+  __device__ __forceinline__ Fe r() const { return load_fe(r13); }
+  __device__ __forceinline__ Fe rpn() const { return load_fe(rpn13); }
 };
 
-// Lane rows of the windows entry: comb.gather_from_windows' indices.
+// Lane rows of the windows entry: comb.gather_from_windows' indices, and
+// the lane's r and rpn as 32-byte big-endian rows.
 struct WindowRows {
   const int* w1;                            // this lane's G-side windows
   const int* w2;                            // this lane's Q-side windows
   const int* g_tab;
   const int* q_tab;
+  const uint8_t* r8;
+  const uint8_t* rpn8;
   int key, K, nwin_g, bits_g, bits_q;
+  __device__ __forceinline__ Fe r() const { return fe_load_be(r8); }
+  __device__ __forceinline__ Fe rpn() const { return fe_load_be(rpn8); }
   __device__ __forceinline__ const int* row(int m) const {
     if (m < nwin_g) {
       const size_t r = (static_cast<size_t>(m) << bits_g) +
@@ -86,14 +98,9 @@ struct WindowRows {
 template <class LaneRows>
 __device__ __forceinline__ void tree_lane(const LaneRows& rows, int M, int t,
                                           int T, int lane,
-                                          const int* __restrict__ r,
-                                          const int* __restrict__ rpn,
                                           uint8_t* __restrict__ out) {
   const Pt R = group_sum(rows, M, t, T);
-  if (t == 0) {
-    const size_t off = static_cast<size_t>(lane) * L13;
-    out[lane] = pt_check(R, load_fe(r + off), load_fe(rpn + off));
-  }
+  if (t == 0) out[lane] = pt_check(R, rows.r(), rows.rpn());
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -108,8 +115,10 @@ ptree_points_kernel(const int* __restrict__ pts, const int* __restrict__ r,
     if (t == 0) out[lane] = 0;
     return;
   }
-  const PointRows rows{pts + static_cast<size_t>(lane) * M * PT_INTS};
-  tree_lane(rows, M, t, T, lane, r, rpn, out);
+  const size_t off = static_cast<size_t>(lane) * L13;
+  const PointRows rows{pts + static_cast<size_t>(lane) * M * PT_INTS,
+                       r + off, rpn + off};
+  tree_lane(rows, M, t, T, lane, out);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -117,7 +126,8 @@ ptree_windows_kernel(const int* __restrict__ w1, const int* __restrict__ w2,
                      const int* __restrict__ key_idx,
                      const int* __restrict__ g_tab,
                      const int* __restrict__ q_tab,
-                     const int* __restrict__ r, const int* __restrict__ rpn,
+                     const uint8_t* __restrict__ r8,
+                     const uint8_t* __restrict__ rpn8,
                      const uint8_t* __restrict__ premask,
                      uint8_t* __restrict__ out, int B, int K, int bits_g,
                      int bits_q, int T) {
@@ -130,10 +140,12 @@ ptree_windows_kernel(const int* __restrict__ w1, const int* __restrict__ w2,
     return;
   }
   const int nwin_g = 256 / bits_g, nwin_q = 256 / bits_q;
+  const size_t off = static_cast<size_t>(lane) * 32;
   const WindowRows rows{w1 + static_cast<size_t>(lane) * nwin_g,
                         w2 + static_cast<size_t>(lane) * nwin_q,
-                        g_tab, q_tab, key, K, nwin_g, bits_g, bits_q};
-  tree_lane(rows, nwin_g + nwin_q, t, T, lane, r, rpn, out);
+                        g_tab, q_tab, r8 + off, rpn8 + off, key, K, nwin_g,
+                        bits_g, bits_q};
+  tree_lane(rows, nwin_g + nwin_q, t, T, lane, out);
 }
 
 int blocks_for(int B, int T) {
@@ -167,8 +179,8 @@ extern "C" int ptree_verify_launch(const void* pts, const void* r,
 
 extern "C" int ptree_windows_launch(const void* w1, const void* w2,
                                     const void* key_idx, const void* g_tab,
-                                    const void* q_tab, const void* r,
-                                    const void* rpn, const void* premask,
+                                    const void* q_tab, const void* r8,
+                                    const void* rpn8, const void* premask,
                                     void* out, int B, int K, int wbits_g,
                                     int wbits_q, int T, void* stream) {
   if (B <= 0) return 0;
@@ -179,8 +191,8 @@ extern "C" int ptree_windows_launch(const void* w1, const void* w2,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(w1), static_cast<const int*>(w2),
       static_cast<const int*>(key_idx), static_cast<const int*>(g_tab),
-      static_cast<const int*>(q_tab), static_cast<const int*>(r),
-      static_cast<const int*>(rpn), static_cast<const uint8_t*>(premask),
+      static_cast<const int*>(q_tab), static_cast<const uint8_t*>(r8),
+      static_cast<const uint8_t*>(rpn8), static_cast<const uint8_t*>(premask),
       static_cast<uint8_t*>(out), B, K, wbits_g, wbits_q, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ seconds) and loaded with ctypes. Libraries land in
 fabric_tpu_torch/_build/ (git-ignored), named by the sha256 of their
 source and of every csrc/ header it includes (transitively), so an
 edited source or header rebuilds and an unchanged one is reused.
-`nvcc -Xptxas -v` reports registers and spills; each build writes that
-report beside the library as <name>.ptxas.log.
+`nvcc -Xptxas -v` reports registers, stack and spills; each build writes
+that report beside the library as <name>.ptxas.log, which
+`ptxas_summary` reads per kernel.
 
 Nothing here runs at import: `load` builds on first use, and
 `build_all` (used by chip_smoke.py) starts one nvcc per source at once.
@@ -44,21 +45,25 @@ KERNELS = {
         # a13, b13, n_ops, p13, q13, n_add, out_ops, out_add, stream
         "field_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2
                                   + [_INT] + [_VOIDP] * 3, _INT),
+        # e, r8, w8, n, out, stream
+        "modn_selftest_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2, _INT),
         "field_selftest_error_string": ([_INT], ctypes.c_char_p),
     }),
     "sha_windows": ("sha_windows.cu", {
-        # blocks, nblocks, digests, has_digest, r, w, consts_n, shc, w1,
-        # w2, words, B, NB, wbits_g, wbits_q, stream -> cudaError_t
-        "sha_windows_launch": ([_VOIDP] * 11 + [_INT] * 4 + [_VOIDP], _INT),
-        # blocks, nblocks, shc, words, B, NB, stream -> cudaError_t
-        "sha256_digest_launch": ([_VOIDP] * 4 + [_INT] * 2 + [_VOIDP], _INT),
+        # blocks, nblocks, digests, has_digest, r8, w8, w1, w2, words, B,
+        # NB, wbits_g, wbits_q, stream -> cudaError_t
+        "sha_windows_launch": ([_VOIDP] * 9 + [_INT] * 4 + [_VOIDP], _INT),
+        # digests, r8, w8, w1, w2, B, wbits_g, wbits_q, stream
+        "digest_windows_launch": ([_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+                                  _INT),
+        # blocks, nblocks, words, B, NB, stream -> cudaError_t
+        "sha256_digest_launch": ([_VOIDP] * 3 + [_INT] * 2 + [_VOIDP], _INT),
         "sha_windows_error_string": ([_INT], ctypes.c_char_p),
     }),
     "fused_resident": ("fused_resident.cu", {
-        # blocks, nblocks, digests, has_digest, key_idx, r, rpn, w,
-        # premask, consts_n, shc, g_tab, q_tab, out, B, NB, K, T, stream
-        # -> cudaError_t
-        "fused_resident_launch": ([_VOIDP] * 14 + [_INT] * 4 + [_VOIDP],
+        # blocks, nblocks, digests, has_digest, key_idx, r8, rpn8, w8,
+        # premask, g_tab, q_tab, out, B, NB, K, T, stream -> cudaError_t
+        "fused_resident_launch": ([_VOIDP] * 12 + [_INT] * 4 + [_VOIDP],
                                   _INT),
         "fused_resident_error_string": ([_INT], ctypes.c_char_p),
     }),
@@ -154,15 +159,40 @@ def build_all() -> dict:
     return {name: _finish(name, *st) for name, st in started.items()}
 
 
-def ptxas_report(name: str) -> list[str]:
-    """The register, stack and spill lines of `-Xptxas -v` from the last
-    build of `name` (empty if no build has logged yet)."""
+_PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties "
+                       r"for) '?([\w.$]+)'?")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_KERNEL_NAME = re.compile(r"\d([A-Za-z]\w*?_kernel)(?:ILi(\d+)ELi(\d+)E)?")
+
+
+def ptxas_summary(name: str) -> dict:
+    """Per kernel of `name`'s last build, from `-Xptxas -v`: {kernel:
+    {"registers", "stack", "spill_stores", "spill_loads"}}, a template's
+    widths in the key ("sha_windows_kernel<8,8>")."""
     log = _paths(name)[2]
     if not os.path.exists(log):
-        return []
+        return {}
+    out: dict = {}
+    fn = None
     with open(log) as f:
-        return [" ".join(ln.split()) for ln in f
-                if "registers" in ln or "spill" in ln]
+        for ln in f:
+            m = _PTXAS_FN.search(ln)
+            if m:
+                k = _KERNEL_NAME.search(m.group(1))
+                fn = m.group(1) if k is None else k.group(1) + (
+                    f"<{k.group(2)},{k.group(3)}>" if k.group(2) else "")
+                out.setdefault(fn, {})
+                continue
+            m = _PTXAS_STACK.search(ln)
+            if m and fn:
+                out[fn].update(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+            m = _PTXAS_REGS.search(ln)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 # "/*0120*/  @!P0 IMAD.WIDE.U32 R2, ..." -> "IMAD.WIDE.U32"

@@ -13,11 +13,13 @@ addition law absorbs, so zero windows and padded lanes need no special
 case.
 
 Every table is built with the torch `cadd`/`cdbl` on the tensors' device
-(the JAX package leaves this to XLA, outside any Pallas kernel), and so
-is the u1 = e*w, u2 = r*w (mod n) scalar stage. The gather and the
-per-signature tree sum are ops/ptree.py: on the card one CUDA kernel
-that reads each lane's table rows by window, on the CPU the plain
-gather and tree.
+(the JAX package leaves this to XLA, outside any Pallas kernel). The
+u1 = e*w, u2 = r*w (mod n) scalar stage here (`comb_windows`) is the
+plain torch version of stage A's digest-lanes kernel
+(ops/fused_verify.py `digest_windows`), which the card's routes run.
+The gather and the per-signature tree sum are ops/ptree.py: on the card
+one CUDA kernel that reads each lane's table rows by window, on the CPU
+the plain gather and tree.
 """
 
 from __future__ import annotations
@@ -360,18 +362,22 @@ def comb_points(digest_words, key_idx, q_flat, r, w, g16=None,
 def comb_verify_with_tables(digest_words, key_idx, q_flat, r, rpn, w,
                             premask, g16=None, q16: bool = False,
                             g_flat=None):
-    """Batched ECDSA accept/reject against prebuilt tables.
+    """Batched ECDSA accept/reject against prebuilt tables, in the JAX
+    package's limb form (its comb_verify_with_tables).
 
     digest_words: (B, 8) int64 SHA-256 words; key_idx: (B,) int32 in
     [0, K) (a slot outside rejects); q_flat: build_q_tables (q16=False)
     or build_q16_tables (q16=True); r, rpn, w: (B, L) int32 canonical
     limbs; premask (B,) bool; g16: the 16-bit G table or None for the
     8-bit one (g_flat, default g_tables_on(device)). The scalar stage
-    runs here; the gather, sum and check are
-    ptree.tree_verify_windows: on the card one kernel that reads each
-    lane's table rows itself, on the CPU its plain version.
+    runs here in plain torch (`comb_windows`); the gather, sum and check
+    are ptree.tree_verify_windows, which takes r and rpn as bytes. The
+    card's routes take fused_verify.digest_verify_with_tables instead,
+    whose scalar stage is one kernel and whose scalars stay bytes.
     """
     K, g_tab, wbits_g, wbits_q = route_tables(q_flat, g16, q16, g_flat)
     w1, w2 = comb_windows(digest_words, r, w, wbits_g, wbits_q)
     return ptree.tree_verify_windows(w1, w2, key_idx, g_tab, q_flat, K,
-                                     wbits_g, wbits_q, r, rpn, premask)
+                                     wbits_g, wbits_q,
+                                     limb.limbs_to_be_bytes(r),
+                                     limb.limbs_to_be_bytes(rpn), premask)

@@ -92,6 +92,22 @@ def be_bytes_to_limbs(raw: torch.Tensor) -> torch.Tensor:
     return (bits.reshape(B, L, W) * weights).sum(dim=2, dtype=torch.int32)
 
 
+def limbs_to_be_bytes(limbs: torch.Tensor) -> torch.Tensor:
+    """(B, L) int32 canonical limbs (each below 2^13, value below
+    2^256) -> (B, 32) uint8 big-endian rows, the inverse of
+    `be_bytes_to_limbs`, on the tensor's device. A byte spans at most
+    two limbs."""
+    x = limbs.to(torch.int64)
+    out = []
+    for k in range(31, -1, -1):                     # most significant first
+        j0, off = divmod(8 * k, W)
+        v = x[:, j0] >> off
+        if off + 8 > W:
+            v = v | (x[:, j0 + 1] << (W - off))
+        out.append(v & 0xFF)
+    return torch.stack(out, dim=1).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # Carry propagation
 # ---------------------------------------------------------------------------

@@ -6,14 +6,16 @@ Port of fabric_tpu/ops/ptree.py. Two entries compute the same verdicts:
         pts (B, M, 3, 20) int32 gathered comb points (semi-reduced),
         the JAX signature and layout;
     tree_verify_windows(w1, w2, key_idx, g_tab, q_tab, K, wbits_g,
-                        wbits_q, r, rpn, premask)
+                        wbits_q, r8, rpn8, premask)
         the comb windows and the tables: each lane's points are gathered
         as comb.gather_from_windows gathers them (windows taken modulo
-        2^wbits; a key slot outside [0, K) rejects);
+        2^wbits; a key slot outside [0, K) rejects); r and rpn as the
+        host's (B, 32) uint8 big-endian rows, which the kernel reads
+        itself;
 
-r, rpn (B, 20) int32 canonical, premask (B,) bool -> (B,) bool: accept
-iff premask ∧ R != ∞ ∧ (X ≡ r*Z ∨ X ≡ rpn*Z mod p), R the sum of the
-lane's M points.
+r, rpn (B, 20) int32 canonical limbs (points entry), premask (B,) bool
+-> (B,) bool: accept iff premask ∧ R != ∞ ∧ (X ≡ r*Z ∨ X ≡ rpn*Z mod
+p), R the sum of the lane's M points.
 
 A tensor on the CPU runs the plain torch version here (`tree_body`: the
 JAX package's pairing by halves, odd counts padded with (0:1:0); the
@@ -182,17 +184,18 @@ def gather_rows(w1, w2, key_idx, g_tab, q_tab, K: int, wbits_g: int,
 
 
 def tree_verify_windows_plain(w1, w2, key_idx, g_tab, q_tab, K: int,
-                              wbits_g: int, wbits_q: int, r_l, rpn_l,
+                              wbits_g: int, wbits_q: int, r8, rpn8,
                               premask):
     """The plain torch version of the windows entry, on any device: the
-    gather (`gather_rows`), then `tree_verify_plain`. Windows are taken
-    modulo 2^wbits and a key slot outside [0, K) rejects, as in the
-    kernel."""
+    gather (`gather_rows`), then `tree_verify_plain` on the limbs of r8
+    and rpn8. Windows are taken modulo 2^wbits and a key slot outside
+    [0, K) rejects, as in the kernel."""
     key_ok = (key_idx >= 0) & (key_idx < K)
     pts = gather_rows(w1 & ((1 << wbits_g) - 1), w2 & ((1 << wbits_q) - 1),
                       key_idx.clamp(0, K - 1), g_tab, q_tab, K, wbits_g,
                       wbits_q)
-    return tree_verify_plain(pts, r_l, rpn_l, premask & key_ok)
+    return tree_verify_plain(pts, limb.be_bytes_to_limbs(r8),
+                             limb.be_bytes_to_limbs(rpn8), premask & key_ok)
 
 
 # ---------------------------------------------------------------------------
@@ -221,9 +224,8 @@ def _check(ref, want, aligned=()):
         raise ValueError(f"no tree kernel for device {ref.device}")
 
 
-def _lane_inputs(B, r_l, rpn_l, premask):
-    return [("r", r_l, (B, L), torch.int32),
-            ("rpn", rpn_l, (B, L), torch.int32),
+def _lane_inputs(B, r, rpn, premask, width=L, dtype=torch.int32):
+    return [("r", r, (B, width), dtype), ("rpn", rpn, (B, width), dtype),
             ("premask", premask, (B,), torch.bool)]
 
 
@@ -277,14 +279,15 @@ def tree_verify_points(pts, r_l, rpn_l, premask, *, threads_per_lane=None):
 
 
 def tree_verify_windows(w1, w2, key_idx, g_tab, q_tab, K: int, wbits_g: int,
-                        wbits_q: int, r_l, rpn_l, premask, *,
+                        wbits_q: int, r8, rpn8, premask, *,
                         threads_per_lane=None):
     """The tree over points gathered from the tables by window: the
     verdicts of tree_verify_points(gather_rows(...)) without the
     (B, M, 3, L) intermediate. w1 (B, 256/wbits_g), w2 (B, 256/wbits_q)
     and key_idx (B,) int32; g_tab (256/wbits_g * 2^wbits_g, 3, L) and
-    q_tab (256/wbits_q * K * 2^wbits_q, 3, L) int32. CPU tensors run the
-    plain version; CUDA tensors launch csrc/ptree.cu's windows entry."""
+    q_tab (256/wbits_q * K * 2^wbits_q, 3, L) int32; r8 and rpn8 (B, 32)
+    uint8 big-endian rows. CPU tensors run the plain version; CUDA
+    tensors launch csrc/ptree.cu's windows entry."""
     for name, wb in (("wbits_g", wbits_g), ("wbits_q", wbits_q)):
         if wb not in WBITS_CHOICES:
             raise ValueError(f"{name} must be one of {WBITS_CHOICES}, got "
@@ -303,15 +306,14 @@ def tree_verify_windows(w1, w2, key_idx, g_tab, q_tab, K: int, wbits_g: int,
                 ("g_tab", g_tab, (nwin_g << wbits_g, 3, L), torch.int32),
                 ("q_tab", q_tab, ((nwin_q * K) << wbits_q, 3, L),
                  torch.int32),
-                *_lane_inputs(B, r_l, rpn_l, premask)],
+                *_lane_inputs(B, r8, rpn8, premask, 32, torch.uint8)],
            aligned=("g_tab", "q_tab", "r", "rpn"))
     if w1.device.type == "cpu":
         return tree_verify_windows_plain(w1, w2, key_idx, g_tab, q_tab, K,
-                                         wbits_g, wbits_q, r_l, rpn_l,
-                                         premask)
+                                         wbits_g, wbits_q, r8, rpn8, premask)
     out = torch.empty(B, dtype=torch.bool, device=w1.device)
     _launch(w1.device, "ptree_windows_launch", w1, w2, key_idx, g_tab, q_tab,
-            r_l, rpn_l, premask, out, B, K, wbits_g, wbits_q, T)
+            r8, rpn8, premask, out, B, K, wbits_g, wbits_q, T)
     return out
 
 

@@ -23,7 +23,6 @@ and `limb.words_be_to_limbs` take.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -184,17 +183,10 @@ def check_blocks(blocks, nblocks) -> None:
 
 def sha_consts() -> np.ndarray:
     """(72, 1) uint32: the 64 round constants followed by the 8 initial
-    state words, the kernels' constant input (fabric_tpu's
-    `fused_verify._sha_consts`)."""
+    state words (fabric_tpu's `fused_verify._sha_consts`), which the
+    kernels carry as compile-time words (csrc/sha256.cuh sha_k, sha_h0;
+    tests/test_torch_stage_a_host.py holds them to this)."""
     return np.concatenate([_K, _H0]).reshape(72, 1)
-
-
-@functools.lru_cache(maxsize=None)
-def sha_consts_on(device: str) -> torch.Tensor:
-    """`sha_consts` as a (72,) int32 tensor on `device` (the same bits;
-    the kernels read them as uint32)."""
-    return torch.as_tensor(sha_consts().reshape(72).view(np.int32),
-                           device=device).contiguous()
 
 
 def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
@@ -211,6 +203,8 @@ def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     for name, t in (("blocks", blocks), ("nblocks", nblocks)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if blocks.data_ptr() % 16:                # blocks read as 16-byte loads
+        raise ValueError("blocks must be 16-byte aligned")
     from fabric_tpu_torch import kernels
 
     lib = kernels.load("sha_windows")
@@ -219,8 +213,7 @@ def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(blocks.device).cuda_stream
     with torch.cuda.device(blocks.device):
         err = lib.sha256_digest_launch(
-            blocks.data_ptr(), nblocks.data_ptr(),
-            sha_consts_on(str(blocks.device)).data_ptr(), out.data_ptr(),
+            blocks.data_ptr(), nblocks.data_ptr(), out.data_ptr(),
             ctypes.c_int(B), ctypes.c_int(NB), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(

@@ -1,10 +1,50 @@
 // A stand-in for CUDA's cuda_runtime.h, so that the host C++ compiler can
 // build the port's device headers (fabric_tpu_torch/csrc/*.cuh) for the
-// tests: the execution-space keywords become plain C++.
+// tests: the execution-space keywords become plain C++, and the few
+// device types and intrinsics the headers use get host definitions.
 #pragma once
+
+#include <stdint.h>
+
+#include <algorithm>
 
 #define __host__
 #define __device__
 #define __global__
 #define __forceinline__ inline __attribute__((always_inline))
 #define __noinline__ __attribute__((noinline))
+
+struct alignas(16) uint4 {
+  unsigned int x, y, z, w;
+};
+
+inline uint4 make_uint4(unsigned int x, unsigned int y, unsigned int z,
+                        unsigned int w) {
+  return uint4{x, y, z, w};
+}
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+
+// the bytes of (y:x) picked by the four selector nibbles of s
+inline unsigned int __byte_perm(unsigned int x, unsigned int y,
+                                unsigned int s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  unsigned int r = 0;
+  for (int k = 0; k < 4; ++k)
+    r |= static_cast<unsigned int>((v >> (8 * ((s >> (4 * k)) & 7))) & 0xFF)
+         << (8 * k);
+  return r;
+}
+
+// the low 32 bits of (hi:lo) >> (n & 31)
+inline unsigned int __funnelshift_r(unsigned int lo, unsigned int hi,
+                                    unsigned int n) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<unsigned int>(v >> (n & 31));
+}
+
+using std::max;
+using std::min;

@@ -26,6 +26,7 @@ from fabric_tpu_torch.bccsp import p256_host, utils
 from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
 from fabric_tpu_torch.bccsp.sw import ECDSAPublicKey
 from fabric_tpu_torch.ops import comb as tcomb
+from fabric_tpu_torch.ops import fused_verify as tfv
 from fabric_tpu_torch.ops import limb as tlimb
 from fabric_tpu_torch.ops import p256 as tp256
 
@@ -263,6 +264,68 @@ def test_comb_verify_q8_matches_jax(keys, jax_q8, tables):
         tp256.projective_check(X, Z, r_t, rpn_t, pm_t).numpy(), want)
     np.testing.assert_array_equal(want, want_sw)
     assert want.any() and not want.all()
+
+
+def _bytes(limbs) -> torch.Tensor:
+    """Canonical limbs -> (B, 32) uint8 big-endian rows, over ints."""
+    return torch.as_tensor(np.stack([np.frombuffer(
+        jlimb.limbs_to_int(x).to_bytes(32, "big"), np.uint8)
+        for x in limbs]))
+
+
+def test_digest_verify_bytes_q8_matches_jax(keys, jax_q8, tables):
+    """The commit path's byte-taking function (plain on the CPU: stage
+    A's digest-lanes plain version, the tree's windows entry) against the
+    JAX package's eager scalar stage and gather (limb for limb, through
+    the points) and its Python-int group law for the sum, over the same
+    seeded lanes as test_comb_verify_q8_matches_jax."""
+    g8, q8, _ = tables
+    words, kidx, (r, rpn, w), premask, want_sw = _lanes(keys, 30, seed=9)
+    e = jlimb.words_be_to_limbs(jnp.asarray(words))
+    u1 = jcomb.FN.canonical(jcomb.FN.mulmod(e, jnp.asarray(w)))
+    u2 = jcomb.FN.canonical(jcomb.FN.mulmod(jnp.asarray(r), jnp.asarray(w)))
+    jw1, jw2 = (np.asarray(jcomb._windows(u)) for u in (u1, u2))
+    jpts = np.asarray(jcomb.comb_gather_points(
+        u1, u2, jnp.asarray(kidx), jnp.asarray(jcomb.g_tables()),
+        jnp.asarray(jax_q8), 2))
+    want = []
+    for b in range(len(words)):
+        acc = (0, 1, 0)
+        for m in range(jpts.shape[1]):
+            acc = jp256.cadd_int(acc, tuple(
+                jlimb.limbs_to_int(jpts[b, m, c]) for c in range(3)))
+        aff = jp256.to_affine_int(acc)
+        want.append(bool(premask[b]) and aff is not None and aff[0] in (
+            jlimb.limbs_to_int(r[b]), jlimb.limbs_to_int(rpn[b])))
+    r8, rpn8, w8 = (_bytes(x) for x in (r, rpn, w))
+    digests = torch.as_tensor(words.view(np.int32))
+    w1, w2 = tfv.digest_windows(digests, r8, w8)
+    np.testing.assert_array_equal(w1.numpy(), jw1)
+    np.testing.assert_array_equal(w2.numpy(), jw2)
+    got = tfv.digest_verify_with_tables(digests, torch.as_tensor(kidx), q8,
+                                        r8, rpn8, w8,
+                                        torch.as_tensor(premask), g_flat=g8)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    np.testing.assert_array_equal(got.numpy(), want_sw)
+    assert got.any() and not got.all()
+
+
+@pytest.mark.slow
+def test_digest_verify_bytes_q8_matches_jax_function(keys, jax_q8, tables):
+    """The JAX package's comb_verify_with_tables itself on the limbs of
+    the same rows (its eager XLA tree costs ~20 s on the CPU)."""
+    g8, q8, _ = tables
+    words, kidx, (r, rpn, w), premask, want_sw = _lanes(keys, 30, seed=9)
+    want = np.asarray(jcomb.comb_verify_with_tables(
+        jnp.asarray(words), jnp.asarray(kidx), jnp.asarray(jax_q8),
+        jnp.asarray(r), jnp.asarray(rpn), jnp.asarray(w),
+        jnp.asarray(premask)))
+    got = tfv.digest_verify_with_tables(
+        torch.as_tensor(words.view(np.int32)), torch.as_tensor(kidx), q8,
+        *(_bytes(x) for x in (r, rpn, w)), torch.as_tensor(premask),
+        g_flat=g8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, want_sw)
 
 
 @pytest.mark.slow

@@ -8,8 +8,9 @@ fabric_tpu, so it also runs on the card's machine, which has neither
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel is held to its plain torch version on the same inputs (the
-tree kernel also to Python-int sums, the SHA kernels to hashlib): exact
-equality. The provider, on every message route, to its sw provider.
+tree kernel also to Python-int sums, the SHA kernels to hashlib, the
+field and mod-n cores to Python ints): exact equality. The provider, on
+every message route and on the commit path, to its sw provider.
 """
 
 import hashlib
@@ -31,6 +32,10 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _be32(x: int) -> np.ndarray:
+    return np.frombuffer(x.to_bytes(32, "big"), np.uint8)
 
 
 def _lanes(B, M, seed):
@@ -123,14 +128,14 @@ def _window_case(dev, B, seed):
                 limb.limbs_to_int(pts[b, m, c]) for c in range(3)))
         aff = p256.to_affine_int(acc)
         xs.append(aff[0] if aff else None)
-    r = limb.ints_to_limbs([((x or 1) + (b % 3 != 0)) % p256.N
-                            for b, x in enumerate(xs)])
+    r8 = np.stack([_be32(((x or 1) + (b % 3 != 0)) % p256.N)
+                   for b, x in enumerate(xs)])
     premask = np.ones(B, bool)
     premask[5] = False
     want = np.array([b % 3 == 0 and premask[b] and 0 <= key[b] < 2
                      and x is not None and x < p256.N
                      for b, x in enumerate(xs)])
-    r_t = torch.as_tensor(r, device=dev)
+    r_t = torch.as_tensor(r8, device=dev)
     return (t["w1"], t["w2"], t["key"], g8, q8, 2, 8, 8, r_t, r_t,
             torch.as_tensor(premask, device=dev)), want
 
@@ -172,6 +177,22 @@ def test_field_core_matches_ints(dev):
         assert torch.equal(g_.cpu(), w_)
 
 
+def test_modn_core_matches_ints(dev):
+    """The nvcc build of csrc/modn32.cuh: u1 = e*w and u2 = r*w mod n on
+    e = 0, n - 1, n, n + 1, 2^256 - 1 against w = 1, n - 1 and r = 1."""
+    N = p256.N
+    es = [0, N - 1, N, N + 1, (1 << 256) - 1]
+    cases = [(e, r, w) for e in es for w in (1, N - 1, 12345)
+             for r in (1, N - 1)]
+    e = np.stack([np.frombuffer(c[0].to_bytes(32, "big"), ">u4")
+                  for c in cases]).astype(np.uint32).view(np.int32)
+    r8 = np.stack([_be32(c[1]) for c in cases])
+    w8 = np.stack([_be32(c[2]) for c in cases])
+    cpu = [torch.as_tensor(x) for x in (e, r8, w8)]
+    got = fused_verify.modn_selftest(*(x.to(dev) for x in cpu))
+    assert torch.equal(got.cpu(), fused_verify.modn_selftest_plain(*cpu))
+
+
 def test_kernel_rejects_non_contiguous(dev):
     pts, r, rpn, premask, _ = _lanes(8, 4, seed=1)
     args = [torch.as_tensor(a, device=dev) for a in (pts, r, rpn, premask)]
@@ -211,7 +232,8 @@ def test_provider_on_the_card_matches_sw(dev, monkeypatch):
              {"tree_kernel_launches", "sha_windows_launches"}),
             ({"UseG16": False}, True, {"resident_launches"}),
             ({"UseG16": False, "HashOnHost": False, "FusedVerify": False},
-             False, {"tree_kernel_launches", "sha256_launches"})):
+             False, {"tree_kernel_launches", "sha256_launches",
+                     "sha_windows_launches"})):
         if resident:
             monkeypatch.setenv("FTPU_FUSED_RESIDENT", "1")
         prov = factory.new_bccsp({"Default": "CUDA", "CUDA": cfg})
@@ -222,6 +244,50 @@ def test_provider_on_the_card_matches_sw(dev, monkeypatch):
             k: int(k in launched) for k in kernels}
         assert prov.stats["host_hashed_lanes"] == 0
         monkeypatch.delenv("FTPU_FUSED_RESIDENT", raising=False)
+
+
+def test_commit_path_one_stage_a_launch(dev):
+    """verify_prepared (digest lanes, the commit path) on the q8 route:
+    per chunk one stage-A launch (the digest-lanes entry) and one tree
+    launch, no other kernel of the port; verdicts equal the sw
+    provider's."""
+    from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
+
+    rng = np.random.default_rng(12)
+    csp = sw.SWProvider()
+    privs = [sw.ECDSAPrivateKey(int(rng.integers(1, 1 << 62)))
+             for _ in range(3)]
+    pubs = [k.public_key() for k in privs]
+    n = 80
+    key_idx = np.arange(n) % 3
+    digests = np.zeros((n, 32), np.uint8)
+    r8, rpn8, w8 = (np.zeros((n, 32), np.uint8) for _ in range(3))
+    der_ok = np.zeros(n, bool)
+    sigs = []
+    for i in range(n):
+        d = hashlib.sha256(rng.bytes(64)).digest()
+        sig = csp.sign(privs[key_idx[i]], d)
+        if i % 9 == 4:
+            d = bytes([d[0] ^ 1]) + d[1:]
+        sigs.append(sig)
+        digests[i] = np.frombuffer(d, np.uint8)
+        prep = host_prep_scalars(pubs[key_idx[i]], sig)
+        if prep is not None:
+            der_ok[i] = True
+            r8[i], rpn8[i], w8[i] = (np.frombuffer(x, np.uint8) for x in prep)
+    want = [csp.verify(pubs[key_idx[i]], sigs[i], bytes(digests[i]))
+            for i in range(n)]
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "UseG16": False, "Chunk": 64}})
+    got = prov.verify_prepared(digests, r8, rpn8, w8, der_ok, key_idx, pubs,
+                               sigs.__getitem__)
+    assert got == want and not all(want)
+    chunks = prov._bucket(n) // 64
+    assert {k: prov.stats[k] for k in (
+        "tree_kernel_launches", "sha_windows_launches", "sha256_launches",
+        "resident_launches")} == {
+        "tree_kernel_launches": chunks, "sha_windows_launches": chunks,
+        "sha256_launches": 0, "resident_launches": 0}
 
 
 # -- the fused tier's kernels --
@@ -253,7 +319,8 @@ def _stage(B, seed):
     key_idx[14] = 4
     return dict(msgs=msgs, blocks=blocks, counts=counts, has=has, dig=dig,
                 nblocks=np.where(has, 0, counts).astype(np.int32),
-                r=limb.ints_to_limbs(rs), w=limb.ints_to_limbs(ws),
+                r8=np.stack([_be32(x) for x in rs]),
+                w8=np.stack([_be32(x) for x in ws]),
                 key_idx=key_idx, premask=rng.random(B) < 0.9)
 
 
@@ -278,11 +345,33 @@ def test_sha256_kernel_matches_plain_and_hashlib(dev):
 @pytest.mark.parametrize("wbits", [(8, 8), (16, 16)])
 def test_sha_windows_kernel_matches_plain(dev, wbits):
     st = _stage(300, seed=2)
-    args = _on(dev, st, "blocks", "nblocks", "dig", "has", "r", "w")
+    args = _on(dev, st, "blocks", "nblocks", "dig", "has", "r8", "w8")
     before = fused_verify.sha_windows_launches
     got = fused_verify.sha_windows(*args, wbits_g=wbits[0], wbits_q=wbits[1])
     assert fused_verify.sha_windows_launches == before + 1
     plain = fused_verify.sha_windows_plain(*args, *wbits)
+    torch.cuda.synchronize()
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("wbits", [(8, 8), (16, 16)])
+def test_digest_windows_kernel_matches_plain(dev, wbits):
+    """The digest-lanes entry: every lane's hashlib digest, with the
+    digests 0, 2^256 - 1 and n written into lanes 9-11."""
+    st = _stage(300, seed=4)
+    words = np.stack([np.frombuffer(hashlib.sha256(m).digest(), ">u4")
+                      for m in st["msgs"]]).astype(np.uint32)
+    words[9] = 0
+    words[10] = 0xFFFFFFFF
+    words[11] = np.frombuffer(p256.N.to_bytes(32, "big"), ">u4")
+    args = [torch.as_tensor(words.view(np.int32)).to(dev),
+            *_on(dev, st, "r8", "w8")]
+    before = fused_verify.sha_windows_launches
+    got = fused_verify.digest_windows(*args, wbits_g=wbits[0],
+                                      wbits_q=wbits[1])
+    assert fused_verify.sha_windows_launches == before + 1
+    plain = fused_verify.digest_windows_plain(*args, *wbits)
     torch.cuda.synchronize()
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
@@ -319,25 +408,16 @@ def test_resident_kernel_matches_plain_and_tiered(dev):
     keys = [p256.to_affine_int(p256.scalar_mul_int(
         d, (p256.GX, p256.GY, 1))) for d in (3, 5, 7, 11)]
     q8 = torch.as_tensor(_q8_ints(keys), device=dev)
-    r8 = np.zeros((160, 32), np.uint8)
-    for i, row in enumerate(st["r"]):
-        r8[i] = np.frombuffer(limb.limbs_to_int(row).to_bytes(32, "big"),
-                              np.uint8)
-    w8 = np.zeros((160, 32), np.uint8)
-    for i, row in enumerate(st["w"]):
-        w8[i] = np.frombuffer(limb.limbs_to_int(row).to_bytes(32, "big"),
-                              np.uint8)
-    blocks, nblocks, key_idx, dig, has, premask = _on(
-        dev, st, "blocks", "nblocks", "key_idx", "dig", "has", "premask")
-    r8_t, w8_t = (torch.as_tensor(a, device=dev) for a in (r8, w8))
+    blocks, nblocks, key_idx, dig, has, premask, r8_t, w8_t = _on(
+        dev, st, "blocks", "nblocks", "key_idx", "dig", "has", "premask",
+        "r8", "w8")
     args = (blocks, nblocks, key_idx, q8, r8_t, r8_t, w8_t, premask, dig,
             has)
     before = fused_verify.resident_launches
     got = fused_verify.fused_verify_resident(*args)
     assert fused_verify.resident_launches == before + 1
-    r_l, w_l = (limb.be_bytes_to_limbs(a) for a in (r8_t, w8_t))
     plain = fused_verify.resident_plain(
-        blocks, nblocks, key_idx, q8, r_l, r_l, w_l, premask, dig, has,
+        blocks, nblocks, key_idx, q8, r8_t, r8_t, w8_t, premask, dig, has,
         comb.g_tables_on(dev))
     ok = (key_idx >= 0) & (key_idx < 4)
     tiered = fused_verify.fused_verify_with_tables(

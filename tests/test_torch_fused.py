@@ -1,12 +1,14 @@
-"""fabric_tpu_torch.ops.fused_verify (the fused tier) against fabric_tpu.
+"""fabric_tpu_torch.ops.fused_verify (stage A and the fused tier) against
+fabric_tpu.
 
-On the CPU every wrapper runs its plain torch version. Stage A is held
-to hashlib and to the JAX package's eager limb functions
-(`words_be_to_limbs`, `FN.mulmod`/`canonical`, `comb._windows`) at 8 and
-16 bits, with digest lanes of e = 0 and e >= n, w = 1, w = n - 1 and
-r = 1; the tiered and resident pipelines to the port's comb-digest
-verdicts over hashlib digests and the bitmap known by construction. The
-JAX package's Pallas functions themselves, interpreted, are `slow`.
+On the CPU every wrapper runs its plain torch version. Stage A, both
+entries (message lanes and digest lanes), is held to hashlib and to the
+JAX package's eager limb functions (`words_be_to_limbs`,
+`FN.mulmod`/`canonical`, `comb._windows`) at 8 and 16 bits, with digest
+lanes of e = 0 and e >= n, w = 1, w = n - 1 and r = 1; the tiered,
+digest-lane and resident pipelines to the port's comb-digest verdicts
+over hashlib digests and the bitmap known by construction. The JAX
+package's Pallas functions themselves, interpreted, are `slow`.
 Inputs are seeded numpy arrays; tolerance: exact equality. The CUDA
 kernels are held to these plain versions by tests/test_torch_cuda.py
 and chip_smoke.py on the card.
@@ -32,6 +34,8 @@ from fabric_tpu_torch.bccsp import p256_host, utils
 from fabric_tpu_torch.ops import comb as tcomb
 from fabric_tpu_torch.ops import fused_verify as tfv
 from fabric_tpu_torch.ops import limb as tlimb
+from fabric_tpu_torch.ops import p256 as tp256
+from fabric_tpu_torch.ops import ptree as tptree
 from fabric_tpu_torch.ops import sha256 as tsha
 from tests.test_torch_comb import _point, _q8_ints
 
@@ -79,17 +83,21 @@ def stage():
     words[has] = dig[has]
     return dict(blocks=blocks, nblocks=nblocks, dig=dig, has=has,
                 r=jlimb.ints_to_limbs(rs), w=jlimb.ints_to_limbs(ws),
+                r8=np.stack([_be32(x) for x in rs]),
+                w8=np.stack([_be32(x) for x in ws]),
                 rs=rs, ws=ws, words=words)
 
 
 def _stage_args(st):
     return (torch.from_numpy(st["blocks"]), torch.from_numpy(st["nblocks"]),
             torch.from_numpy(st["dig"]), torch.from_numpy(st["has"]),
-            torch.as_tensor(st["r"]), torch.as_tensor(st["w"]))
+            torch.from_numpy(st["r8"]), torch.from_numpy(st["w8"]))
 
 
 def test_consts_match_jax():
-    np.testing.assert_array_equal(tfv._fnk().pack_consts(),
+    """The mod-n constants the plain versions run on, and the SHA
+    constants the kernels carry as compile-time words."""
+    np.testing.assert_array_equal(tptree.KMod(tp256.FN).pack_consts(),
                                   jfv._fnk().pack_consts())
     np.testing.assert_array_equal(tsha.sha_consts(), jfv._sha_consts())
 
@@ -122,6 +130,37 @@ def test_stage_a_matches_jax_eager_and_ints(stage, wbits):
                           "big") >= N
 
 
+@pytest.mark.parametrize("wbits", [8, 16])
+def test_digest_windows_matches_jax_eager_and_ints(stage, wbits):
+    """The digest-lanes entry (every lane takes its digest): the stage's
+    words as digests, lane 15's digest n itself (e = n, so u1 = 0)."""
+    words = stage["words"].copy()
+    words[15] = np.frombuffer(N.to_bytes(32, "big"), ">u4")
+    before = tfv.sha_windows_launches
+    w1, w2 = tfv.digest_windows(torch.from_numpy(words.view(np.int32)),
+                                torch.from_numpy(stage["r8"]),
+                                torch.from_numpy(stage["w8"]),
+                                wbits_g=wbits, wbits_q=wbits)
+    assert tfv.sha_windows_launches == before   # the plain version
+    assert w1.shape == w2.shape == (24, 256 // wbits)
+    e = jlimb.words_be_to_limbs(jnp.asarray(words.astype(np.int64)))
+    w = jnp.asarray(stage["w"])
+    u1 = jp256.FN.canonical(jp256.FN.mulmod(e, w))
+    u2 = jp256.FN.canonical(jp256.FN.mulmod(jnp.asarray(stage["r"]), w))
+    np.testing.assert_array_equal(w1.numpy(),
+                                  np.asarray(jcomb._windows(u1, wbits)))
+    np.testing.assert_array_equal(w2.numpy(),
+                                  np.asarray(jcomb._windows(u2, wbits)))
+    mask = (1 << wbits) - 1
+    for i in (9, 10, 11, 12, 13, 14, 15):
+        ev = int.from_bytes(words[i].astype(">u4").tobytes(), "big")
+        for got, u in ((w1[i], ev * stage["ws"][i] % N),
+                       (w2[i], stage["rs"][i] * stage["ws"][i] % N)):
+            assert got.tolist() == [(u >> (wbits * k)) & mask
+                                    for k in range(256 // wbits)], i
+    assert not w1[15].any()
+
+
 @pytest.mark.parametrize("wbits", [(16, 8), (8, 16)])
 def test_mixed_window_widths_rejected(stage, wbits):
     """No route pairs G16 with Q8 or G8 with Q16, so the wrapper (and the
@@ -143,6 +182,13 @@ def test_wrappers_reject_bad_inputs(stage):
             tfv.sha_windows(*a)
     with pytest.raises(ValueError):
         tfv.sha_windows(*(t.to("meta") for t in args))
+    dig, r8, w8 = args[2], args[4], args[5]
+    for bad in ((dig.to(torch.int64), r8, w8), (dig, r8[:, :20], w8),
+                (dig, r8, w8[:3])):
+        with pytest.raises((ValueError, TypeError)):
+            tfv.digest_windows(*bad)
+    with pytest.raises(ValueError, match="8/8 or 16/16"):
+        tfv.digest_windows(dig, r8, w8, wbits_g=16, wbits_q=8)
 
 
 def test_resident_table_bytes_and_budget():
@@ -160,7 +206,7 @@ def test_library_names_follow_included_headers(tmp_path, monkeypatch):
     shutil.copytree(kernels._CSRC, src)
     monkeypatch.setattr(kernels, "_CSRC", str(src))
     assert {os.path.basename(f) for f in kernels.sources("fused_resident")} \
-        == {"fused_resident.cu", "stage_a.cuh", "field13.cuh", "sha256.cuh",
+        == {"fused_resident.cu", "stage_a.cuh", "modn32.cuh", "sha256.cuh",
             "tree_sum.cuh", "p256_field.cuh"}
 
     def names():
@@ -174,16 +220,16 @@ def test_library_names_follow_included_headers(tmp_path, monkeypatch):
     assert second["ptree"] == first["ptree"]
     assert second["sha_windows"] != first["sha_windows"]
     assert second["fused_resident"] != first["fused_resident"]
+    with open(src / "modn32.cuh", "a") as f:
+        f.write("\n// edited\n")
+    third = names()
+    assert third["ptree"] == second["ptree"]
+    for k in ("sha_windows", "fused_resident", "field_selftest"):
+        assert third[k] != second[k]
     with open(src / "p256_field.cuh", "a") as f:
         f.write("\n// edited\n")
-    third = names()
-    assert third["sha_windows"] == second["sha_windows"]
-    for k in ("ptree", "fused_resident", "field_selftest"):
-        assert third[k] != second[k]
-    with open(src / "field13.cuh", "a") as f:
-        f.write("\n// edited\n")
-    third = names()
-    assert all(third[k] != second[k] for k in kernels.KERNELS)
+    fourth = names()
+    assert all(fourth[k] != third[k] for k in kernels.KERNELS)
 
 
 # -- the whole tier over signed lanes --
@@ -251,6 +297,19 @@ def _comb_digest(case):
                                          w, premask, g_flat=case["g8"])
 
 
+def test_digest_verify_with_tables_matches_comb_digest(verify_case):
+    """The commit path's function (digest lanes, byte scalars) on every
+    lane's hashlib digest: the comb-digest verdicts and the bitmap."""
+    _, _, key_idx, q8, r8, rpn8, w8, premask, _, _ = verify_case["args"]
+    digests = verify_case["words"].to(torch.int32)
+    before = (tfv.sha_windows_launches, tptree.launches)
+    got = tfv.digest_verify_with_tables(digests, key_idx, q8, r8, rpn8, w8,
+                                        premask, g_flat=verify_case["g8"])
+    assert (tfv.sha_windows_launches, tptree.launches) == before
+    assert torch.equal(got, _comb_digest(verify_case))
+    np.testing.assert_array_equal(got.numpy(), verify_case["want"])
+
+
 def test_fused_verify_with_tables_matches_comb_digest(verify_case):
     got = tfv.fused_verify_with_tables(*verify_case["args"],
                                        g_flat=verify_case["g8"])
@@ -295,8 +354,9 @@ def _jax_args(case):
 @pytest.mark.slow
 @pytest.mark.parametrize("wbits", [8, 16])
 def test_sha_windows_matches_jax_interpret(stage, wbits):
+    jargs = [jnp.asarray(np.asarray(t)) for t in _stage_args(stage)[:4]]
     want = jfv.sha_windows(
-        *(jnp.asarray(np.asarray(t)) for t in _stage_args(stage)),
+        *jargs, jnp.asarray(stage["r"]), jnp.asarray(stage["w"]),
         wbits_g=wbits, wbits_q=wbits, interpret=True, block_b=128)
     got = tfv.sha_windows(*_stage_args(stage), wbits_g=wbits, wbits_q=wbits)
     for g, w in zip(got, want):

@@ -109,6 +109,20 @@ def test_byte_and_word_conversions_match_jax():
         _jax(jlimb.words_be_to_limbs(jnp.asarray(words))))
 
 
+def test_limbs_to_be_bytes_inverts_jax_conversion():
+    """limbs_to_be_bytes undoes the JAX package's be_bytes_to_limbs on
+    every byte value at every position, 0 and 2^256 - 1 included."""
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 256, size=(24, 32), dtype=np.uint8)
+    raw[0] = 0
+    raw[1] = 255
+    raw[2] = np.arange(32)
+    back = tlimb.limbs_to_be_bytes(torch.as_tensor(
+        jlimb.be_bytes_to_limbs(raw)))
+    assert back.dtype == torch.uint8
+    np.testing.assert_array_equal(back.numpy(), raw)
+
+
 def test_int_converters_match_jax():
     xs = [0, 1, P - 1, N - 1, TOP, (1 << 260) - 1]
     np.testing.assert_array_equal(tlimb.ints_to_limbs(xs),

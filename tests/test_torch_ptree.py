@@ -230,8 +230,10 @@ def windows_case(g8):
                 jlimb.limbs_to_int(pts[b, m, c]) for c in range(3)))
         aff = jp256.to_affine_int(acc)
         xs.append(aff[0] if aff else None)
-    r = jlimb.ints_to_limbs([((x or 1) + (b % 3 != 0)) % jp256.N
-                             for b, x in enumerate(xs)])
+    rs = [((x or 1) + (b % 3 != 0)) % jp256.N for b, x in enumerate(xs)]
+    r = jlimb.ints_to_limbs(rs)
+    r8 = np.stack([np.frombuffer(v.to_bytes(32, "big"), np.uint8)
+                   for v in rs])
     premask = np.ones(B, bool)
     premask[5] = False
     want = np.array([b % 3 == 0 and premask[b] and 0 <= key[b] < K
@@ -239,14 +241,15 @@ def windows_case(g8):
                      for b, x in enumerate(xs)])
     args = [torch.as_tensor(a) for a in (w1, w2, key, g8, q8)]
     return dict(args=(*args[:5], K, 8, 8), pts=pts, r=torch.as_tensor(r),
-                premask=torch.as_tensor(premask), want=want, key=key)
+                r8=torch.as_tensor(r8), premask=torch.as_tensor(premask),
+                want=want, key=key)
 
 
 def test_windows_entry_matches_points_entry_and_ints(windows_case):
     c = windows_case
-    tail = (c["r"], c["r"], c["premask"])
     before = tptree.launches
-    got = tptree.tree_verify_windows(*c["args"], *tail).numpy()
+    got = tptree.tree_verify_windows(*c["args"], c["r8"], c["r8"],
+                                     c["premask"]).numpy()
     assert tptree.launches == before               # the plain version
     np.testing.assert_array_equal(got, c["want"])
     assert 10 <= got.sum() < len(got)
@@ -257,20 +260,20 @@ def test_windows_entry_matches_points_entry_and_ints(windows_case):
     ok = (c["key"] >= 0) & (c["key"] < 2)
     np.testing.assert_array_equal(gathered.numpy()[ok], c["pts"][ok])
     pts_got = tptree.tree_verify_points(
-        torch.as_tensor(c["pts"]), *tail[:2],
+        torch.as_tensor(c["pts"]), c["r"], c["r"],
         c["premask"] & torch.as_tensor(ok)).numpy()
     np.testing.assert_array_equal(got, pts_got)
 
 
 def test_windows_wrapper_rejects_bad_inputs(windows_case):
     w1, w2, key, g8, q8, K, wg, wq = windows_case["args"]
-    r, pm = windows_case["r"], windows_case["premask"]
+    r, r8, pm = (windows_case[k] for k in ("r", "r8", "premask"))
 
     def call(*a, **k):
         base = dict(zip(("w1", "w2", "key", "g", "q", "K", "wg", "wq"),
                         (w1, w2, key, g8, q8, K, wg, wq)))
         base.update(k)
-        return tptree.tree_verify_windows(*base.values(), r, r, pm, *a)
+        return tptree.tree_verify_windows(*base.values(), r8, r8, pm, *a)
 
     with pytest.raises(ValueError):
         call(w1=w1[:, :31])                        # width != 256 / wbits_g
@@ -288,9 +291,11 @@ def test_windows_wrapper_rejects_bad_inputs(windows_case):
         call(key=key.to(torch.int64))
     with pytest.raises(ValueError):
         call(g=g8.to("meta"))
+    with pytest.raises((ValueError, TypeError)):
+        tptree.tree_verify_windows(w1, w2, key, g8, q8, K, wg, wq, r, r, pm)
     with pytest.raises(ValueError):
-        tptree.tree_verify_windows(w1, w2, key, g8, q8, K, wg, wq, r, r, pm,
-                                   threads_per_lane=3)
+        tptree.tree_verify_windows(w1, w2, key, g8, q8, K, wg, wq, r8, r8,
+                                   pm, threads_per_lane=3)
     with pytest.raises(ValueError):
         tptree.tree_verify_points(windows_case["args"][3][None, :2], r[:1],
                                   r[:1], pm[:1], threads_per_lane=16)
@@ -307,6 +312,6 @@ def test_windows_entry_matches_jax_tree(windows_case):
     pm = (c["premask"].numpy() & ok)[None, :].astype(np.int32)
     want = np.asarray(jptree.tree_body(*map(jnp.asarray, (
         lead[0], lead[1], lead[2], r.T[:, None, :], r.T[:, None, :], pm))))
-    got = tptree.tree_verify_windows(*c["args"], c["r"], c["r"],
+    got = tptree.tree_verify_windows(*c["args"], c["r8"], c["r8"],
                                      c["premask"]).numpy()
     np.testing.assert_array_equal(got, want[0])
