@@ -17,10 +17,15 @@ Phases, one JSON line each; any failure exits non-zero:
                    sub and the 13-bit conversion on edge operands (0, 1,
                    p - 1, p, p + 1, 2^256 - 1, 2^256 + 2^243 - 1) and seeded
                    random ones, RCB15 Alg. 4 on P + P, P + (-P), P + inf,
-                   inf + inf and random points; and the mod-n core
+                   inf + inf and random points; the mod-n core
                    (csrc/modn32.cuh) on e = 0, 1, n - 1, n, n + 1,
                    2^256 - 1 against w = 1, n - 1 and r = 1, n - 1, and
-                   seeded random ones; words equal
+                   seeded random ones; the ladder's doubling (pt_dbl)
+                   against cdbl_int on G, -G, inf and random points; the
+                   2^255 - 19 core (csrc/fe25519.cuh) on 0, 1, p - 1, p,
+                   p + 1, 2^255 - 1, 2^256 - 1 and random operands, and
+                   ed_add/ed_dbl on B, the identity, a small-order point
+                   and random points; words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -86,6 +91,40 @@ Phases, one JSON line each; any failure exits non-zero:
                    (3 keys, K = 4) over the same lanes plus the block's bad
                    lanes; beyond the edge lanes, the expected bitmap; its
                    time at each T in 1, 2, 4, 8.
+  ladder_path      a second block from --seed + 1: --txs x 3 P-256
+                   signatures, the 2 endorsements from the 3 org keys and
+                   the creator from 1,021 client keys (1,024 keys, over
+                   MaxKeys = 16), bad lanes as above, through a fresh
+                   CUDAProvider: verify_prepared (the ladder's digest-lanes
+                   entry) and verify_batch (its message entry, SHA-256 in
+                   the kernel), each counted: the ladder one launch a
+                   chunk, every other kernel 0; bitmaps equal the expected
+                   one and sw on >= 2,048 lanes; one steady verify_prepared
+                   under torch.profiler.
+  ladder_vs_plain  both ladder entries against the plain version
+                   (ops/verify.py) on the card over 4,096 lanes, the first
+                   of them edges: u1 = 0 (digest n), Q = G with u2 = -u1
+                   (R at infinity), x(R) as rpn beside a wrong r, Q = -G
+                   and Q = G (table entries at infinity and doublings),
+                   premask off, message lengths 0, 55, 56, 64 and 503;
+                   Python ints on the edge lanes, the expected bitmap
+                   beyond; then each entry at the block's 32,768-lane
+                   bucket: kernel = plain, its time (CUDA events: a call
+                   is milliseconds) against ladder_bound.
+  ed25519_path     30,720 Ed25519 lanes from --seed over 64 keys, 256-byte
+                   messages, ~1% bad lanes of five kinds (message flipped,
+                   S + L, R encoded with y = p + 1, a small-order key, the
+                   wrong key), interleaved with the first block's lanes in
+                   one verify_batch on the q16 provider, so the router
+                   splits it; bitmaps equal the expected ones and sw on a
+                   sample holding every bad lane; the Ed25519 kernel one
+                   launch a chunk; the host prep's seconds apart.
+  ed25519_vs_plain the Ed25519 kernel against ed25519.verify_core on the
+                   card over 4,096 lanes, the first of them edges (S = 0,
+                   k = 0, RFC 8032 test 1, identity operands, a dead lane,
+                   R off by one point), Python ints on those, the expected
+                   bitmap beyond; then at the 32,768-lane bucket, its time
+                   against ed25519_bound.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -233,22 +272,30 @@ def pool_map(pool, fn, jobs, nproc):
 
 # -- the block --
 
-def make_block(seed: int, txs: int, pool, nproc):
+def _pub_chunk(ds):
+    from fabric_tpu_torch.bccsp import p256_host
+    return [p256_host.derive_public(d) for d in ds]
+
+
+def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
     """Keys, items and prepared arrays for one block, with the expected
-    bitmap known by construction."""
+    bitmap known by construction: 2 endorsements a tx from the 3 org keys
+    and 1 creator signature, from an org key or, with `clients`, from
+    client key 3 + (t mod clients)."""
     from fabric_tpu_torch.bccsp import bccsp as api
     from fabric_tpu_torch.bccsp import p256_host, sw, utils
     from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
 
     rng = np.random.default_rng(seed)
+    nkeys = 3 + clients
     ds = [int.from_bytes(rng.bytes(32), "big") % (p256_host.N - 1) + 1
-          for _ in range(3)]
-    privs = [sw.ECDSAPrivateKey(d) for d in ds]
-    pubs = [k.public_key() for k in privs]
+          for _ in range(nkeys)]
+    pubs = [sw.ECDSAPublicKey(x, y)
+            for x, y in pool_map(pool, _pub_chunk, ds, nproc)]
     n = 3 * txs
     key_of = np.empty(n, dtype=np.int64)
     for t in range(txs):
-        key_of[3 * t] = rng.integers(3)                       # creator
+        key_of[3 * t] = 3 + t % clients if clients else rng.integers(3)
         key_of[3 * t + 1:3 * t + 3] = rng.choice(3, 2, replace=False)
     raw = rng.bytes(256 * n)
     msgs = [raw[256 * i:256 * (i + 1)] for i in range(n)]
@@ -274,7 +321,7 @@ def make_block(seed: int, txs: int, pool, nproc):
         elif kind == "bad_der":
             sigs[i] = b"\x31" + sigs[i][1:]
         elif kind == "wrong_key":
-            key_of[i] = (key_of[i] + 1) % 3
+            key_of[i] = (key_of[i] + 1) % nkeys
         else:
             sigs[i] = utils.marshal_signature(r + p256_host.N, s)
     expected = np.ones(n, dtype=bool)
@@ -300,7 +347,8 @@ def make_block(seed: int, txs: int, pool, nproc):
                     get_sig=sigs.__getitem__)
     return dict(n=n, items=items, prepared=prepared, expected=expected,
                 kind_of=kind_of, pubs=pubs, sigs=sigs, digests=digests,
-                key_of=key_of, sign_s=sign_s, prep_s=prep_s, rng=rng)
+                key_of=key_of, sign_s=sign_s, prep_s=prep_s, rng=rng,
+                msgs=msgs, ds=ds)
 
 
 # -- main path --
@@ -924,6 +972,596 @@ def resident_vs_plain(st, blk, card):
     return res
 
 
+# -- the Shamir ladder: a block over more than MaxKeys keys --
+
+LADDER, ED = "ladder_launches", "ed25519_launches"
+CLIENTS = 1021                  # creator keys: 3 org + 1,021 = 1,024 keys
+# field products of one ladder lane (csrc/ladder.cuh): the table's one
+# doubling and ten additions, 128 steps of two doublings and one addition,
+# the check's two products; and stage A's three mod-n products
+DBL_IMAD = 13 * FIELD_MUL_IMAD
+LADDER_LANE_IMAD = (257 * DBL_IMAD + 138 * CADD_IMAD + CHECK_IMAD
+                    + 3 * MODN_MUL_OPS)
+# Ed25519 (csrc/ed25519.cuh): a product of 2^255 - 19 is 8 x 8 partial
+# products (a low and a high IMAD each) plus the fold of the high half by
+# 38 (8 more, low and high); a lane needs 31 additions for [S]B (9
+# products each), T of -A, one doubling and one addition for the 4-entry
+# table, 128 steps of two doublings (8) and one addition, the final
+# addition and the check's two products
+F25_MUL_IMAD = 2 * 8 * 8 + 2 * 8
+ED_LANE_PRODUCTS = 31 * 9 + 1 + 8 + 9 + 128 * (2 * 8 + 9) + 9 + 2
+ED_TABLE_BYTES = 8192 * 4 * 8 * 4
+
+
+def ladder_bound(live: int, live_blocks: int,
+                 nbytes: int) -> tuple[float, str]:
+    """Least time for a ladder entry on these inputs (ms): the IMAD of the
+    `live` lanes it verifies (premask-off lanes return at once) plus
+    SHA-256's operations over the live blocks, or the bytes it must move,
+    whichever is larger."""
+    ops = live * LADDER_LANE_IMAD + live_blocks * SHA_BLOCK_OPS
+    t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ed25519_bound(live: int, B: int) -> tuple[float, str]:
+    """Least time for the Ed25519 kernel (ms): the IMAD of the `live`
+    lanes, or the bytes of six 32-byte rows and a premask byte a lane,
+    the verdicts and the table read once, whichever is larger."""
+    ops = live * ED_LANE_PRODUCTS * F25_MUL_IMAD
+    nbytes = B * (6 * 32 + 2) + ED_TABLE_BYTES
+    t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ladder_int(e, r, rpn, w, q, premask):
+    """Python ints: the ladder lane's verdict."""
+    from fabric_tpu_torch.ops import p256
+    N = p256.N
+    u1, u2 = e * w % N, r * w % N
+    R = p256.cadd_int(p256.scalar_mul_int(u1, (p256.GX, p256.GY, 1)),
+                      p256.scalar_mul_int(u2, (q[0], q[1], 1)))
+    aff = p256.to_affine_int(R)
+    return bool(premask) and aff is not None and aff[0] in (r, rpn)
+
+
+def _ladder_int_chunk(jobs):
+    return [_ladder_int(*j) for j in jobs]
+
+
+def _ladder_construct(q, u1, u2):
+    """(e, r, rpn, w) of a lane that accepts with u1*G + u2*Q: r = x(R)
+    mod n, w = u2 / r, e = u1 / w (e = n where u1 = 0: a digest of n)."""
+    from fabric_tpu_torch.ops import p256
+    N, P = p256.N, p256.P
+    R = p256.cadd_int(p256.scalar_mul_int(u1, (p256.GX, p256.GY, 1)),
+                      p256.scalar_mul_int(u2, (q[0], q[1], 1)))
+    r = p256.to_affine_int(R)[0] % N
+    w = u2 * pow(r, -1, N) % N
+    e = u1 * pow(w, -1, N) % N if u1 else N
+    return e, r, (r + N if r + N < P else r), w
+
+
+LADDER_EDGES = ("u1_zero", "r_at_inf", "rpn_hit", "table_inf", "table_dbl",
+                "premask_off")
+LADDER_MSG_LENS = (0, 55, 56, 64, 503)
+
+
+def ladder_edges(blk, rng):
+    """The ladder's edge lanes, each kind three times: u1 = 0 (digest n,
+    accepts), Q = G with u2 = -u1 (R at infinity, rejects), x(R) given
+    as rpn beside a wrong r (accepts through rpn), Q = -G and Q = G with
+    R = u1*G + u2*Q (table entries at infinity and doublings, accept),
+    an accepting lane with premask off; then message lanes of 0, 55, 56,
+    64 and 503 bytes signed by an org key. Returns rows (kind, e or
+    None, r, rpn, w, (qx, qy), premask, message or None)."""
+    from fabric_tpu_torch.bccsp import p256_host
+    from fabric_tpu_torch.ops import p256
+    N, P = p256.N, p256.P
+    G, negG = (p256.GX, p256.GY), (p256.GX, P - p256.GY)
+    pubs = blk["pubs"]
+
+    def rnd():
+        return int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
+
+    rows = []
+    for j in range(3):
+        q = (pubs[3 + j].x, pubs[3 + j].y)
+        rows.append(("u1_zero", *_ladder_construct(q, 0, rnd()), q, True,
+                     None))
+        e, w = rnd(), rnd()
+        r = N - e
+        rows.append(("r_at_inf", e, r, r + N if r + N < P else r, w, G,
+                     True, None))
+        e, r, w = rnd(), rnd(), rnd()
+        R = p256.cadd_int(p256.scalar_mul_int(e * w % N, (*G, 1)),
+                          p256.scalar_mul_int(r * w % N, (*q, 1)))
+        rows.append(("rpn_hit", e, r, p256.to_affine_int(R)[0], w, q, True,
+                     None))
+        rows.append(("table_inf", *_ladder_construct(negG, rnd(), rnd()),
+                     negG, True, None))
+        rows.append(("table_dbl", *_ladder_construct(G, rnd(), rnd()), G,
+                     True, None))
+        rows.append(("premask_off", *_ladder_construct(q, rnd(), rnd()), q,
+                     False, None))
+    d, q = blk["ds"][0], (pubs[0].x, pubs[0].y)
+    for ln in LADDER_MSG_LENS:
+        msg = rng.bytes(ln)
+        r, s = p256_host.sign(d, hashlib.sha256(msg).digest())
+        s = min(s, N - s)
+        rows.append((f"msg_{ln}", None, r, r + N if r + N < P else r,
+                     pow(s, -1, N), q, True, msg))
+    return rows
+
+
+def ladder_lanes(blk, bucket: int, nb: int, edges=()):
+    """The ladder block's lanes as both entries take them, on the host:
+    the first len(edges) lanes rewritten by the edge rows. Returns numpy
+    arrays and the message list."""
+    n = min(blk["n"], bucket)
+    pr = blk["prepared"]
+
+    def pad(a, shape, dtype):
+        out = np.zeros(shape, dtype)
+        out[:n] = a[:n]
+        return out
+
+    msgs = list(blk["msgs"][:n]) + [b""] * (bucket - n)
+    r8, rpn8, w8 = (pad(pr[k], (bucket, 32), np.uint8)
+                    for k in ("r", "rpn", "w"))
+    premask = pad(pr["der_ok"], (bucket,), bool)
+    q8 = np.zeros((bucket, 64), np.uint8)
+    q8[:n] = np.stack([np.concatenate([p.x_bytes(), p.y_bytes()])
+                       for p in blk["pubs"]])[pr["key_idx"][:n]]
+    dg = pad(np.ascontiguousarray(pr["digests"]), (bucket, 32), np.uint8)
+    has_digest = np.zeros(bucket, bool)
+    for i, (kind, e, r, rpn, w, q, pm, msg) in enumerate(edges):
+        for row, v in ((r8, r), (rpn8, rpn), (w8, w)):
+            row[i] = np.frombuffer(v.to_bytes(32, "big"), np.uint8)
+        q8[i] = np.frombuffer(q[0].to_bytes(32, "big")
+                              + q[1].to_bytes(32, "big"), np.uint8)
+        premask[i] = pm
+        if msg is None:
+            dg[i] = np.frombuffer(e.to_bytes(32, "big"), np.uint8)
+            has_digest[i] = True
+            msgs[i] = b""
+        else:
+            dg[i] = np.frombuffer(hashlib.sha256(msg).digest(), np.uint8)
+            msgs[i] = msg
+    from fabric_tpu_torch.ops import sha256
+    blocks, counts = sha256.pack_messages(msgs, nb)
+    nblocks = np.where(has_digest, 0, counts).astype(np.int32)
+    return dict(blocks=blocks, nblocks=nblocks, has_digest=has_digest,
+                digests=dg.view(">u4").astype(np.uint32), q8=q8, r8=r8,
+                rpn8=rpn8, w8=w8, premask=premask)
+
+
+def _ladder_tensors(h, dev):
+    import torch
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dg = put(h["digests"].view(np.int32))
+    rows = (put(h["q8"]), put(h["r8"]), put(h["rpn8"]), put(h["w8"]),
+            put(h["premask"]))
+    return (dict(digests=(dg, *rows),
+                 message=(put(h["blocks"].view(np.int32)), put(h["nblocks"]),
+                          dg, put(h["has_digest"]), *rows)))
+
+
+def ladder_path(blk, prov, sw_bits, sample, card):
+    """The ladder block through CUDAProvider: verify_prepared (digest
+    lanes) and verify_batch (message lanes, SHA-256 in the kernel), each
+    counted; one steady verify_prepared under the profiler."""
+    from fabric_tpu_torch.bccsp.cuda import LAUNCH_COUNTERS
+
+    n = blk["n"]
+    pr = blk["prepared"]
+    chunks = -(-prov._bucket(n) // prov._chunk)
+    others = [k for k in LAUNCH_COUNTERS if k != LADDER]
+    rec = {"phase": "ladder_path", "ok": True, "card": card, "lanes": n,
+           "keys": len(blk["pubs"]),
+           "bad_lanes": int((~blk["expected"]).sum()),
+           "sample_vs_sw": int(len(sample))}
+    counts = {}
+    for path, fn in (("verify_prepared", lambda: prov.verify_prepared(**pr)),
+                     ("verify_batch", lambda: prov.verify_batch(
+                         blk["items"]))):
+        got, counts[path], delta, secs = counted(prov, f"ladder {path}",
+                                                 (LADDER,), fn)
+        check_bits(f"ladder {path}", got, blk, sw_bits, sample)
+        check(counts[path][LADDER] == chunks,
+              f"ladder {path}: {counts[path][LADDER]} launches, not one per "
+              f"chunk ({chunks})")
+        check(all(counts[path][k] == 0 for k in others),
+              f"ladder {path}: other kernels ran: {counts[path]}")
+        check(delta["ladder_batches"] >= 1 and delta["comb_batches"] == 0,
+              f"ladder {path}: stats {delta}")
+        check(delta["host_hashed_lanes"] == 0,
+              f"ladder {path}: lanes hashed on the host")
+        rec[f"{path}_s"] = secs
+        rec[f"{path}_launches"] = counts[path]
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = prov.verify_prepared(**pr)
+        steady.append(time.perf_counter() - t0)
+    check_bits("ladder verify_prepared (steady)", got, blk, sw_bits, sample)
+    # the profiler has dropped the ladder's kernel event from whole windows
+    # on the H100 (the launch counts above show it ran): profile again,
+    # and say so in the line when no window kept it
+    for tries in range(1, 6):
+        prof = profile_call(lambda: prov.verify_prepared(**pr))
+        if prof["kernels"]:
+            break
+    prof.update(windows=tries, kernel_event_kept=bool(prof["kernels"]))
+    rec.update({"verify_prepared_steady_s": statistics.median(steady),
+                "verify_prepared_steady_all_s": steady,
+                "sigs_per_s_commit_path": n / statistics.median(steady),
+                "verify_prepared_profiled": prof})
+    emit(rec)
+    return counts
+
+
+def ladder_vs_plain(blk, prov, card, pool, nproc):
+    """Both ladder entries against the plain version on the card over
+    EDGE_LANES lanes (the edge rows first), Python ints on the edge lanes
+    and the expected bitmap beyond; then each entry's device time at the
+    block's bucket against its bound."""
+    import torch
+
+    from fabric_tpu_torch.ops import verify
+
+    dev = prov.device
+    rng = np.random.default_rng(4321)
+    edges = ladder_edges(blk, rng)
+    E = len(edges)
+    nb = prov._nb_bucket(max(LADDER_MSG_LENS))
+    h = ladder_lanes(blk, EDGE_LANES, nb, edges)
+    t = _ladder_tensors(h, dev)
+    got = {"digests": verify.ladder_verify_digests(*t["digests"]),
+           "message": verify.ladder_verify(*t["message"])}
+    plain = {"digests": verify.ladder_digests_plain(*t["digests"]),
+             "message": verify.ladder_plain(*t["message"])}
+    torch.cuda.synchronize()
+    jobs = []
+    for kind, e, r, rpn, w, q, pm, msg in edges:
+        if msg is not None:
+            e = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+        jobs.append((e, r, rpn, w, q, pm))
+    want_edges = np.array(pool_map(pool, _ladder_int_chunk, jobs, nproc))
+    exp = blk["expected"][:EDGE_LANES]
+    res = {}
+    for entry in got:
+        kh, ph = got[entry].cpu().numpy(), plain[entry].cpu().numpy()
+        err = int(np.abs(kh.astype(np.int64) - ph).max())
+        check(err == 0, f"ladder {entry}: kernel != plain at lanes "
+              f"{np.nonzero(kh != ph)[0][:10].tolist()}")
+        check(bool((kh[:E] == want_edges).all()),
+              f"ladder {entry}: edge lanes != ints at "
+              f"{np.nonzero(kh[:E] != want_edges)[0].tolist()}")
+        check(bool((kh[E:] == exp[E:]).all()),
+              f"ladder {entry}: != expected beyond the edge lanes")
+        res[entry] = dict(max_abs_err=err)
+    accepts = {k: bool(v) for (k, *_), v in zip(edges, want_edges)}
+    for kind in ("u1_zero", "rpn_hit", "table_inf", "table_dbl",
+                 "msg_0", "msg_503"):
+        check(accepts[kind], f"ladder edge {kind} rejected by the ints")
+    check(not accepts["r_at_inf"] and not accepts["premask_off"],
+          "ladder edges r_at_inf / premask_off accepted")
+
+    # device time at the block's bucket, both entries
+    B = prov._bucket(blk["n"])
+    h = ladder_lanes(blk, B, prov._nb_bucket(256))
+    t = _ladder_tensors(h, dev)
+    live = int(h["premask"].sum())
+    live_blocks = int(h["nblocks"][h["premask"]].sum())
+    for entry, fn, plain_fn, extra in (
+            ("digests", verify.ladder_verify_digests,
+             verify.ladder_digests_plain, 0),
+            ("message", verify.ladder_verify, verify.ladder_plain,
+             live_blocks * 64 + B * 5)):
+        args = t[entry]
+        out = fn(*args)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        pl = plain_fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        check(torch.equal(out, pl), f"ladder {entry} at {B} lanes: kernel "
+              "!= plain")
+        check(bool((out[:blk["n"]].cpu().numpy() == blk["expected"]).all()),
+              f"ladder {entry} at {B} lanes: != expected")
+        # a kernel of milliseconds keeps the queue ahead of its wrapper's
+        # ~0.05 ms of host work, so events around back-to-back calls time
+        # the card
+        ms = cuda_ms(lambda: fn(*args), 5)
+        bound_ms, bound_by = ladder_bound(
+            live, live_blocks if entry == "message" else 0,
+            B * (32 + 64 + 3 * 32 + 2) + extra)
+        res[entry].update(ms=ms, plain_ms=t0.elapsed_time(t1),
+                          bound_ms=bound_ms,
+                          bound_by=bound_by, share_of_bound=bound_ms / ms)
+        if entry == "message":
+            # the two entries in turns, and the message entry with every
+            # lane a digest lane (no SHA-256): what the message entry's
+            # extra time is
+            blocks, nblocks, dg, has, *rows = args
+            dg_args = (blocks, torch.zeros_like(nblocks), dg,
+                       torch.ones_like(has), *rows)
+            check(torch.equal(verify.ladder_verify(*dg_args), out),
+                  "ladder message entry on digest lanes != its verdicts")
+            turns = {"digests": [], "message": []}
+            for e in ("digests", "message", "message", "digests"):
+                f = (verify.ladder_verify_digests if e == "digests"
+                     else verify.ladder_verify)
+                turns[e].append(cuda_ms(lambda: f(*t[e]), 5))
+            res[entry]["turns_ms"] = turns
+            res[entry]["message_entry_no_sha_ms"] = cuda_ms(
+                lambda: verify.ladder_verify(*dg_args), 5)
+        emit({"phase": "ladder_vs_plain", "entry": entry, "ok": True,
+              "card": card, "lanes_vs_plain": EDGE_LANES,
+              "edge_lanes": {k: bool(v) for (k, *_), v in zip(edges,
+                                                             want_edges)},
+              "lanes_timed": B, "live_lanes": live, **res[entry]})
+    return res
+
+
+# -- Ed25519 --
+
+ED_BAD_KINDS = ("flipped", "s_ge_l", "noncanon_r", "small_order_a",
+                "wrong_key")
+ED_KEYS = 64
+ED_LANES = 30720
+# RFC 8032 section 7.1, test 1: secret key, public key, signature of b""
+RFC8032_SEED = bytes.fromhex(
+    "9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60")
+RFC8032_PK = bytes.fromhex(
+    "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a")
+RFC8032_SIG = bytes.fromhex(
+    "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e065224901555"
+    "fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b")
+
+
+def _ed_sign_chunk(jobs):
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    return [edh.sign(seed, msg) for seed, msg in jobs]
+
+
+def _ed_prep_chunk(jobs):
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    return [edh.prep_verify(pk, sig, msg) for pk, sig, msg in jobs]
+
+
+def _ed_sw_chunk(jobs):
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    return [edh.verify(pk, sig, msg) for pk, sig, msg in jobs]
+
+
+def make_ed_block(seed: int, pool, nproc):
+    """ED_LANES Ed25519 lanes over ED_KEYS keys, 256-byte messages, ~1%
+    bad lanes of five kinds (message flipped after signing, S + L,
+    R encoded non-canonically (y = p + 1), a small-order key, checked
+    against another key), the expected bitmap known by construction."""
+    from fabric_tpu_torch.bccsp import bccsp as api
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    from fabric_tpu_torch.bccsp import sw
+
+    rng = np.random.default_rng(seed + 2)
+    seeds = [rng.bytes(32) for _ in range(ED_KEYS)]
+    pks = [edh.public_from_seed(s) for s in seeds]
+    n = ED_LANES
+    key_of = rng.integers(ED_KEYS, size=n)
+    raw = rng.bytes(256 * n)
+    msgs = [raw[256 * i:256 * (i + 1)] for i in range(n)]
+    t0 = time.perf_counter()
+    sigs = pool_map(pool, _ed_sign_chunk,
+                    [(seeds[key_of[i]], msgs[i]) for i in range(n)], nproc)
+    sign_s = time.perf_counter() - t0
+    lane_pk = [pks[k] for k in key_of]
+    small = edh.encode_point(0, edh.P - 1)           # order 2
+    bad = rng.choice(n, size=n // 100, replace=False)
+    kind_of = {}
+    for j, i in enumerate(bad.tolist()):
+        kind = ED_BAD_KINDS[j % len(ED_BAD_KINDS)]
+        kind_of[i] = kind
+        if kind == "flipped":
+            m = bytearray(msgs[i])
+            m[int(rng.integers(256))] ^= 0x01
+            msgs[i] = bytes(m)
+        elif kind == "s_ge_l":
+            s = int.from_bytes(sigs[i][32:], "little") + edh.L
+            sigs[i] = sigs[i][:32] + s.to_bytes(32, "little")
+        elif kind == "noncanon_r":
+            sigs[i] = (edh.P + 1).to_bytes(32, "little") + sigs[i][32:]
+        elif kind == "small_order_a":
+            lane_pk[i] = small
+        else:
+            lane_pk[i] = pks[(key_of[i] + 1) % ED_KEYS]
+    expected = np.ones(n, dtype=bool)
+    expected[bad] = False
+    keys = {pk: sw.Ed25519PublicKey(pk) for pk in set(lane_pk)}
+    items = [api.VerifyItem(key=keys[lane_pk[i]], signature=sigs[i],
+                            message=msgs[i]) for i in range(n)]
+    return dict(n=n, items=items, expected=expected, kind_of=kind_of,
+                lane_pk=lane_pk, sigs=sigs, msgs=msgs, sign_s=sign_s,
+                seeds=seeds, pks=pks, rng=rng)
+
+
+def ed25519_path(eblk, blk, prov, card, pool, nproc):
+    """The Ed25519 block through verify_batch, interleaved with the P-256
+    block's lanes so the router splits the batch; bitmaps against the
+    expected ones and the sw provider on a sample; counts; the host
+    prep's seconds apart from the card's."""
+    n = eblk["n"]
+    mixed, at_ed, at_p = [], [], []
+    for i in range(max(n, blk["n"])):
+        for items, at in ((eblk["items"], at_ed), (blk["items"], at_p)):
+            if i < len(items):
+                at.append(len(mixed))
+                mixed.append(items[i])
+    before = prov.stats["ed25519_prep_s"]
+    got, counts, delta, secs = counted(prov, "ed25519 verify_batch",
+                                       (ED, SHA, TREE),
+                                       lambda: prov.verify_batch(mixed))
+    got = np.asarray(got, bool)
+    ed_bits, p_bits = got[at_ed], got[at_p]
+    check(bool((ed_bits == eblk["expected"]).all()),
+          f"ed25519 != expected at lanes "
+          f"{np.nonzero(ed_bits != eblk['expected'])[0][:10].tolist()}")
+    check(bool((p_bits == blk["expected"]).all()),
+          "the mixed batch's P-256 lanes != expected")
+    rng = eblk["rng"]
+    sample = np.array(sorted(set(eblk["kind_of"]) | set(
+        rng.choice(n, min(2048, n), replace=False).tolist())))
+    sw_bits = np.array(pool_map(pool, _ed_sw_chunk, [
+        (eblk["lane_pk"][i], eblk["sigs"][i], eblk["msgs"][i])
+        for i in sample.tolist()], nproc), bool)
+    check(bool((sw_bits == ed_bits[sample]).all()),
+          "ed25519 != sw on the sample")
+    chunks = -(-prov._bucket(n) // prov._chunk)
+    check(counts[ED] == chunks, f"ed25519: {counts[ED]} launches, not one "
+          f"per chunk ({chunks})")
+    check(delta["ed25519_batches"] >= 1 and delta["ed25519_sw_lanes"] == 0,
+          f"ed25519 stats {delta}")
+    prep_s = prov.stats["ed25519_prep_s"] - before
+    emit({"phase": "ed25519_path", "ok": True, "card": card, "lanes": n,
+          "p256_lanes": blk["n"], "keys": ED_KEYS,
+          "bad_lanes": {k: sum(1 for v in eblk["kind_of"].values()
+                               if v == k) for k in ED_BAD_KINDS},
+          "sign_s": eblk["sign_s"], "sample_vs_sw": int(len(sample)),
+          "verify_batch_s": secs, "ed25519_host_prep_s": prep_s,
+          "launches": counts, "ed25519_batches": delta["ed25519_batches"]})
+    return counts
+
+
+def _ed_int(s, k, anx, ay, rx, ry, premask):
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    acc = edh.pt_add(edh.scalar_mult(s, edh.from_affine(edh.BX, edh.BY)),
+                     edh.scalar_mult(k, edh.from_affine(anx, ay)))
+    return bool(premask) and edh.pt_equal(acc, edh.from_affine(rx, ry))
+
+
+def _ed_int_chunk(jobs):
+    return [_ed_int(*j) for j in jobs]
+
+
+def ed25519_edges(rng):
+    """Edge operand rows (kind, (s, k, neg_ax, ay, rx, ry) or None,
+    premask): S = 0 and k = 0 with R made to match (accept), RFC 8032
+    test 1 (accept), all-identity operands with premask on (accept), a
+    dead lane (identity operands, premask off), an R off by one point
+    (reject); each twice but the vector."""
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    P, Bp = edh.P, edh.from_affine(edh.BX, edh.BY)
+    rows = []
+    check(edh.public_from_seed(RFC8032_SEED) == RFC8032_PK
+          and edh.sign(RFC8032_SEED, b"") == RFC8032_SIG,
+          "RFC 8032 test 1 does not reproduce")
+    rows.append(("rfc8032_1", edh.prep_verify(RFC8032_PK, RFC8032_SIG, b""),
+                 True))
+    for _ in range(2):
+        a = edh.to_affine(edh.scalar_mult(
+            int.from_bytes(rng.bytes(32), "little") % edh.L, Bp))
+        neg_a = ((P - a[0]) % P, a[1])
+        k = int.from_bytes(rng.bytes(32), "little") % edh.L
+        s = int.from_bytes(rng.bytes(32), "little") % edh.L
+        r = edh.to_affine(edh.scalar_mult(k, edh.from_affine(*neg_a)))
+        rows.append(("s_zero", (0, k, *neg_a, *r), True))
+        r = edh.to_affine(edh.scalar_mult(s, Bp))
+        rows.append(("k_zero", (s, 0, *neg_a, *r), True))
+        rows.append(("identity", (0, 0, 0, 1, 0, 1), True))
+        rows.append(("dead", (0, 0, 0, 1, 0, 1), False))
+        r = edh.to_affine(edh.pt_add(edh.scalar_mult(s, Bp), Bp))
+        rows.append(("r_off", (s, 0, *neg_a, *r), True))
+    return rows
+
+
+def ed_rows(eblk, pool, nproc, bucket: int, edges=()):
+    """The Ed25519 block's kernel operand rows (ed25519.stage_rows of the
+    host prep, computed in the pool), the first len(edges) lanes taken by
+    the edge rows."""
+    from fabric_tpu_torch.ops import ed25519
+    n = eblk["n"]
+    prep = pool_map(pool, _ed_prep_chunk, [
+        (eblk["lane_pk"][i], eblk["sigs"][i], eblk["msgs"][i])
+        for i in range(min(n, bucket))], nproc)
+    prep = list(prep)
+    rows = ed25519.stage_rows(prep, bucket)
+    for i, (_, op, pm) in enumerate(edges):
+        one = ed25519.stage_rows([op], 1)
+        for row, v in zip(rows[:6], one[:6]):
+            row[i] = v[0]
+        rows[6][i] = pm
+    return rows
+
+
+def ed25519_vs_plain(eblk, prov, card, pool, nproc):
+    """The Ed25519 kernel against ed25519.verify_core's plain version on
+    the card over EDGE_LANES lanes (edge rows first), Python ints on the
+    edge lanes and the expected bitmap beyond; then the device time at
+    the block's bucket against its bound."""
+    import torch
+
+    from fabric_tpu_torch.ops import ed25519
+
+    dev = prov.device
+    edges = ed25519_edges(np.random.default_rng(8765))
+    E = len(edges)
+    ktab = prov._ed_table()
+    ptab = torch.as_tensor(ed25519.b_tables(), device=dev)
+
+    def put(rows):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in rows]
+
+    rows = ed_rows(eblk, pool, nproc, EDGE_LANES, edges)
+    t = put(rows)
+    kh = ed25519.ed25519_verify(ktab, *t).cpu().numpy()
+    ph = ed25519.verify_core(ptab, *t).cpu().numpy()
+    err = int(np.abs(kh.astype(np.int64) - ph).max())
+    check(err == 0, f"ed25519: kernel != plain at lanes "
+          f"{np.nonzero(kh != ph)[0][:10].tolist()}")
+    jobs = [(*(op if op else (0, 0, 0, 1, 0, 1)), pm) for _, op, pm in edges]
+    want = np.array(pool_map(pool, _ed_int_chunk, jobs, nproc))
+    check(bool((kh[:E] == want).all()), "ed25519: edge lanes != ints")
+    for (kind, _, _), v in zip(edges, want):
+        check(v == (kind not in ("dead", "r_off")),
+              f"ed25519 edge {kind} gave {v}")
+    check(bool((kh[E:] == eblk["expected"][E:EDGE_LANES]).all()),
+          "ed25519: != expected beyond the edge lanes")
+
+    B = prov._bucket(eblk["n"])
+    rows = ed_rows(eblk, pool, nproc, B)
+    t = put(rows)
+    out = ed25519.ed25519_verify(ktab, *t)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    pl = ed25519.verify_core(ptab, *t)
+    e1.record()
+    torch.cuda.synchronize()
+    check(torch.equal(out, pl), f"ed25519 at {B} lanes: kernel != plain")
+    check(bool((out[:eblk["n"]].cpu().numpy() == eblk["expected"]).all()),
+          f"ed25519 at {B} lanes: != expected")
+    live = int(rows[6].sum())
+    # milliseconds a call: events time the card (see ladder_vs_plain)
+    ms = cuda_ms(lambda: ed25519.ed25519_verify(ktab, *t), 5)
+    bound_ms, bound_by = ed25519_bound(live, B)
+    res = dict(max_abs_err=err, ms=ms,
+               plain_ms=e0.elapsed_time(e1), bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms)
+    emit({"phase": "ed25519_vs_plain", "ok": True, "card": card,
+          "lanes_vs_plain": EDGE_LANES,
+          "edge_lanes": {f"{k}_{i}": bool(v) for i, ((k, _, _), v)
+                         in enumerate(zip(edges, want))},
+          "lanes_timed": B, "live_lanes": live, **res})
+    return res
+
+
 def field_vs_ints(card, seed: int) -> None:
     """The nvcc-built field core against Python ints (ptree.field_selftest
     and its plain version): edge operands in 13-bit form, every pair, and
@@ -931,8 +1569,10 @@ def field_vs_ints(card, seed: int) -> None:
     Every output word must be equal."""
     import torch
 
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    from fabric_tpu_torch.ops import ed25519
     from fabric_tpu_torch.ops import fused_verify as fv
-    from fabric_tpu_torch.ops import limb, p256, ptree
+    from fabric_tpu_torch.ops import limb, p256, ptree, verify
 
     P = p256.P
     rng = np.random.default_rng(seed)
@@ -980,9 +1620,80 @@ def field_vs_ints(card, seed: int) -> None:
     torch.cuda.synchronize()
     bad_n = int((got_n.cpu() != want_n).any(dim=1).sum())
     check(bad_n == 0, f"mod-n core != Python ints on {bad_n} cases")
+
+    # the ladder's doubling (pt_dbl) against cdbl_int
+    dbl = [g, neg_g, inf, (p256.GX, 0, 1)] + pts
+    d13 = torch.as_tensor(rows(dbl))
+    got_d = verify.dbl_selftest(d13.cuda())
+    want_d = verify.dbl_selftest_plain(d13)
+    torch.cuda.synchronize()
+    bad_d = int((got_d.cpu() != want_d).any(dim=1).sum())
+    check(bad_d == 0, f"pt_dbl != cdbl_int on {bad_d} cases")
+
+    # the 2^255 - 19 core and Ed25519's group law
+    PE = ed25519.P_ED
+    f_edges = [0, 1, PE - 1, PE, PE + 1, (1 << 255) - 1, (1 << 256) - 1]
+    f_rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(512)]
+    f_pairs = [(a, b) for a in f_edges for b in f_edges] + list(
+        zip(f_rand[::2], f_rand[1::2]))
+
+    def words(vals):
+        return torch.as_tensor(np.array(
+            [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+             for v in vals], dtype=np.uint32).view(np.int32))
+    fa, fb = words(a for a, _ in f_pairs), words(b for _, b in f_pairs)
+    got_f = ed25519.f25_selftest(fa.cuda(), fb.cuda())
+    want_f = ed25519.f25_selftest_plain(fa, fb)
+    torch.cuda.synchronize()
+    bad_f = int((got_f.cpu() != want_f).any(dim=1).sum())
+    check(bad_f == 0, f"2^255 - 19 core != Python ints on {bad_f} cases")
+    Bp = edh.from_affine(edh.BX, edh.BY)
+    e_pts = [Bp, edh._IDENT, (0, PE - 1, 1, 0)] + [
+        edh.scalar_mult(int(k), Bp) for k in rng.integers(1, 1 << 62,
+                                                           size=61)]
+    e_cases = [(p, q) for p in e_pts[:3] for q in e_pts[:3]] + list(
+        zip(e_pts, e_pts[::-1]))
+
+    def ed_words(ps):
+        return torch.as_tensor(np.array(
+            [[(c % PE >> (32 * i)) & 0xFFFFFFFF for c in q
+              for i in range(8)] for q in ps], dtype=np.uint32)
+            .view(np.int32))
+    ep, eq = ed_words(p for p, _ in e_cases), ed_words(q for _, q in e_cases)
+    got_e = ed25519.ed_selftest(ep.cuda(), eq.cuda())
+    want_e = ed25519.ed_selftest_plain(ep, eq)
+    torch.cuda.synchronize()
+    bad_e = int((got_e.cpu() != want_e).any(dim=1).sum())
+    check(bad_e == 0, f"ed_add/ed_dbl != ed25519_host on {bad_e} cases")
     emit({"phase": "field_vs_ints", "ok": True, "card": card,
           "op_cases": len(pairs), "add_cases": len(adds),
-          "modn_cases": len(cases), "mismatches": 0})
+          "modn_cases": len(cases), "dbl_cases": len(dbl),
+          "f25_cases": len(f_pairs), "ed_cases": len(e_cases),
+          "mismatches": 0})
+
+
+def sw_sample(blk, pool, nproc, label):
+    """The port's sw provider on >= 2,048 lanes of `blk` holding every
+    bad lane (in the pool), held to the expected bitmap; returns (sample
+    lanes, sw bits)."""
+    rng = blk["rng"]
+    sample = np.array(sorted(set(blk["kind_of"]) | set(
+        rng.choice(blk["n"], min(2048, blk["n"]), replace=False).tolist())))
+    pubs, key_of = blk["pubs"], blk["key_of"]
+    jobs = [(pubs[key_of[i]].x, pubs[key_of[i]].y, blk["sigs"][i],
+             blk["digests"][i]) for i in sample.tolist()]
+    t0 = time.perf_counter()
+    sw_bits = np.array(pool_map(pool, _sw_chunk, jobs, nproc), bool)
+    sw_pool_s = time.perf_counter() - t0
+    check(bool((sw_bits == blk["expected"][sample]).all()),
+          f"{label}: sw provider != expected bitmap on the sample")
+    t0 = time.perf_counter()
+    _sw_chunk(jobs[:200])
+    sw_per_sig_ms = (time.perf_counter() - t0) / 200 * 1e3
+    emit({"phase": label, "ok": True, "sample": len(sample),
+          "sample_pool_s": sw_pool_s,
+          "sw_per_sig_ms_one_core": sw_per_sig_ms})
+    return sample, sw_bits
 
 
 def drive(args, pool, nproc, card):
@@ -997,23 +1708,7 @@ def drive(args, pool, nproc, card):
                                if v == k) for k in BAD_KINDS},
           "sign_s": blk["sign_s"], "host_prep_s": blk["prep_s"],
           "workers": nproc})
-    rng = blk["rng"]
-    sample = np.array(sorted(set(blk["kind_of"]) | set(
-        rng.choice(blk["n"], 2048, replace=False).tolist())))
-    pubs, key_of = blk["pubs"], blk["key_of"]
-    jobs = [(pubs[key_of[i]].x, pubs[key_of[i]].y, blk["sigs"][i],
-             blk["digests"][i]) for i in sample.tolist()]
-    t0 = time.perf_counter()
-    sw_bits = np.array(pool_map(pool, _sw_chunk, jobs, nproc), bool)
-    sw_pool_s = time.perf_counter() - t0
-    check(bool((sw_bits == blk["expected"][sample]).all()),
-          "sw provider != expected bitmap on the sample")
-    t0 = time.perf_counter()
-    _sw_chunk(jobs[:200])
-    sw_per_sig_ms = (time.perf_counter() - t0) / 200 * 1e3
-    emit({"phase": "sw", "ok": True, "sample": len(sample),
-          "sample_pool_s": sw_pool_s,
-          "sw_per_sig_ms_one_core": sw_per_sig_ms})
+    sample, sw_bits = sw_sample(blk, pool, nproc, "sw")
 
     route = dict(blk=blk, sw_bits=sw_bits, sample=sample, card=card)
     prov16 = factory.new_bccsp({"Default": "CUDA"})
@@ -1044,6 +1739,23 @@ def drive(args, pool, nproc, card):
     st = stage_lanes(prov8, blk)
     sha = sha_vs_plain(st, card)
     res = resident_vs_plain(st, blk, card)
+
+    # the Shamir ladder: a block whose creators sign with 1,021 client keys
+    blk_l = make_block(args.seed + 1, args.txs, pool, nproc,
+                       clients=CLIENTS)
+    emit({"phase": "ladder_block", "ok": True, "lanes": blk_l["n"],
+          "keys": len(blk_l["pubs"]),
+          "bad_lanes": {k: sum(1 for v in blk_l["kind_of"].values()
+                               if v == k) for k in BAD_KINDS},
+          "sign_s": blk_l["sign_s"], "host_prep_s": blk_l["prep_s"]})
+    sample_l, sw_l = sw_sample(blk_l, pool, nproc, "ladder_sw")
+    provl = factory.new_bccsp({"Default": "CUDA"})
+    cl = ladder_path(blk_l, provl, sw_l, sample_l, card)
+    lad = ladder_vs_plain(blk_l, provl, card, pool, nproc)
+    # Ed25519: its block mixed with the P-256 block on the q16 provider
+    eblk = make_ed_block(args.seed, pool, nproc)
+    ced = ed25519_path(eblk, blk, prov16, card, pool, nproc)
+    edr = ed25519_vs_plain(eblk, prov16, card, pool, nproc)
 
     def n(counts, k):
         return sum(c[k] for c in counts.values())
@@ -1081,6 +1793,18 @@ def drive(args, pool, nproc, card):
              source=src + "fused_resident.cu",
              replaces="fabric_tpu/ops/fused_verify.py:442",
              launches=n(cres, RESIDENT), **res),
+        dict(name="verify.ladder_verify_digests (digest lanes)",
+             source=src + "ladder.cu",
+             replaces="fabric_tpu/ops/p256.py:326",
+             launches=cl["verify_prepared"][LADDER], **lad["digests"]),
+        dict(name="verify.ladder_verify (message lanes)",
+             source=src + "ladder.cu",
+             replaces="fabric_tpu/bccsp/tpu.py:3111",
+             launches=cl["verify_batch"][LADDER], **lad["message"]),
+        dict(name="ed25519.ed25519_verify",
+             source=src + "ed25519_verify.cu",
+             replaces="fabric_tpu/ops/ed25519.py:264",
+             launches=ced[ED], **edr),
     ]
 
 
@@ -1098,9 +1822,12 @@ def main() -> int:
     from fabric_tpu_torch.common import torchenv
     from fabric_tpu_torch.ops import comb
 
-    # the 8-bit G table persists inside the checkout's build directory
+    # the 8-bit G table and the Ed25519 B table persist inside the
+    # checkout's build directory
     os.environ.setdefault(comb.GTAB_CACHE_ENV,
                           os.path.join(torchenv.BUILD_DIR, "gtab8.npy"))
+    os.environ.setdefault("FABRIC_TPU_TORCH_EDTAB_CACHE",
+                          os.path.join(torchenv.BUILD_DIR, "edtab8.npy"))
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "ok": True, "kind": kind,
@@ -1113,7 +1840,8 @@ def main() -> int:
     ptxas = {k: kernels.ptxas_summary(k) for k in kernels.KERNELS}
     emit({"phase": "build", "ok": True, "seconds": build_s, "ptxas": ptxas,
           "sass": {k: kernels.sass_mix(k) for k in (
-              "ptree", "sha_windows", "fused_resident")}})
+              "ptree", "sha_windows", "fused_resident", "ladder",
+              "ed25519_verify")}})
     # stage A's entries and the resident kernel keep everything in
     # registers: no stack frame, no spills
     for lib in ("sha_windows", "fused_resident"):

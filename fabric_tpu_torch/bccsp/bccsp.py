@@ -2,7 +2,7 @@
 
 The port's copy of fabric_tpu/bccsp/bccsp.py (the reference contract,
 `bccsp/bccsp.go:15-134`, plus the batch-first `verify_batch`): keys,
-the verify item, the ECDSA key options and the provider ABC.
+the verify item, the ECDSA and Ed25519 key options and the provider ABC.
 """
 
 from __future__ import annotations
@@ -50,6 +50,16 @@ class VerifyItem:
 class ECDSAKeyGenOpts:
     ephemeral: bool = False
     curve: str = "P-256"
+
+
+@dataclass(frozen=True)
+class Ed25519KeyGenOpts:
+    ephemeral: bool = False
+
+
+@dataclass(frozen=True)
+class Ed25519PublicKeyImportOpts:
+    ephemeral: bool = False
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,14 @@
-"""CUDA BCCSP provider — batched P-256 verification on the card.
+"""CUDA BCCSP provider — batched signature verification on the card.
 
 The port's counterpart of fabric_tpu/bccsp/tpu.py TPUProvider, for the
-slices the port has so far: the P-256 comb-digest path and the fused
-verify tier. Everything but the batch paths delegates to the port's
-SWProvider (the pkcs11-style containment of the reference). A batch is
-staged on the host — strict DER, low-S and range gates, w = s^-1 mod n —
-and verified on the card.
+slices the port has so far: the P-256 comb-digest path, the fused verify
+tier, the Shamir ladder and the Ed25519 batch path. Everything but the
+batch paths delegates to the port's SWProvider (the pkcs11-style
+containment of the reference). `verify_batch` is the scheme router: it
+splits a batch by key scheme (`_lane_scheme`) into a P-256 sub-batch
+(`_verify_batch_p256`) and an Ed25519 one (`_verify_batch_ed25519`). A
+P-256 batch is staged on the host — strict DER, low-S and range gates,
+w = s^-1 mod n — and verified on the card.
 
 Message lanes (`verify_batch` items without a digest) take one of three
 routes, chosen as `_verify_batch_device` chooses them:
@@ -31,11 +34,20 @@ and the scalars' bytes) and one tree launch.
 A batch holding a message over `MaxBlocks` SHA blocks is hashed on the
 host (`host_hash_fallbacks`): routing by size, as the reference does.
 
+A P-256 batch over more than `MaxKeys` distinct keys has no comb tables:
+the whole batch takes the Shamir ladder (`ladder_batches`), one kernel
+launch a chunk (csrc/ladder.cu, `ops/verify.py`) — message lanes with
+SHA-256 inside the kernel, digest lanes (`verify_prepared`, a batch
+hashed on the host) on its digest-lanes entry — as fabric_tpu's
+`_dispatch_arrays` sends such a batch to `_pipeline`.
+
+Ed25519 lanes: host gates and the SHA-512 challenge per lane
+(`ed25519_host.prep_verify`), then one kernel launch a chunk
+(csrc/ed25519_verify.cu, `ops/ed25519.py`); sub-batches under
+`MinBatch` and the `Ed25519: false` knob serve the sw provider.
+
 Device errors propagate: the port has no breaker and no sw fallback yet,
-and no counterpart of `_try_fused`'s demotion to host hashing. Not
-ported yet (ROADMAP): the breaker and faults seam, native batch prep,
-adaptive Q16 residency and warm-dir restore, non-P-256 ECDSA lanes, the
-Shamir ladder for batches over MaxKeys, Ed25519, pairings and the mesh.
+and no counterpart of `_try_fused`'s demotion to host hashing.
 """
 
 from __future__ import annotations
@@ -51,10 +63,12 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch.bccsp import bccsp as api
+from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
 from fabric_tpu_torch.common import torchenv
-from fabric_tpu_torch.ops import comb, fused_verify, limb, ptree, sha256
+from fabric_tpu_torch.ops import comb, ed25519, fused_verify, limb, ptree
+from fabric_tpu_torch.ops import sha256, verify
 
 logger = logging.getLogger("fabric_tpu_torch.bccsp.cuda")
 
@@ -64,15 +78,14 @@ N = utils.P256_N
 # 8-bit Q tables (~1.97 MB per key slot) kept per key set, by count
 Q8_CACHE_SETS = 16
 
-LADDER = ("a batch over more than MaxKeys distinct keys takes the Shamir "
-          "ladder, which a later slice of the port adds")
-
 # provider stat -> (module, attribute) of each kernel wrapper's launch count
 LAUNCH_COUNTERS = {
     "tree_kernel_launches": (ptree, "launches"),
     "sha_windows_launches": (fused_verify, "sha_windows_launches"),
     "sha256_launches": (sha256, "launches"),
     "resident_launches": (fused_verify, "resident_launches"),
+    "ladder_launches": (verify, "launches"),
+    "ed25519_launches": (ed25519, "launches"),
 }
 
 
@@ -101,7 +114,7 @@ class CUDAProvider(api.BCCSP):
                  table_cache_bytes: int = 6 << 30,
                  hash_on_host: bool = True,
                  fused_verify: bool | None = None,
-                 max_blocks: int = 64):
+                 max_blocks: int = 64, ed25519_enabled: bool = True):
         self.device = torchenv.resolve_device(device)
         self._sw = swmod.SWProvider()
         self._min_batch = min_batch
@@ -123,6 +136,10 @@ class CUDAProvider(api.BCCSP):
         # the largest power-of-two SHA block count a device batch pads
         # its messages to; a longer message sends its batch to hashlib
         self._max_blocks = max_blocks
+        # the Ed25519 kernel (CUDA.Ed25519); False serves Ed25519 lanes on
+        # the sw provider
+        self._ed25519 = ed25519_enabled
+        self._ed_tab = None
         # per-key-set tables, least recently used first: Q16 bounded by
         # bytes, Q8 (~1.97 MB per key slot) by count
         self._lock = threading.Lock()
@@ -136,7 +153,10 @@ class CUDAProvider(api.BCCSP):
                       "q16_oversize_skips": 0, "nonp256_sw_lanes": 0,
                       "table_build_s": 0.0, "tree_kernel_launches": 0,
                       "sha_windows_launches": 0, "sha256_launches": 0,
-                      "resident_launches": 0}
+                      "resident_launches": 0, "ladder_batches": 0,
+                      "ladder_launches": 0, "ed25519_batches": 0,
+                      "ed25519_sw_lanes": 0, "ed25519_launches": 0,
+                      "ed25519_prep_s": 0.0}
 
     def _fused_enabled(self) -> bool:
         """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
@@ -178,13 +198,47 @@ class CUDAProvider(api.BCCSP):
 
     # -- the item path --
 
+    @staticmethod
+    def _lane_scheme(item) -> str:
+        """The router's partition key for one lane: "ed25519" for an
+        Ed25519 key, else "p256" (P-256, other ECDSA curves and dead
+        non-ECDSA keys, which the P-256 staging handles inline)."""
+        if getattr(item.key, "scheme", None) == "ed25519":
+            return "ed25519"
+        return "p256"
+
     def verify_batch(self, items: Sequence[api.VerifyItem]) -> list[bool]:
-        """The P-256 branch of fabric_tpu's `_verify_batch_device`.
-        Message lanes take the fused tier, the device-SHA route or host
-        hashing (see the module docstring); digest lanes are digests on
-        every route. Lanes on non-ECDSA keys reject; a P-256 key with a
-        digest other than 32 bytes verifies on the sw path; an ECDSA key
-        on another curve raises NotImplementedError."""
+        """The scheme router (fabric_tpu's `verify_batch`): a batch under
+        `MinBatch` serves the sw provider; otherwise its lanes are split
+        by `_lane_scheme` into per-scheme sub-batches, each verified on
+        its path, and the verdicts go back in the items' order. A batch
+        of P-256 lanes alone takes the P-256 path as it is."""
+        if len(items) < self._min_batch:
+            return self._sw.verify_batch(items)
+        schemes = [self._lane_scheme(it) for it in items]
+        if all(s == "p256" for s in schemes):
+            return self._verify_batch_p256(items)
+        by_scheme: dict[str, list[int]] = {}
+        for i, s in enumerate(schemes):
+            by_scheme.setdefault(s, []).append(i)
+        result = [False] * len(items)
+        for scheme, lanes in by_scheme.items():
+            sub = [items[i] for i in lanes]
+            out = (self._verify_batch_ed25519(sub) if scheme == "ed25519"
+                   else self._verify_batch_p256(sub))
+            for i, v in zip(lanes, out):
+                result[i] = v
+        return result
+
+    def _verify_batch_p256(self, items) -> list[bool]:
+        """The P-256 branch of fabric_tpu's `_verify_batch_device`; a
+        sub-batch under `MinBatch` serves the sw provider. Message lanes
+        take the fused tier, the device-SHA route or host hashing (see
+        the module docstring), or the ladder over more than `MaxKeys`
+        keys; digest lanes are digests on every route. Lanes on non-ECDSA
+        keys reject; a P-256 key with a digest other than 32 bytes
+        verifies on the sw path; an ECDSA key on another curve raises
+        NotImplementedError."""
         if len(items) < self._min_batch:
             return self._sw.verify_batch(items)
         n = len(items)
@@ -250,19 +304,26 @@ class CUDAProvider(api.BCCSP):
         self.stats["host_hashed_lanes"] += hashed
         result = [False] * n
         if key_map:
+            ladder = len(key_map) > self._max_keys
             if nb is None:
-                out = self._dispatch_comb_digest(bucket, key_map, key_idx,
-                                                 r_b, rpn_b, w_b, premask,
-                                                 digests)
+                dispatch = (self._dispatch_ladder if ladder
+                            else self._dispatch_comb_digest)
+                out = dispatch(bucket, key_map, key_idx, r_b, rpn_b, w_b,
+                               premask, digests)
             else:
                 blocks, nblocks = sha256.pack_messages(msgs, nb)
                 # digest lanes skip the device hash: no live block
                 nblocks[has_digest] = 0
-                dispatch = (self._dispatch_fused_verify if fused
-                            else self._dispatch_device_sha)
-                out = dispatch(bucket, key_map, key_idx, blocks, nblocks,
-                               r_b, rpn_b, w_b, premask, digests,
-                               has_digest)
+                if ladder:
+                    out = self._dispatch_ladder(
+                        bucket, key_map, key_idx, r_b, rpn_b, w_b, premask,
+                        digests, (blocks, nblocks, has_digest))
+                else:
+                    dispatch = (self._dispatch_fused_verify if fused
+                                else self._dispatch_device_sha)
+                    out = dispatch(bucket, key_map, key_idx, blocks, nblocks,
+                                   r_b, rpn_b, w_b, premask, digests,
+                                   has_digest)
             result = out()[:n].tolist()
         if sw_lanes:
             self.stats["nonp256_sw_lanes"] += len(sw_lanes)
@@ -330,9 +391,10 @@ class CUDAProvider(api.BCCSP):
 
         if not key_map:
             return lambda: [False] * n
-        thunk = self._dispatch_comb_digest(bucket, key_map, lane_slot,
-                                           pad(r), pad(rpn), pad(w),
-                                           premask, dg)
+        dispatch = (self._dispatch_ladder if len(key_map) > self._max_keys
+                    else self._dispatch_comb_digest)
+        thunk = dispatch(bucket, key_map, lane_slot, pad(r), pad(rpn),
+                         pad(w), premask, dg)
         return lambda: thunk()[:n].tolist()
 
     def _verify_prepared_sw(self, lanes, digests, key_idx, keys,
@@ -438,6 +500,75 @@ class CUDAProvider(api.BCCSP):
                 *args, g16=g16, q16=q16)
         return self._chunked(bucket, run)
 
+    def _dispatch_ladder(self, bucket, key_map, key_idx, r8, rpn8, w8,
+                         premask, digests, message=None):
+        """The Shamir ladder for a batch over more than `MaxKeys` keys
+        (fabric_tpu's `_dispatch_arrays` ladder branch), one launch a
+        chunk: each lane's key goes to the card as 64 bytes (x then y,
+        big-endian). With `message` = (blocks, nblocks, has_digest) the
+        message entry hashes the lanes without a digest inside the
+        kernel; without it every lane is a digest lane."""
+        self.stats["ladder_batches"] += 1
+        qk = np.zeros((len(key_map), 64), dtype=np.uint8)
+        for kb, j in key_map.items():
+            qk[j] = np.frombuffer(kb, dtype=np.uint8)
+        q8 = qk[key_idx]
+        words = digests.view(np.int32)        # the same bits
+        if message is None:
+            return self._chunked(bucket, lambda c: (
+                verify.ladder_verify_digests(c(words), c(q8), c(r8),
+                                             c(rpn8), c(w8), c(premask))))
+        blocks, nblocks, has_digest = message
+        blocks = blocks.view(np.int32)
+        return self._chunked(bucket, lambda c: verify.ladder_verify(
+            c(blocks), c(nblocks), c(words), c(has_digest), c(q8), c(r8),
+            c(rpn8), c(w8), c(premask)))
+
+    # -- the Ed25519 batch path (the router's "ed25519" lanes) --
+
+    def _verify_batch_ed25519(self, items) -> list[bool]:
+        """fabric_tpu's `_verify_batch_ed25519` without its breaker: a
+        sub-batch under `MinBatch`, or any with the kernel switched off
+        (`Ed25519: false`), serves the sw provider with the same
+        verdicts; the rest is one device dispatch. Device errors
+        propagate."""
+        if len(items) < self._min_batch or not self._ed25519:
+            self.stats["ed25519_sw_lanes"] += len(items)
+            return self._sw.verify_batch(items)
+        return self._dispatch_ed25519(items)
+
+    def _dispatch_ed25519(self, items) -> list[bool]:
+        """Host prep (the gates and the SHA-512 challenge of
+        `ed25519_host.prep_verify`, the policy the sw path shares), the
+        kernel's operand rows (`ed25519.stage_rows`), one launch a
+        chunk; the prep's seconds go to stats["ed25519_prep_s"]."""
+        n = len(items)
+        t0 = time.perf_counter()
+        prep = []
+        for it in items:
+            msg = it.message if it.message is not None else it.digest
+            prep.append(None if msg is None else edh.prep_verify(
+                it.key.public_key().bytes(), it.signature, msg))
+        bucket = self._bucket(n)
+        rows = ed25519.stage_rows(prep, bucket)
+        self.stats["ed25519_prep_s"] += time.perf_counter() - t0
+        tab = self._ed_table()
+        out = self._chunked(bucket, lambda c: ed25519.ed25519_verify(
+            tab, *(c(a) for a in rows)))
+        self.stats["ed25519_batches"] += 1
+        return out()[:n].tolist()
+
+    def _ed_table(self) -> torch.Tensor:
+        """The fixed-base B table in the layout the device's path takes
+        (`ed25519.device_table`: the kernel's 32-bit plain-domain words
+        on the card, the JAX layout on the CPU), moved to the device once
+        per provider."""
+        with self._lock:
+            if self._ed_tab is None:
+                self._ed_tab = self._timed(ed25519.device_table,
+                                           self.device)
+            return self._ed_tab
+
     def _chunked(self, bucket, run):
         """Call run(c) for each `chunk` of the bucket, c(a) putting a
         chunk of host array `a` on the card; count the kernels launched
@@ -457,8 +588,6 @@ class CUDAProvider(api.BCCSP):
         """Canonical slot order + the key set's tables: Q16 (with G16)
         when it fits the byte budget, else Q8 with the 8-bit G table.
         Returns (key_idx remapped, K, q_flat, g16 or None, q16?)."""
-        if len(key_map) > self._max_keys:
-            raise NotImplementedError(LADDER)
         order, key_idx = self._canonical_key_order(key_map, key_idx)
         K = 1
         while K < len(order):

@@ -8,7 +8,8 @@ package's `TPU:` block (`TpuOpts`):
     {"Default": "CUDA",
      "CUDA": {"Device": "cuda:0" | "cpu", "MinBatch": 16, "MaxKeys": 16,
               "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144,
-              "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64}}
+              "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64,
+              "Ed25519": true}}
 
 With no Device the provider runs on cuda:0 and raises where CUDA is
 absent; "cpu" runs the plain torch versions (the tests' choice).
@@ -38,6 +39,9 @@ class CudaOpts:
     # the card, off on the CPU; FTPU_FUSED=0/1 overrides
     fused_verify: Optional[bool] = None
     max_blocks: int = 64
+    # the Ed25519 kernel; False serves Ed25519 lanes on the sw provider
+    # (verdicts identical)
+    ed25519: bool = True
 
 
 @dataclass
@@ -64,6 +68,7 @@ class FactoryOpts:
                 fused_verify=(bool(c["FusedVerify"])
                               if c.get("FusedVerify") is not None else None),
                 max_blocks=int(c.get("MaxBlocks", 64)),
+                ed25519=bool(c.get("Ed25519", True)),
             ),
         )
 
@@ -84,5 +89,6 @@ def new_bccsp(opts) -> BCCSP:
                             table_cache_bytes=c.table_cache_bytes,
                             hash_on_host=c.hash_on_host,
                             fused_verify=c.fused_verify,
-                            max_blocks=c.max_blocks)
+                            max_blocks=c.max_blocks,
+                            ed25519_enabled=c.ed25519)
     raise ValueError(f"unknown BCCSP default {opts.default!r}")

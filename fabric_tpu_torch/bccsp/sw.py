@@ -1,10 +1,13 @@
-"""Software BCCSP provider, P-256 only — the port's CPU oracle.
+"""Software BCCSP provider, P-256 and Ed25519 — the port's CPU oracle.
 
-A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256 slice, on the port's
-pure-Python backend (bccsp/p256_host.py): the card's host has no
-`cryptography` wheel. Verification semantics follow
-`bccsp/sw/ecdsa.go:41-57` in order: strict DER unmarshal, the low-S
-policy against the key's curve order, then the curve equation.
+A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256 and Ed25519 slices, on
+the port's pure-Python backends (bccsp/p256_host.py, bccsp/ed25519_host.py):
+the card's host has no `cryptography` wheel. ECDSA verification semantics
+follow `bccsp/sw/ecdsa.go:41-57` in order: strict DER unmarshal, the low-S
+policy against the key's curve order, then the curve equation. Ed25519's
+policy (strict encodings, S < L, small-order rejection, the cofactorless
+equation) lives in `ed25519_host`; Ed25519 keys sign and verify messages,
+not digests (`sign_message`).
 
 ECDSA keys on other curves can be represented (so a provider can tell
 them apart) but not verified here: that needs OpenSSL, and raises
@@ -19,6 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from fabric_tpu_torch.bccsp import bccsp as api
+from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import p256_host, utils
 
 NOT_P256 = ("ECDSA over curves other than P-256 needs OpenSSL on the sw "
@@ -97,6 +101,63 @@ class ECDSAPrivateKey(api.Key):
         return self._pub
 
 
+class Ed25519PublicKey(api.Key):
+    """RFC 8032 public key (32-byte canonical encoding)."""
+
+    scheme = "ed25519"
+    sign_message = True
+
+    def __init__(self, raw: bytes):
+        if edh.decode_point(raw) is None:
+            raise ValueError("not a canonical Ed25519 public key")
+        self._raw = bytes(raw)
+
+    def bytes(self) -> bytes:
+        return self._raw
+
+    def ski(self) -> bytes:
+        return hashlib.sha256(self._raw).digest()
+
+    def symmetric(self) -> bool:
+        return False
+
+    def private(self) -> bool:
+        return False
+
+    def public_key(self) -> "Ed25519PublicKey":
+        return self
+
+
+class Ed25519PrivateKey(api.Key):
+    scheme = "ed25519"
+    sign_message = True
+
+    def __init__(self, seed: bytes):
+        if len(seed) != 32:
+            raise ValueError("Ed25519 seed must be 32 bytes")
+        self._seed = bytes(seed)
+        self._pub = Ed25519PublicKey(edh.public_from_seed(seed))
+
+    def bytes(self) -> bytes:
+        raise TypeError("private key export not allowed")
+
+    def ski(self) -> bytes:
+        return self._pub.ski()
+
+    def symmetric(self) -> bool:
+        return False
+
+    def private(self) -> bool:
+        return True
+
+    def public_key(self) -> Ed25519PublicKey:
+        return self._pub
+
+    @property
+    def seed(self) -> bytes:
+        return self._seed
+
+
 _HASHERS = {
     "SHA256": hashlib.sha256,
     "SHA384": hashlib.sha384,
@@ -122,7 +183,8 @@ def check_signature(key, signature: bytes) -> Optional[tuple[int, int]]:
 
 
 class SWProvider(api.BCCSP):
-    """CPU provider (reference: `bccsp/sw/new.go`), P-256 ECDSA only."""
+    """CPU provider (reference: `bccsp/sw/new.go`), P-256 ECDSA and
+    Ed25519."""
 
     def __init__(self):
         # non-ephemeral keys by SKI, so get_key(ski) resolves them (the
@@ -137,17 +199,23 @@ class SWProvider(api.BCCSP):
             self._mem[key.ski()] = key
 
     def key_gen(self, opts) -> api.Key:
-        if not isinstance(opts, api.ECDSAKeyGenOpts):
+        if isinstance(opts, api.Ed25519KeyGenOpts):
+            key: api.Key = Ed25519PrivateKey(edh.generate_seed())
+        elif not isinstance(opts, api.ECDSAKeyGenOpts):
             raise TypeError(f"unsupported KeyGenOpts {opts!r}")
-        if opts.curve != "P-256":
+        elif opts.curve != "P-256":
             raise NotImplementedError(NOT_P256)
-        key = ECDSAPrivateKey(p256_host.generate_scalar())
+        else:
+            key = ECDSAPrivateKey(p256_host.generate_scalar())
         if not opts.ephemeral:
             self._retain(key)
         return key
 
     def key_import(self, raw, opts) -> api.Key:
-        if isinstance(opts, api.ECDSAPublicKeyImportOpts):
+        if isinstance(opts, api.Ed25519PublicKeyImportOpts):
+            key: api.Key = raw if isinstance(raw, Ed25519PublicKey) \
+                else Ed25519PublicKey(bytes(raw))
+        elif isinstance(opts, api.ECDSAPublicKeyImportOpts):
             key = raw if isinstance(raw, ECDSAPublicKey) \
                 else ECDSAPublicKey(*p256_host.decode_spki(bytes(raw)))
         elif isinstance(opts, api.ECDSAPrivateKeyImportOpts):
@@ -171,7 +239,11 @@ class SWProvider(api.BCCSP):
 
     def sign(self, key: api.Key, digest: bytes, opts=None) -> bytes:
         """Low-S DER signature over a precomputed digest (reference:
-        `bccsp/sw/ecdsa.go:27-39`), with RFC 6979 nonces."""
+        `bccsp/sw/ecdsa.go:27-39`), with RFC 6979 nonces. For an Ed25519
+        key (`sign_message`) `digest` is the message itself: RFC 8032
+        hashes internally."""
+        if isinstance(key, Ed25519PrivateKey):
+            return edh.sign(key.seed, digest)
         if not isinstance(key, ECDSAPrivateKey):
             raise TypeError("sign requires an ECDSA private key")
         if len(digest) not in _DIGEST_LENS:
@@ -182,6 +254,8 @@ class SWProvider(api.BCCSP):
     def verify(self, key: api.Key, signature: bytes, digest: bytes,
                opts=None) -> bool:
         pub = key.public_key()
+        if isinstance(pub, Ed25519PublicKey):
+            return edh.verify(pub.bytes(), signature, digest)
         if not isinstance(pub, ECDSAPublicKey):
             raise TypeError("verify requires an ECDSA key")
         if not pub.is_p256():
@@ -192,7 +266,14 @@ class SWProvider(api.BCCSP):
         return p256_host.verify(pub.x, pub.y, digest, *rs)
 
     def verify_batch(self, items: Sequence[api.VerifyItem]) -> list[bool]:
-        return [self.verify(it.key, it.signature,
-                            it.digest if it.digest is not None
-                            else self.hash(it.message))
-                for it in items]
+        out = []
+        for it in items:
+            if getattr(it.key, "sign_message", False):
+                # Ed25519 hashes internally: whichever field the caller
+                # set carries the raw message, never pre-hashed
+                data = it.message if it.message is not None else it.digest
+            else:
+                data = it.digest if it.digest is not None \
+                    else self.hash(it.message)
+            out.append(self.verify(it.key, it.signature, data))
+        return out

@@ -10,6 +10,15 @@
 //     (n_ops, 32) uint32: a mod p, a + b, a - b, a * b (canonical words);
 //   cases n_ops + j < n_ops + n_add: p13, q13 (n_add, 60) int32 points ->
 //     out_add (n_add, 24) uint32: X3, Y3, Z3 of RCB15 Alg. 4.
+// dbl_selftest_launch, the ladder's doubling (pt_dbl; ops/verify.py
+// dbl_selftest): p13 (n, 60) int32 points -> out (n, 24) uint32: X3, Y3,
+// Z3 of RCB15 Alg. 6, canonical words.
+// f25_selftest_launch, the field mod 2^255 - 19 (fe25519.cuh;
+// ops/ed25519.py f25_selftest): a, b (n, 8) 32-bit little-endian words ->
+// out (n, 32) uint32: a mod p, a + b, a - b, a * b (canonical words).
+// ed_selftest_launch, Ed25519's group law (fe25519.cuh; ops/ed25519.py
+// ed_selftest): p, q (n, 32) words of extended points -> out (n, 64)
+// uint32: ed_add(p, q), ed_dbl(p) (canonical words).
 // modn_selftest_launch, the mod-n core (modn32.cuh; ops/fused_verify.py
 // modn_selftest): e (n, 8) 32-bit big-endian words, r8 and w8 (n, 32)
 // uint8 big-endian rows -> out (n, 16) uint32: u1 = e*w and u2 = r*w mod n.
@@ -17,6 +26,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fe25519.cuh"
 #include "modn32.cuh"
 #include "p256_field.cuh"
 
@@ -49,6 +59,29 @@ modn_selftest_kernel(const uint32_t* __restrict__ e,
   if (i < n) mn_selftest(e + 8 * i, r8 + 32 * i, w8 + 32 * i, out + 16 * i);
 }
 
+__global__ void __launch_bounds__(THREADS)
+dbl_selftest_kernel(const int* __restrict__ p13, int n,
+                    uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) fe_selftest_dbl(p13 + 60 * i, out + 24 * i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+f25_selftest_kernel(const uint32_t* __restrict__ a,
+                    const uint32_t* __restrict__ b, int n,
+                    uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) f25_selftest_ops(a + 8 * i, b + 8 * i, out + 32 * i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+ed_selftest_kernel(const uint32_t* __restrict__ p,
+                   const uint32_t* __restrict__ q, int n,
+                   uint32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) ed_selftest(p + 32 * i, q + 32 * i, out + 64 * i);
+}
+
 }  // namespace
 
 // Enqueues the kernel on `stream`; returns cudaGetLastError().
@@ -75,6 +108,35 @@ extern "C" int modn_selftest_launch(const void* e, const void* r8,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(e), static_cast<const uint8_t*>(r8),
       static_cast<const uint8_t*>(w8), n, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dbl_selftest_launch(const void* p13, int n, void* out,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  dbl_selftest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(p13), n, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int f25_selftest_launch(const void* a, const void* b, int n,
+                                   void* out, void* stream) {
+  if (n <= 0) return 0;
+  f25_selftest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b), n,
+      static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ed_selftest_launch(const void* p, const void* q, int n,
+                                  void* out, void* stream) {
+  if (n <= 0) return 0;
+  ed_selftest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q), n,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,9 @@
 // formulas for prime order elliptic curves", 2015) Algorithm 4, for
 // a = -3: 12 multiplications, 2 by the constant b, 29 additions. It has no
 // exceptional cases (P + P, P + (-P), P + inf, inf + inf), and its output
-// may alias its inputs.
+// may alias its inputs. Doubling (pt_dbl, the Shamir ladder's): RCB15
+// Algorithm 6 for a = -3, exception-free (inf and 2-torsion), 11
+// multiplications and 2 by b, step for step as ops/p256.py cdbl_int.
 
 #pragma once
 
@@ -366,6 +368,50 @@ __device__ __forceinline__ void pt_add(Pt& out, const Pt& p, const Pt& q) {
   out.Z = Z3;
 }
 
+// RCB15 Algorithm 6 (a = -3), step for step as ops/p256.py cdbl_int (so
+// on canonical inputs the canonical outputs equal cdbl_int's); out may
+// alias p: p is read only before out is written.
+__device__ __forceinline__ void pt_dbl(Pt& out, const Pt& p) {
+  const Fe b = fe_b();
+  Fe t0 = fe_mul(p.X, p.X);
+  Fe t1 = fe_mul(p.Y, p.Y);
+  Fe t2 = fe_mul(p.Z, p.Z);
+  Fe t3 = fe_mul(p.X, p.Y);
+  t3 = fe_add(t3, t3);
+  Fe Z3 = fe_mul(p.X, p.Z);
+  Z3 = fe_add(Z3, Z3);
+  Fe Y3 = fe_mul(b, t2);
+  Y3 = fe_sub(Y3, Z3);
+  Fe X3 = fe_add(Y3, Y3);
+  Y3 = fe_add(X3, Y3);
+  X3 = fe_sub(t1, Y3);
+  Y3 = fe_add(t1, Y3);
+  Y3 = fe_mul(X3, Y3);
+  X3 = fe_mul(X3, t3);
+  t3 = fe_add(t2, t2);
+  t2 = fe_add(t2, t3);
+  Z3 = fe_mul(b, Z3);
+  Z3 = fe_sub(Z3, t2);
+  Z3 = fe_sub(Z3, t0);
+  t3 = fe_add(Z3, Z3);
+  Z3 = fe_add(Z3, t3);
+  t3 = fe_add(t0, t0);
+  t0 = fe_add(t3, t0);
+  t0 = fe_sub(t0, t2);
+  t0 = fe_mul(t0, Z3);
+  Y3 = fe_add(Y3, t0);
+  t0 = fe_mul(p.Y, p.Z);
+  t0 = fe_add(t0, t0);
+  Z3 = fe_mul(t0, Z3);
+  X3 = fe_sub(X3, Z3);
+  Z3 = fe_mul(t0, t1);
+  Z3 = fe_add(Z3, Z3);
+  Z3 = fe_add(Z3, Z3);
+  out.X = X3;
+  out.Y = Y3;
+  out.Z = Z3;
+}
+
 // The verify check on R = (X : Y : Z): Z != 0 and X == r*Z or X == rpn*Z
 // (mod p), compared in canonical form. Invariant under projective scaling
 // of R.
@@ -406,6 +452,25 @@ __device__ __forceinline__ void fe_selftest_add(const int* p13, const int* q13,
   q.Y = fe_from13(q13 + 20);
   q.Z = fe_from13(q13 + 40);
   pt_add(p, p, q);                          // aliased output on purpose
+  const Fe X = fe_canonical(p.X), Y = fe_canonical(p.Y),
+           Z = fe_canonical(p.Z);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    out[i] = X.w[i];
+    out[8 + i] = Y.w[i];
+    out[16 + i] = Z.w[i];
+  }
+}
+
+// dbl: a point of 3 x 20 13-bit limbs -> out[0:24] X3, Y3, Z3 of pt_dbl,
+// canonical words
+__device__ __forceinline__ void fe_selftest_dbl(const int* p13,
+                                                uint32_t* out) {
+  Pt p;
+  p.X = fe_from13(p13);
+  p.Y = fe_from13(p13 + 20);
+  p.Z = fe_from13(p13 + 40);
+  pt_dbl(p, p);                             // aliased output on purpose
   const Fe X = fe_canonical(p.X), Y = fe_canonical(p.Y),
            Z = fe_canonical(p.Z);
 #pragma unroll

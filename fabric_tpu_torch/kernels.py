@@ -12,6 +12,8 @@ that report beside the library as <name>.ptxas.log, which
 
 Nothing here runs at import: `load` builds on first use, and
 `build_all` (used by chip_smoke.py) starts one nvcc per source at once.
+`check_args` and `launch` are the wrappers' shared argument checks and
+ctypes call.
 `sass_mix` counts a built library's SASS instructions by opcode
 (`cuobjdump -sass`), the instruction mix PERF.md reads.
 """
@@ -47,6 +49,12 @@ KERNELS = {
                                   + [_INT] + [_VOIDP] * 3, _INT),
         # e, r8, w8, n, out, stream
         "modn_selftest_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2, _INT),
+        # p13, n, out, stream
+        "dbl_selftest_launch": ([_VOIDP, _INT, _VOIDP, _VOIDP], _INT),
+        # a, b, n, out, stream: the 2^255 - 19 core
+        "f25_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2, _INT),
+        # p, q, n, out, stream: ed_add and ed_dbl
+        "ed_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2, _INT),
         "field_selftest_error_string": ([_INT], ctypes.c_char_p),
     }),
     "sha_windows": ("sha_windows.cu", {
@@ -66,6 +74,20 @@ KERNELS = {
         "fused_resident_launch": ([_VOIDP] * 12 + [_INT] * 4 + [_VOIDP],
                                   _INT),
         "fused_resident_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "ladder": ("ladder.cu", {
+        # blocks, nblocks, digests, has_digest, q8, r8, rpn8, w8, premask,
+        # out, NB, B, stream -> cudaError_t
+        "ladder_verify_launch": ([_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
+                                 _INT),
+        # digests, q8, r8, rpn8, w8, premask, out, B, stream
+        "ladder_digest_launch": ([_VOIDP] * 7 + [_INT] + [_VOIDP], _INT),
+        "ladder_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "ed25519_verify": ("ed25519_verify.cu", {
+        # s8, k8, anx8, ay8, rx8, ry8, premask, tab, out, B, stream
+        "ed25519_verify_launch": ([_VOIDP] * 9 + [_INT] + [_VOIDP], _INT),
+        "ed25519_verify_error_string": ([_INT], ctypes.c_char_p),
     }),
 }
 
@@ -236,3 +258,42 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _loaded[name] = lib
         return lib
+
+
+def check_args(ref, want, what: str, aligned=()) -> None:
+    """(name, tensor, shape, dtypes) rows: shapes, types and devices (ref's
+    device); on the card also contiguity, and 16-byte alignment for the
+    rows named in `aligned` (the kernels read them as 16-byte vectors). A
+    device other than the CPU or the card has no `what` kernel."""
+    for name, t, shape, dtypes in want:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
+    if ref.device.type == "cuda":
+        for name, t, *_ in want:
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if name in aligned and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+    elif ref.device.type != "cpu":
+        raise ValueError(f"no {what} kernel for device {ref.device}")
+
+
+def launch(dev, name: str, fn: str, *args) -> None:
+    """Call library `name`'s `fn` with the tensors' pointers and the ints,
+    on `dev`'s current stream; raise if the launch was refused."""
+    import torch
+
+    lib = load(name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cargs = [ctypes.c_int(a) if isinstance(a, int) else a.data_ptr()
+             for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*cargs, ctypes.c_void_p(stream))
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")

@@ -29,10 +29,9 @@ lanes) tiles.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from fabric_tpu_torch import kernels
 from fabric_tpu_torch.ops import comb, limb, p256, ptree, sha256
 from fabric_tpu_torch.ops.limb import L
 
@@ -92,26 +91,7 @@ def sha_windows_plain(blocks, nblocks, digests, has_digest, r8, w8,
 # ---------------------------------------------------------------------------
 
 def _check(ref, want, aligned=()):
-    """(name, tensor, shape, dtypes) rows: shapes, types and devices
-    (ref's); for CUDA also contiguity, and 16-byte alignment for those
-    named in `aligned` (the kernels read their rows as 16-byte
-    vectors)."""
-    for name, t, shape, dtypes in want:
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must be {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-        if t.dtype not in dtypes:
-            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
-        if t.device != ref.device:
-            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
-    if ref.device.type == "cuda":
-        for name, t, *_ in want:
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-            if name in aligned and t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
-    elif ref.device.type != "cpu":
-        raise ValueError(f"no stage-A kernel for device {ref.device}")
+    kernels.check_args(ref, want, "stage-A", aligned)
 
 
 def _lane_rows(B, digests, r8, w8):
@@ -125,22 +105,6 @@ def _widths(wbits_g: int, wbits_q: int) -> None:
     if wbits_g not in WBITS_OK or wbits_q != wbits_g:
         raise ValueError(f"window widths must be 8/8 or 16/16, got "
                          f"{wbits_g}/{wbits_q}")
-
-
-def _launch(dev, name: str, fn: str, *args) -> None:
-    """Call library `name`'s `fn` with the tensors' pointers and the
-    ints, on the current stream; raise if the launch was refused."""
-    from fabric_tpu_torch import kernels
-
-    lib = kernels.load(name)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cargs = [ctypes.c_int(a) if isinstance(a, int) else a.data_ptr()
-             for a in args]
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn)(*cargs, ctypes.c_void_p(stream))
-    if err:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
 
 
 def _windows_out(B, wbits_g, wbits_q, dev):
@@ -178,9 +142,9 @@ def sha_windows(blocks, nblocks, digests, has_digest, r8, w8, *,
     dev = blocks.device
     w1, w2 = _windows_out(B, wbits_g, wbits_q, dev)
     words = torch.empty((B, 8), dtype=torch.int64, device=dev)
-    _launch(dev, "sha_windows", "sha_windows_launch", blocks, nblocks,
-            digests, has_digest, r8, w8, w1, w2, words, B, blocks.shape[1],
-            wbits_g, wbits_q)
+    kernels.launch(dev, "sha_windows", "sha_windows_launch", blocks,
+                   nblocks, digests, has_digest, r8, w8, w1, w2, words, B,
+                   blocks.shape[1], wbits_g, wbits_q)
     sha_windows_launches += 1
     return w1, w2, words
 
@@ -201,8 +165,8 @@ def digest_windows(digests, r8, w8, *, wbits_g: int = comb.WBITS,
         return digest_windows_plain(digests, r8, w8, wbits_g, wbits_q)
     dev = digests.device
     w1, w2 = _windows_out(B, wbits_g, wbits_q, dev)
-    _launch(dev, "sha_windows", "digest_windows_launch", digests, r8, w8,
-            w1, w2, B, wbits_g, wbits_q)
+    kernels.launch(dev, "sha_windows", "digest_windows_launch", digests, r8,
+                   w8, w1, w2, B, wbits_g, wbits_q)
     sha_windows_launches += 1
     return w1, w2
 
@@ -279,8 +243,8 @@ def modn_selftest(e, r8, w8):
     if e.device.type == "cpu":
         return modn_selftest_plain(e, r8, w8)
     out = torch.empty((n, 16), dtype=torch.int32, device=e.device)
-    _launch(e.device, "field_selftest", "modn_selftest_launch", e, r8, w8,
-            n, out)
+    kernels.launch(e.device, "field_selftest", "modn_selftest_launch", e, r8,
+                   w8, n, out)
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
@@ -348,8 +312,9 @@ def fused_verify_resident(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
         return resident_plain(blocks, nblocks, key_idx, q_flat, r8, rpn8, w8,
                               premask, digests, has_digest, g_flat)
     out = torch.empty(B, dtype=torch.bool, device=blocks.device)
-    _launch(blocks.device, "fused_resident", "fused_resident_launch", blocks,
-            nblocks, digests, has_digest, key_idx, r8, rpn8, w8, premask,
-            g_flat, q_flat, out, B, blocks.shape[1], K, threads_per_lane)
+    kernels.launch(blocks.device, "fused_resident", "fused_resident_launch",
+                   blocks, nblocks, digests, has_digest, key_idx, r8, rpn8,
+                   w8, premask, g_flat, q_flat, out, B, blocks.shape[1], K,
+                   threads_per_lane)
     resident_launches += 1
     return out

@@ -112,20 +112,19 @@ def limbs_to_be_bytes(limbs: torch.Tensor) -> torch.Tensor:
 # Carry propagation
 # ---------------------------------------------------------------------------
 
-def _shift_up(c: torch.Tensor) -> torch.Tensor:
-    """Limb i+1 <- c[i]; the carry out of the top limb is dropped."""
-    return F.pad(c[..., :-1], (1, 0))
-
-
 def carry3(x: torch.Tensor) -> torch.Tensor:
     """Three vectorized carry rounds: limbs < 2^31 -> limbs in [0, 2^13].
 
     Requires non-negative limbs. Round 1 leaves limbs ≤ mask + 2^18,
     round 2 ≤ mask + 2^5, round 3 ≤ 2^13: a valid redundant form
-    (limb value 2^13 allowed), safe as multiplication input.
+    (limb value 2^13 allowed), safe as multiplication input. A round
+    moves limb i's carry into limb i+1 in place; the carry out of the
+    top limb is dropped.
     """
     for _ in range(3):
-        x = (x & MASK) + _shift_up(x >> W)
+        c = x >> W
+        x = x & MASK                    # a fresh tensor: add in place
+        x[..., 1:].add_(c[..., :-1])
     return x
 
 

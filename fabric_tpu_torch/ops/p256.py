@@ -9,10 +9,14 @@ the second candidate covering the x mod n wrap.
     homogeneous (X:Y:Z)): one branchless formula for P+Q, P+P, P+∞ and
     P+(−P) on a prime-order curve.
   * Exception-free doubling (RCB15 Alg. 6, a = -3).
+  * The generic verify core (`verify_core`): u1 = e*w, u2 = r*w mod n
+    and R = u1*G + u2*Q by a 2-bit Shamir ladder (`double_scalar_mul`)
+    for batches whose keys have no comb tables.
 
 The torch versions follow the RCB15 operation sequence step for step,
 so their semi-reduced outputs equal the JAX package's limb for limb.
-The Shamir ladder (double_scalar_mul, verify_core) is not ported yet.
+They are the plain versions: on the card the ladder is one kernel
+(ops/verify.py, csrc/ladder.cu).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from fabric_tpu_torch.ops import limb
-from fabric_tpu_torch.ops.limb import Mod
+from fabric_tpu_torch.ops.limb import L, Mod
 
 # NIST P-256 (FIPS 186-4) domain parameters
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
@@ -34,6 +38,7 @@ GY = 0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5
 FP = Mod(P)
 FN = Mod(N)
 
+_ONE_LIMBS = limb.int_to_limbs(1)
 A_LIMBS = limb.int_to_limbs(A)
 B_LIMBS = limb.int_to_limbs(B)
 B3_LIMBS = limb.int_to_limbs(B3)
@@ -247,3 +252,94 @@ def projective_check(X, Z, r, rpn, premask):
     ok1 = (xc == FP.canonical(FP.mulmod(r, Z))).all(dim=-1)
     ok2 = (xc == FP.canonical(FP.mulmod(rpn, Z))).all(dim=-1)
     return premask.to(torch.bool) & nonzero & (ok1 | ok2)
+
+
+# ---------------------------------------------------------------------------
+# The Shamir ladder and the generic verify core
+# ---------------------------------------------------------------------------
+
+def _select_point(idx, table):
+    """Branchless 2^k-way select: idx (B,) in [0, len(table)); table =
+    points as tuples of (B, L) coordinate tensors. A balanced select tree
+    (log2 depth), as fabric_tpu's `_select_point`."""
+    w = idx[:, None]
+
+    def tree(lo_i, coords):
+        if len(coords) == 1:
+            return coords[0]
+        half = len(coords) // 2
+        lo = tree(lo_i, coords[:half])
+        hi = tree(lo_i + half, coords[half:])
+        return torch.where(w < lo_i + half, lo, hi)
+
+    return tuple(tree(0, [t[c] for t in table]) for c in range(3))
+
+
+def _g_multiple(k: int):
+    x, y = to_affine_int(scalar_mul_int(k, (GX, GY, 1)))
+    return limb.int_to_limbs(x), limb.int_to_limbs(y)
+
+
+_G_MULTIPLES = [_g_multiple(k) for k in (1, 2, 3)]
+
+
+def _bits2(scalar, k: int):
+    """Bits k (low) and k + 1 (high) of (B, L) canonical limbs, as
+    lo + 2*hi."""
+    lo = (scalar[:, k // limb.W] >> (k % limb.W)) & 1
+    hi = (scalar[:, (k + 1) // limb.W] >> ((k + 1) % limb.W)) & 1
+    return lo + 2 * hi
+
+
+def double_scalar_mul(u1, u2, qx, qy):
+    """R = u1*G + u2*Q for a batch: u1, u2 canonical (B, L) scalars,
+    (qx, qy) affine points (B, L). Returns projective (X, Y, Z).
+
+    fabric_tpu's `double_scalar_mul`, step for step: a 16-entry table
+    table[i + 4*j] = i*G + j*Q (the G column host constants, the Q side
+    11 complete operations), then 128 steps of two doublings and one
+    complete add of the entry chosen by bits (254 - 2i, 255 - 2i) of u1
+    and u2."""
+    B = u1.shape[0]
+    dev = u1.device
+    ones = torch.as_tensor(_ONE_LIMBS, device=dev).expand(B, L).clone()
+    zeros = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    inf = (zeros, ones, zeros)
+    g_pts = [None] + [tuple(torch.as_tensor(c, device=dev).expand(B, L)
+                            for c in (x, y, _ONE_LIMBS))
+                      for x, y in _G_MULTIPLES]
+    q1 = (qx, qy, ones)
+    q2 = cdbl(q1)
+    q3 = cadd(q2, q1)
+    q_pts = [None, q1, q2, q3]
+    table = [inf] + g_pts[1:]
+    for j in range(1, 4):
+        table.append(q_pts[j])
+        for i in range(1, 4):
+            table.append(cadd(g_pts[i], q_pts[j]))
+    acc = inf
+    for i in range(128):
+        acc = cdbl(cdbl(acc))
+        k = 254 - 2 * i
+        sel = _select_point(_bits2(u1, k) + 4 * _bits2(u2, k), table)
+        acc = cadd(acc, sel)
+    return acc
+
+
+def verify_core(digest_words, qx, qy, r, rpn, w, premask):
+    """Batched ECDSA-P256 accept/reject (fabric_tpu's `verify_core`).
+
+    digest_words: (B, 8) big-endian SHA-256 digest words (int64 masked
+        to 32 bits, or int32/uint32 bits).
+    qx, qy: (B, L) canonical limbs of the public key's affine point (the
+        host guarantees it is on the curve, as the reference does at key
+        import).
+    r, rpn: (B, L) canonical limbs of r and of r + n if r + n < p else r.
+    w: (B, L) canonical limbs of s^-1 mod n.
+    premask: (B,) bool host-side DER/range/low-S validity.
+    Returns (B,) bool accept mask."""
+    e = limb.words_be_to_limbs(digest_words.to(torch.int64) & 0xFFFFFFFF)
+    u1 = FN.canonical(FN.mulmod(e, w))
+    u2 = FN.canonical(FN.mulmod(r, w))
+    X, _, Z = double_scalar_mul(u1, u2, qx, qy)
+    return projective_check(X, Z, r, rpn, premask)

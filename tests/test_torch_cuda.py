@@ -430,3 +430,174 @@ def test_resident_kernel_matches_plain_and_tiered(dev):
         again = fused_verify.fused_verify_resident(*args, threads_per_lane=T)
         torch.cuda.synchronize()
         assert torch.equal(again, plain)
+
+
+# -- the Shamir ladder and Ed25519 (csrc/ladder.cu, ed25519_verify.cu) --
+
+class _InProcess:
+    """chip_smoke's pool helpers, run in this process."""
+
+    @staticmethod
+    def map(fn, chunks):
+        return [fn(c) for c in chunks]
+
+
+def test_dbl_and_f25_cores_match_ints(dev):
+    """The nvcc builds of pt_dbl (p256_field.cuh) against cdbl_int on G,
+    -G, infinity, a 2-torsion-like input and random points; of the
+    2^255 - 19 core and ed_add/ed_dbl (fe25519.cuh) against Python ints
+    on edge operands, B, the identity, a small-order point and random
+    points."""
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    from fabric_tpu_torch.ops import ed25519, verify
+
+    P = p256.P
+    g = (p256.GX, p256.GY, 1)
+    pts = [g, (p256.GX, P - p256.GY, 1), (0, 1, 0), (p256.GX, 0, 1)] + [
+        p256.scalar_mul_int(k, g) for k in (2, 3, 12345, p256.N - 1)]
+    p13 = torch.as_tensor(np.stack([np.concatenate(
+        [limb.int_to_limbs(c % P) for c in q]) for q in pts]))
+    got = verify.dbl_selftest(p13.to(dev))
+    assert torch.equal(got.cpu(), verify.dbl_selftest_plain(p13))
+
+    PE = ed25519.P_ED
+    vals = [0, 1, PE - 1, PE, PE + 1, (1 << 255) - 1, (1 << 256) - 1]
+
+    def words(rows):
+        return torch.as_tensor(np.array(
+            [[(v >> (32 * i)) & 0xFFFFFFFF for v in row for i in range(8)]
+             for row in rows], dtype=np.uint32).view(np.int32))
+    a = words([[x] for x in vals for _ in vals])
+    b = words([[y] for _ in vals for y in vals])
+    got = ed25519.f25_selftest(a.to(dev), b.to(dev))
+    assert torch.equal(got.cpu(), ed25519.f25_selftest_plain(a, b))
+    Bp = edh.from_affine(edh.BX, edh.BY)
+    eps = [Bp, edh._IDENT, (0, PE - 1, 1, 0), edh.scalar_mult(77, Bp)]
+    cases = [(p, q) for p in eps for q in eps]
+    ep = words([[c % PE for c in p] for p, _ in cases])
+    eq = words([[c % PE for c in q] for _, q in cases])
+    got = ed25519.ed_selftest(ep.to(dev), eq.to(dev))
+    assert torch.equal(got.cpu(), ed25519.ed_selftest_plain(ep, eq))
+
+
+def test_ladder_kernel_matches_plain_and_ints(dev):
+    """Both ladder entries on chip_smoke's edge lanes (u1 = 0, R at
+    infinity, the rpn candidate, table entries at infinity and doublings,
+    premask off, message lengths 0 to 503) and a small block over 23
+    keys: kernel = plain version on every lane, = Python ints on the
+    edge lanes, = the expected bitmap beyond."""
+    import chip_smoke as cs
+
+    from fabric_tpu_torch.ops import verify
+
+    pool = _InProcess()
+    blk = cs.make_block(5, 16, pool, 1, clients=20)
+    edges = cs.ladder_edges(blk, np.random.default_rng(6))
+    h = cs.ladder_lanes(blk, 64, 8, edges)
+    t = cs._ladder_tensors(h, dev)
+    before = verify.launches
+    got = {"digests": verify.ladder_verify_digests(*t["digests"]),
+           "message": verify.ladder_verify(*t["message"])}
+    assert verify.launches == before + 2
+    plain = {"digests": verify.ladder_digests_plain(*t["digests"]),
+             "message": verify.ladder_plain(*t["message"])}
+    torch.cuda.synchronize()
+    E = len(edges)
+    want = []
+    for kind, e, r, rpn, w, q, pm, msg in edges:
+        if msg is not None:
+            e = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+        want.append(cs._ladder_int(e, r, rpn, w, q, pm))
+    for entry in got:
+        assert torch.equal(got[entry], plain[entry]), entry
+        kh = got[entry].cpu().numpy()
+        assert kh[:E].tolist() == want, entry
+        n = min(blk["n"], 64)
+        np.testing.assert_array_equal(kh[E:n], blk["expected"][E:n])
+
+
+def test_ed25519_kernel_matches_plain_and_ints(dev):
+    """The Ed25519 kernel on chip_smoke's edge rows (S = 0, k = 0, RFC
+    8032 test 1, identity operands, a dead lane, R off by one point) and
+    signed lanes: kernel = ed25519.verify_core on every lane = Python
+    ints / ed25519_host.verify."""
+    import chip_smoke as cs
+
+    from fabric_tpu_torch.bccsp import ed25519_host as edh
+    from fabric_tpu_torch.ops import ed25519
+
+    rng = np.random.default_rng(9)
+    edges = cs.ed25519_edges(rng)
+    seeds = [rng.bytes(32) for _ in range(4)]
+    signed = []
+    for i in range(20):
+        msg = rng.bytes(int(rng.integers(0, 300)))
+        sig = edh.sign(seeds[i % 4], msg)
+        pk = edh.public_from_seed(seeds[i % 4])
+        if i % 5 == 2:
+            msg = msg + b"x"
+        signed.append((edh.prep_verify(pk, sig, msg),
+                       edh.verify(pk, sig, msg)))
+    ops = [op for _, op, _ in edges] + [p for p, _ in signed]
+    rows = ed25519.stage_rows(ops, 32)
+    rows[6][:len(edges)] = [pm for _, _, pm in edges]
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in rows]
+    ktab = ed25519.device_table(dev)
+    ptab = torch.as_tensor(ed25519.b_tables(), device=dev)
+    before = ed25519.launches
+    got = ed25519.ed25519_verify(ktab, *t)
+    assert ed25519.launches == before + 1
+    plain = ed25519.verify_core(ptab, *t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    want = [cs._ed_int(*op, pm) for _, op, pm in edges] + [
+        v for _, v in signed] + [False] * (32 - len(ops))
+    assert got.cpu().numpy().tolist() == want
+
+
+def test_provider_ladder_and_ed25519_on_the_card(dev):
+    """17 distinct P-256 keys take the ladder on the card (verify_batch
+    with SHA-256 in the kernel, verify_prepared on digest lanes), and a
+    batch mixed with Ed25519 lanes splits across the ladder and the
+    Ed25519 kernel; verdicts equal the sw provider's."""
+    from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
+
+    rng = np.random.default_rng(13)
+    csp = sw.SWProvider()
+    privs = [sw.ECDSAPrivateKey(int(rng.integers(1, 1 << 62)))
+             for _ in range(17)]
+    eds = [csp.key_gen(api.Ed25519KeyGenOpts()) for _ in range(3)]
+    items = []
+    for i in range(48):
+        msg = rng.bytes(120)
+        if i % 3 == 2:
+            k = eds[i % 3]
+            sig = csp.sign(k, msg)
+        else:
+            k = privs[i % 17]
+            sig = csp.sign(k, hashlib.sha256(msg).digest())
+        if i % 7 == 3:
+            msg = msg + b"x"
+        items.append(api.VerifyItem(key=k.public_key(), signature=sig,
+                                    message=msg))
+    want = csp.verify_batch(items)
+    prov = factory.new_bccsp({"Default": "CUDA"})
+    assert prov.verify_batch(items) == want
+    assert prov.stats["ladder_batches"] == 1
+    assert prov.stats["ladder_launches"] == 1
+    assert prov.stats["ed25519_launches"] == 1
+    assert prov.stats["tree_kernel_launches"] == 0
+    p_items = [it for i, it in enumerate(items) if i % 3 != 2]
+    pubs = [k.public_key() for k in privs]
+    slot = {id(p): j for j, p in enumerate(pubs)}
+    prep = [host_prep_scalars(it.key, it.signature) for it in p_items]
+    rows = [np.stack([np.frombuffer(p[c], np.uint8) for p in prep])
+            for c in range(3)]
+    got = prov.verify_prepared(
+        np.stack([np.frombuffer(hashlib.sha256(it.message).digest(),
+                                np.uint8) for it in p_items]),
+        *rows, np.ones(len(p_items), bool),
+        np.array([slot[id(it.key)] for it in p_items]), pubs,
+        lambda i: p_items[i].signature)
+    assert got == [w for i, w in enumerate(want) if i % 3 != 2]
+    assert prov.stats["ladder_launches"] == 2

@@ -35,6 +35,8 @@ names = ["fabric_tpu_torch"] + [
                                           "fabric_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("ops.verify", "ops.mont", "ops.ed25519", "bccsp.ed25519_host"):
+    assert "fabric_tpu_torch." + name in names, name
 importlib.import_module("chip_smoke")
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -57,6 +59,8 @@ def test_port_imports_without_jax_or_fabric_tpu():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[1])
-    # __init__, kernels, common.torchenv, ops.{limb,p256,comb,ptree},
-    # bccsp.{bccsp,utils,p256_host,sw,cuda,factory} and the subpackages
-    assert n >= 16, out.stdout
+    # __init__, kernels, stage_a_timing, common.torchenv,
+    # ops.{limb,p256,comb,ptree,sha256,fused_verify,verify,mont,ed25519},
+    # bccsp.{bccsp,utils,p256_host,ed25519_host,sw,cuda,factory} and the
+    # subpackages
+    assert n >= 23, out.stdout

@@ -8,7 +8,9 @@ to Python ints: mul, add, sub and the conversion from the port's 13-bit
 semi-reduced limbs on edge operands (0, 1, p - 1, p, p + 1, 2^256 - 1,
 2^256 + 2^243 - 1, every 32-bit word boundary, limbs at 2^13) and seeded
 random ones, and RCB15 Alg. 4 against p256.cadd_int on P + P, P + (-P),
-P + inf and inf + inf. Tolerance: exact words. The nvcc build of the same
+P + inf and inf + inf, and the ladder's doubling (pt_dbl, RCB15 Alg. 6)
+against p256.cdbl_int on G, -G, inf, a point with Y = 0 and seeded random
+points. Tolerance: exact words. The nvcc build of the same
 header is held to the same ints on the card (tests/test_torch_cuda.py,
 chip_smoke.py field_vs_ints).
 """
@@ -43,6 +45,11 @@ extern "C" void field_add(const int* p13, const int* q13, int n,
   for (int i = 0; i < n; ++i)
     fe_selftest_add(p13 + 60 * i, q13 + 60 * i, out + 24 * i);
 }
+
+extern "C" void field_dbl(const int* p13, const int* unused, int n,
+                          uint32_t* out) {
+  for (int i = 0; i < n; ++i) fe_selftest_dbl(p13 + 60 * i, out + 24 * i);
+}
 """
 
 
@@ -62,7 +69,7 @@ def core(tmp_path_factory):
                     "-o", str(so), str(src)], check=True,
                    capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(so))
-    for fn in (lib.field_ops, lib.field_add):
+    for fn in (lib.field_ops, lib.field_add, lib.field_dbl):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = None
@@ -165,3 +172,27 @@ def test_alg4_add_matches_group_law(core):
     # P + (-P) and inf + inf land at infinity: Z = 0, Y != 0
     for k in (1, 4, 6):
         assert _ints(out[k])[2] == 0 and _ints(out[k])[1] != 0
+
+
+def test_alg6_dbl_matches_cdbl_int(core):
+    """pt_dbl, step for step cdbl_int: canonical words equal on G, -G,
+    inf, (x, 0, 1) (2-torsion shape), another representative of a point
+    and seeded random points; the affine doubling equals cadd_int(P, P)."""
+    from fabric_tpu_torch.ops import verify
+
+    g = (p256.GX, p256.GY, 1)
+    rng = np.random.default_rng(8)
+    s = int.from_bytes(rng.bytes(32), "big") % P
+    pts = [g, (p256.GX, P - p256.GY, 1), (0, 1, 0), (p256.GX, 0, 1),
+           tuple(c * s % P for c in g)]
+    pts += [p256.scalar_mul_int(int(k), g)
+            for k in rng.integers(1, 1 << 62, size=24)]
+    p13 = _rows(pts)
+    out = _run(core.field_dbl, p13, p13, 24)
+    for pt, row in zip(pts, out):
+        got = tuple(_ints(row))
+        assert got == p256.cdbl_int(tuple(c % P for c in pt))
+        assert p256.to_affine_int(got) == p256.to_affine_int(
+            p256.cadd_int(pt, pt))
+    plain = verify.dbl_selftest_plain(torch.as_tensor(p13))
+    np.testing.assert_array_equal(plain.numpy(), out.astype(np.int64))

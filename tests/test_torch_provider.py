@@ -259,10 +259,16 @@ def test_chunks_match_one_launch(provider, block, monkeypatch):
 
 
 def test_over_max_keys_raises(block):
+    """A batch over MaxKeys distinct keys raised NotImplementedError
+    until the port had the Shamir ladder; now the whole batch takes the
+    ladder (`ladder_batches`, no comb) and nothing raises: the verdicts
+    equal the expected bitmap."""
     prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {
         "Device": "cpu", "MinBatch": 4, "MaxKeys": 2}})
-    with pytest.raises(NotImplementedError):
-        prov.verify_batch(_items(block, api, block["pubs"], _DeadKey()))
+    got = prov.verify_batch(_items(block, api, block["pubs"], _DeadKey()))
+    assert got == block["expected"].tolist()
+    assert prov.stats["ladder_batches"] == 1
+    assert prov.stats["comb_batches"] == 0
 
 
 def test_fused_knob_resolution(monkeypatch):
