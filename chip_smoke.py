@@ -146,7 +146,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from fabric_tpu_torch.stage_a_timing import device_ms  # noqa: E402
+from fabric_tpu_torch.stage_a_timing import MS_FROM, device_ms  # noqa: E402
 
 # tree kernel bound: the least int32 multiply-adds the function needs per
 # lane. A complete add for a = -3 is 14 field multiplies (RCB15 Alg. 4:
@@ -356,7 +356,10 @@ def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
 def profile_call(fn) -> dict:
     """One call under torch.profiler: its wall time, the summed time of
     the device's kernels and copies (the card's busy share of the call)
-    and the device activities that took most."""
+    and the device activities that took most. The window stays open a
+    while after the call's work has finished: the profiler has dropped
+    kernels that ended just before a window closed (see `device_ms`)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,6 +368,8 @@ def profile_call(fn) -> dict:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        time.sleep(0.05)
     by_name: dict = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -694,6 +699,7 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
     call_ms = cuda_ms(lambda: ptree.tree_verify_windows(*wargs, *targs8), 10)
     ms = device_ms(lambda: ptree.tree_verify_windows(*wargs, *targs8), 10,
                    "ptree_windows_kernel")
+    ms_from = MS_FROM["ptree_windows_kernel"]
     points_ms = cuda_ms(lambda: ptree.tree_verify_points(pts, *targs), 10)
     plain_ms = cuda_ms(lambda: ptree.tree_verify_windows_plain(
         *wargs, *targs8), 2)
@@ -706,12 +712,13 @@ def kernel_vs_plain(prov, blk, M_expect, card, pool, nproc):
                            for e in k_h},
           "int_checked_lanes": len(x_of),
           "accepts": {e: int(v.sum()) for e, v in k_h.items()},
-          "max_abs_err": max_abs_err, "windows_ms": ms,
+          "max_abs_err": max_abs_err, "windows_ms": ms, "ms_from": ms_from,
           "windows_call_ms": call_ms, "points_ms": points_ms,
           "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by,
           "share_of_bound": bound_ms / ms, "ms_by_threads_per_lane": by_t})
-    return dict(max_abs_err=max_abs_err, ms=ms, call_ms=call_ms,
+    return dict(max_abs_err=max_abs_err, ms=ms, ms_from=ms_from,
+                call_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 share_of_bound=bound_ms / ms, threads_per_lane=t_used,
                 points_entry_ms=points_ms)
@@ -850,7 +857,8 @@ def sha_vs_plain(st, card):
         # windows and the int64 words
         bound_ms, bound_by = sha_bound(live, 2 * B, live * 64 + B * (
             4 + 32 + 1 + 64) + B * (4 * 2 * 256 // wb + 64))
-        res[wb] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+        res[wb] = dict(max_abs_err=err, ms=ms,
+                       ms_from=MS_FROM["sha_windows_kernel"], call_ms=call_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, share_of_bound=bound_ms / ms)
         emit({"phase": "sha_vs_plain", "entry": "sha_windows", "wbits": wb,
@@ -883,7 +891,8 @@ def sha_vs_plain(st, card):
         bound_ms, bound_by = sha_bound(0, 2 * B, B * (32 + 64)
                                        + B * 4 * 2 * 256 // wb)
         res[f"digest_lanes_{wb}"] = dict(
-            max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, ms_from=MS_FROM["digest_windows_kernel"],
+            call_ms=call_ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by,
             share_of_bound=bound_ms / ms)
         emit({"phase": "sha_vs_plain", "entry": "digest_windows",
@@ -904,7 +913,7 @@ def sha_vs_plain(st, card):
     ms = device_ms(lambda: sha256.sha256_blocks(*dargs), 20,
                    "sha256_digest_kernel")
     res["digest"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, ms_from=MS_FROM["sha256_digest_kernel"],
         call_ms=cuda_ms(lambda: sha256.sha256_blocks(*dargs), 10),
         plain_ms=cuda_ms(lambda: sha256.sha256_plain(*dargs), 2),
         bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms)
@@ -958,6 +967,7 @@ def resident_vs_plain(st, blk, card):
     ms = device_ms(lambda: fv.fused_verify_resident(*args), 5,
                    "fused_resident_kernel")
     res = dict(max_abs_err=err, ms=ms,
+               ms_from=MS_FROM["fused_resident_kernel"],
                call_ms=cuda_ms(lambda: fv.fused_verify_resident(*args), 5),
                plain_ms=cuda_ms(lambda: fv.resident_plain(*args, g8), 2),
                bound_ms=bound_ms, bound_by=bound_by,

@@ -27,32 +27,80 @@ import sys
 import numpy as np
 
 
-def device_ms(fn, reps: int, name: str, windows: int = 3) -> float:
+# where each kernel's last `device_ms` came from: "profiler" or
+# "queued_events" (read by chip_smoke.py into its lines)
+MS_FROM: dict = {}
+
+
+def device_ms(fn, reps: int, name: str, windows: int = 5,
+              pad_s: float = 0.05) -> float:
     """Mean device time (ms) of the CUDA kernels whose name holds `name`
-    over `reps` calls of fn, warmed up first. The profiler may drop
-    events of a window (on the H100 it kept 19 of 20 once, 1 of 5 once),
-    so the mean is over the events it kept, at least half of the calls;
-    a window that kept fewer is profiled again, up to `windows` times."""
+    over `reps` calls of fn, warmed up first, read from torch.profiler.
+
+    On the H100 the profiler has dropped the later kernels of a window
+    that closed just after them (it kept 1 of 5 resident kernels in each
+    of three windows once, and no ladder kernel in three windows of one
+    call). So each window stays open `pad_s` seconds before the first
+    call and after the last kernel has finished, the mean is over the
+    events kept, and a window that kept fewer than half the calls is
+    profiled again, up to `windows` times. If none kept them, the time
+    is `queued_ms`'s: the card's time for all of fn's work, without the
+    host's."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    kept = []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
         us = [ev.time_range.elapsed_us() for ev in prof.events()
               if ev.device_type == DeviceType.CUDA and name in ev.name]
+        kept.append(len(us))
         if reps // 2 <= len(us) <= reps and us:
-            break
-    else:
-        raise RuntimeError(f"{name}: {len(us)} kernel events for {reps} "
-                           f"calls in each of {windows} windows")
-    return sum(us) / len(us) / 1e3
+            MS_FROM[name] = "profiler"
+            return sum(us) / len(us) / 1e3
+    print(f"device_ms: {name}: the profiler kept {kept} kernel events of "
+          f"{reps} calls in {windows} windows; timing with queued CUDA "
+          "events", file=sys.stderr, flush=True)
+    MS_FROM[name] = "queued_events"
+    return queued_ms(fn, reps)
+
+
+def queued_ms(fn, reps: int, hold_ms: float = 50.0) -> float:
+    """Mean time (ms) of `reps` calls of fn on the card alone: CUDA
+    events around the calls, queued behind a kernel that holds the
+    stream for at least `hold_ms` (torch.cuda._sleep, at most 2 GHz), so
+    every call is launched before the first one runs and the host's work
+    falls outside the events. Raises if the hold ended before the last
+    call was queued (fn waited for the card, or the host was slower)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.Event()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * 2e6))
+    held.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if held.query():
+        raise RuntimeError(f"queued_ms: the {hold_ms} ms hold ended before "
+                           f"{reps} calls were queued")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
