@@ -25,7 +25,13 @@ Phases, one JSON line each; any failure exits non-zero:
                    2^255 - 19 core (csrc/fe25519.cuh) on 0, 1, p - 1, p,
                    p + 1, 2^255 - 1, 2^256 - 1 and random operands, and
                    ed_add/ed_dbl on B, the identity, a small-order point
-                   and random points; words equal
+                   and random points; BN254's core (csrc/bn254_field.cuh:
+                   mul, add, sub, inverse on 0, 1, p - 1, p, p + 1 and
+                   random operands below 2p) against Python ints, and its
+                   tower (csrc/bn254_tower.cuh: Fp2 mul/sqr/inv, Fp12 mul,
+                   Frobenius and inverse, the twist doubling and addition
+                   with their lines) against the plain tower and the
+                   bn254_ref ints; words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -125,6 +131,44 @@ Phases, one JSON line each; any failure exits non-zero:
                    R off by one point), Python ints on those, the expected
                    bitmap beyond; then at the 32,768-lane bucket, its time
                    against ed25519_bound.
+  idemix_block     the idemix checks of a block from --seed (BASELINE.json
+                   config 4): 10,240 PS-shaped 2-term pairing products, one
+                   per creator, e(sigma1, q) e(-sigma2, G2) with sigma1 =
+                   k G1, q = d G2, sigma2 = kd G1 (fabric_tpu/msp/
+                   idemix_ps.py 328-338), ~1% bad of four kinds (sigma2 off
+                   by G1, q of another lane, the G2 points swapped, sigma1
+                   negated); 20,480 3-term MSM lanes, two a presentation
+                   (s_sk Y~ + s_r G~ - c T~, and [6x^2] T~ padded with
+                   (0, None)); 1,024 BLS lanes, ~1% bad of three kinds
+                   (another message's signature, sig + G1, None). Made in
+                   the process pool from bn254_ref's fast Jacobian ladders.
+  pairing_path     the block through a CUDAProvider: pairing_check_batch
+                   (one Miller and one final-exp launch a chunk),
+                   g2_msm_batch (one MSM launch a chunk), bls_verify_batch,
+                   each counted with every kernel count 0 before; bitmaps
+                   equal the expected ones and the port's sw provider on
+                   samples of >= 256 lanes holding every bad lane (the sw
+                   pairings run in the pool meanwhile), MSM points equal
+                   bn254_ref.g2_msm on a sample and every subgroup lane
+                   psi(T~); one steady call of each under torch.profiler.
+  pairing_vs_plain the Miller entry (8,192 term lanes), the final-exp
+                   entry (4,096 two-term products) and the MSM entry
+                   (4,096 lanes) against their plain torch versions on the
+                   card at full length (the 6t+2 loop, the whole final
+                   exponentiation, 254-bit scalars), edge lanes first:
+                   G1 with G2, the identity products e(P, Q) e(P, -Q) and
+                   e(2P, Q) e(P, -2Q), an off-by-one product; MSM lanes
+                   with k = 0, 1, r - 1, Q + Q, T + (-T), the subgroup lane
+                   of G2, all terms zero. Canonical values equal, verdicts
+                   equal and the expected bitmap; the edges also held to
+                   Python ints (Miller values through the final
+                   exponentiation, GT values, MSM points). Then each entry
+                   at the block's bucket: CUDA events against a bound from
+                   the least Fp products of each function (live lanes,
+                   cheapest published formulas: miller_products_min,
+                   final_exp_products_min, msm_products) and, beside it,
+                   one from the products the kernels execute
+                   (executed_bound_ms).
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1572,6 +1616,594 @@ def ed25519_vs_plain(eblk, prov, card, pool, nproc):
     return res
 
 
+# -- BN254 pairings: the idemix credential checks --
+
+MILLER, FINAL_EXP, MSM = ("miller_launches", "final_exp_launches",
+                          "g2_msm_launches")
+PS_LANES = 10240                # one presentation per creator of the block
+BLS_LANES = 1024
+PAIRING_BAD_KINDS = ("sigma2_off", "q_other", "g2_swapped", "neg_sigma1")
+BLS_BAD_KINDS = ("wrong_msg", "sig_off", "none")
+PAIRING_LANES = 4096            # lanes held to the plain versions
+PAIRING_SAMPLE = 256            # lanes held to the sw provider, at least
+# Fp products of the pairing kernels as executed, counted from
+# csrc/bn254_tower.cuh and bn254_pairing.cuh: an Fp2 product is 3, an Fp12
+# product 3 Fp6 products of 9 Fp2 products (f^2 and f * line too); the
+# tangent step 16 Fp2 products and 2 Fp2-by-Fp scalings, the chord step 18
+# and 2, the doubling 9, the mixed addition 14, the Frobenius 5 Fp2
+# products; 1/f is four Fp6 products, the Fp6 inverse's 12 Fp2 products,
+# the Fp2 inverse's 4 products and Fermat's 253 squarings and 109
+# products. The MSM runs 254 doublings on every lane, pad lanes included.
+# These give `executed_bound_ms`, the reading "products executed".
+F12_MUL_FP = 81
+DBL_LINE_FP = 16 * 3 + 4
+ADD_LINE_FP = 18 * 3 + 4
+G2_DBL_FP = 9 * 3
+G2_ADD_FP = 14 * 3
+FROB_FP = 5 * 3
+F12_INV_FP = 4 * 27 + 12 * 3 + 4 + 253 + 109
+# The functions' minimum, which `bound_ms` counts: the reference's
+# algorithms (the 6t+2 loop, its final-exponentiation chain, double-and-add
+# over the scalars' bits) at the cheapest published formulas, an Fp2
+# product 3 Fp products (Karatsuba) and an Fp2 squaring 2. An Fp12 product
+# 54 (Karatsuba Fp6, 6 Fp2 products); f^2 in the loop 36 (complex
+# squaring, 2 Fp6 products); f * line 39 (the line's 3 nonzero Fp2
+# coefficients, 13 Fp2 products); the tangent step 27 (2 products, 7
+# squarings, b3' times Z^2 and the line scaled by xP, yP: Aranha et al.,
+# Eurocrypt 2011), the chord step 41 (11 products, 2 squarings and the
+# scaling); the first step's f^2 and f * line are free (f = 1). In the
+# final exponentiation every squaring follows the easy part and squares in
+# the cyclotomic subgroup: 18 (Granger-Scott, 9 Fp2 squarings); a Frobenius
+# 10 (5 Fp2-by-Fp products, the p^2 map's cost); 1/f 341 (two Fp6
+# squarings, an Fp6 inverse of 6 products and 3 squarings, the Fp2
+# inverse's 4 products, an Fp inverse at its 253 squarings, two Fp6
+# products). The MSM over live lanes only: a lane with a nonzero scalar
+# doubles (its longest scalar's bits - 1) times and adds (its scalars' set
+# bits - 1) times, at RCB15's complete a = 0 formulas (doubling 6
+# products, 2 squarings and b3': 25; mixed addition 11 products and 2 b3':
+# 39), complete because the lanes hold Q + Q and T + (-T).
+F12_MUL_MIN = 6 * 3 * 3
+F12_SQR_MIN = 2 * 6 * 3
+SPARSE_MIN = 13 * 3
+DBL_LINE_MIN = 2 * 3 + 7 * 2 + 3 + 4
+ADD_LINE_MIN = 11 * 3 + 2 * 2 + 4
+CYC_SQR_MIN = 9 * 2
+FROB_MIN = 5 * 2
+F12_INV_MIN = 2 * 12 + (6 * 3 + 3 * 2) + 4 + 253 + 2 * 18
+G2_DBL_MIN = 6 * 3 + 2 * 2 + 3
+G2_ADD_MIN = 11 * 3 + 2 * 3
+EASY_ROWS = 5                   # the program's easy part: no squaring
+BN_MUL_IMAD = 2 * 2 * 8 * 8
+
+
+def miller_products(loop: int) -> int:
+    """Fp products one Miller lane executes (csrc/bn254_pairing.cuh): per
+    step f^2, the tangent step and f * line; per set bit, and twice after
+    the loop, the chord step and f * line."""
+    bits = bin(loop)[3:]
+    return (len(bits) * (2 * F12_MUL_FP + DBL_LINE_FP)
+            + (bits.count("1") + 2) * (ADD_LINE_FP + F12_MUL_FP))
+
+
+def miller_products_min(loop: int) -> int:
+    """The least Fp products of one Miller value (see F12_MUL_MIN)."""
+    bits = bin(loop)[3:]
+    return (DBL_LINE_MIN + (len(bits) - 1) * (F12_SQR_MIN + DBL_LINE_MIN
+                                              + SPARSE_MIN)
+            + (bits.count("1") + 2) * (ADD_LINE_MIN + SPARSE_MIN))
+
+
+def final_exp_products(program, nterms: int) -> int:
+    """Fp products one final-exp lane executes: the terms' product, 1/f,
+    the program's Fp12 products and Frobenius maps."""
+    ops = np.asarray(program)[:, 0]
+    return ((nterms - 1) * F12_MUL_FP + F12_INV_FP
+            + int((ops == 0).sum()) * F12_MUL_FP
+            + int((ops == 2).sum()) * FROB_FP)
+
+
+def final_exp_products_min(program, nterms: int) -> int:
+    """The least Fp products of one final-exp lane: the program's rows at
+    their cheapest (cyclotomic squarings, Karatsuba products)."""
+    prog = np.asarray(program)
+    mul = prog[:, 0] == 0
+    sqr = mul & (prog[:, 2] == prog[:, 3])
+    check(not sqr[:EASY_ROWS].any(), "final-exp program: a squaring in "
+          "the easy part")
+    return ((nterms - 1) * F12_MUL_MIN + F12_INV_MIN
+            + int((mul & ~sqr).sum()) * F12_MUL_MIN
+            + int(sqr.sum()) * CYC_SQR_MIN
+            + int((prog[:, 0] == 2).sum()) * FROB_MIN)
+
+
+def msm_products(k_words, nbits: int) -> tuple[int, int, int]:
+    """(executed, least, live lanes) Fp products of the MSM over k_words
+    (B, T, 8) little-endian uint32 scalar words: executed, `nbits`
+    doublings a lane and an addition a set bit; least, see G2_DBL_MIN."""
+    w = np.asarray(k_words, np.uint32)
+    ints = [[sum(int(v) << (32 * i) for i, v in enumerate(t)) for t in lane]
+            for lane in w.tolist()]
+    ones = int(np.unpackbits(w.view(np.uint8)).sum())
+    executed = len(ints) * nbits * G2_DBL_FP + ones * G2_ADD_FP
+    least, live = 0, 0
+    for lane in ints:
+        if any(lane):
+            live += 1
+            least += ((max(k.bit_length() for k in lane) - 1) * G2_DBL_MIN
+                      + (sum(bin(k).count("1") for k in lane) - 1)
+                      * G2_ADD_MIN)
+    return executed, least, live
+
+
+def bn_bound(products: int, nbytes: int) -> tuple[float, str]:
+    """Least time (ms) for `products` Fp products, or for `nbytes` of
+    operands and results, whichever is larger."""
+    t_ops = products * BN_MUL_IMAD / INT32_IMAD_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bn_reading(ms: float, products: int, executed: int,
+               nbytes: int) -> dict:
+    """A BN254 entry's bound at the function's least products and, beside
+    it, at the products the kernel executes."""
+    bound, by = bn_bound(products, nbytes)
+    ex, ex_by = bn_bound(executed, nbytes)
+    return dict(ms=ms, bound_ms=bound, bound_by=by,
+                share_of_bound=bound / ms, products=products,
+                executed_bound_ms=ex, executed_bound_by=ex_by,
+                executed_share=ex / ms, products_executed=executed)
+
+
+def _ps_chunk(jobs):
+    """(k, d) -> the PS product's points: sigma1 = k G1, q = d G2,
+    sigma2 = k d G1, so e(sigma1, q) e(-sigma2, G2) = 1."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    g2 = (b.G2_X, b.G2_Y)
+    return [(b.g1_mul_fast(k, b.G1), b.g2_mul_fast(d, g2),
+             b.g1_mul_fast(k * d % b.R, b.G1)) for k, d in jobs]
+
+
+def _bls_sign_chunk(jobs):
+    from fabric_tpu_torch.ops import bn254_ref as b
+    return [b.g1_mul_fast(sk, b.hash_to_g1(m)) for sk, m in jobs]
+
+
+def _sw_pairing_chunk(prods):
+    """The sw provider's verdicts on `prods` and its seconds for them
+    (one pool process, one core)."""
+    from fabric_tpu_torch.bccsp import sw
+    t0 = time.perf_counter()
+    out = sw.SWProvider().pairing_check_batch(prods)
+    return out, time.perf_counter() - t0
+
+
+def _sw_bls_chunk(jobs):
+    from fabric_tpu_torch.bccsp import sw
+    prov = sw.SWProvider()
+    return [prov.bls_verify_batch(pk, [m], [s])[0] for pk, m, s in jobs]
+
+
+def _msm_ref_chunk(lanes):
+    from fabric_tpu_torch.ops import bn254_ref as b
+    return [b.g2_msm(lane) for lane in lanes]
+
+
+def _gt_int_chunk(jobs):
+    """(kernel value, [(P, Q), ...], miller?) -> does the kernel's value
+    (a Miller value, taken through the final exponentiation, or a GT
+    value) equal the int pairing product's?"""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    out = []
+    for val, terms, miller in jobs:
+        acc = b.F12_ONE
+        for p, q in terms:
+            acc = b.f12_mul(acc, b.miller_loop(q, p))
+        got = b.final_exponentiation_chain(val) if miller else val
+        out.append(got == b.final_exponentiation_chain(acc))
+    return out
+
+
+def make_idemix_block(seed: int, pool, nproc):
+    """The idemix checks of a block from `seed`: PS_LANES 2-term PS
+    products e(sigma1, q) e(-sigma2, G2) (fabric_tpu/msp/idemix_ps.py
+    328-338), ~1% bad of four kinds (sigma2 off by G1, q of another lane,
+    the terms' G2 points swapped, sigma1 negated); two 3-term MSM lanes a
+    presentation (idemix_ps.py 288-301: s_sk Y~ + s_r G~ - c T~, and
+    [6x^2] T~ padded with (0, None)); BLS_LANES BLS lanes, ~1% bad of
+    three kinds (another message's signature, sig + G1, None). Expected
+    bitmaps by construction."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    rng = np.random.default_rng(seed + 3)
+
+    def scalar():
+        return int.from_bytes(rng.bytes(32), "big") % (b.R - 1) + 1
+    g2 = (b.G2_X, b.G2_Y)
+    t0 = time.perf_counter()
+    pts = pool_map(pool, _ps_chunk, [(scalar(), scalar())
+                                     for _ in range(PS_LANES)], nproc)
+    prods = [[(s1, q), (b.g1_neg(s2), g2)] for s1, q, s2 in pts]
+    bad = rng.choice(PS_LANES, size=max(len(PAIRING_BAD_KINDS),
+                                        PS_LANES // 100), replace=False)
+    kind_of = {}
+    for j, i in enumerate(bad.tolist()):
+        kind = PAIRING_BAD_KINDS[j % len(PAIRING_BAD_KINDS)]
+        kind_of[i] = kind
+        s1, q, s2 = pts[i]
+        if kind == "sigma2_off":
+            prods[i][1] = (b.g1_neg(b.g1_add_fast(s2, b.G1)), g2)
+        elif kind == "q_other":
+            prods[i][0] = (s1, pts[(i + 1) % PS_LANES][1])
+        elif kind == "g2_swapped":
+            prods[i] = [(s1, g2), (b.g1_neg(s2), q)]
+        else:
+            prods[i][0] = (b.g1_neg(s1), q)
+    expected = np.ones(PS_LANES, bool)
+    expected[bad] = False
+    # the MSM lanes: T~ = each presentation's q, an issuer key Y~
+    y_t = b.g2_mul_fast(scalar(), g2)
+    msm = []
+    for _, q, _ in pts:
+        msm.append([(scalar(), y_t), (scalar(), g2), (b.R - scalar(), q)])
+        msm.append([(6 * b.T_BN * b.T_BN, q), (0, None), (0, None)])
+    # BLS
+    sk = scalar()
+    pk = b.g2_mul_fast(sk, g2)
+    msgs = [rng.bytes(64) for _ in range(BLS_LANES)]
+    sigs = pool_map(pool, _bls_sign_chunk, [(sk, m) for m in msgs], nproc)
+    bls_bad = rng.choice(BLS_LANES, size=max(len(BLS_BAD_KINDS),
+                                             BLS_LANES // 100),
+                         replace=False)
+    bls_kind = {}
+    for j, i in enumerate(bls_bad.tolist()):
+        kind = BLS_BAD_KINDS[j % len(BLS_BAD_KINDS)]
+        bls_kind[i] = kind
+        if kind == "wrong_msg":
+            sigs[i] = sigs[(i + 1) % BLS_LANES]
+        elif kind == "sig_off":
+            sigs[i] = b.g1_add_fast(sigs[i], b.G1)
+        else:
+            sigs[i] = None
+    bls_expected = np.ones(BLS_LANES, bool)
+    bls_expected[bls_bad] = False
+    return dict(pts=pts, prods=prods, expected=expected, kind_of=kind_of,
+                msm=msm, pk=pk, msgs=msgs, sigs=sigs,
+                bls_expected=bls_expected, bls_kind=bls_kind,
+                make_s=time.perf_counter() - t0, rng=rng)
+
+
+def _sample(rng, n, must) -> list[int]:
+    """Lanes for a host-oracle sample: every lane of `must` and random
+    ones, PAIRING_SAMPLE at least (or all n)."""
+    extra = min(n, max(0, PAIRING_SAMPLE - len(set(must))) + 16)
+    return sorted(set(must) | set(rng.choice(n, extra,
+                                             replace=False).tolist()))
+
+
+def pairing_path(iblk, prov, card, pool, nproc):
+    """The idemix block through CUDAProvider: pairing_check_batch,
+    g2_msm_batch and bls_verify_batch, each counted (every kernel count 0
+    before, the path's kernels one launch a chunk after); bitmaps against
+    the expected ones and the sw provider on samples holding every bad
+    lane (the sw jobs run in the pool meanwhile), the MSM's points
+    against bn254_ref.g2_msm on a sample and every subgroup lane against
+    psi(T~); one steady call of each under the profiler."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+
+    rng = iblk["rng"]
+    n, nb = PS_LANES, BLS_LANES
+    ps_sample = _sample(rng, n, iblk["kind_of"])
+    bls_sample = _sample(rng, nb, iblk["bls_kind"])
+    msm_sample = _sample(rng, 2 * n, [])
+    sw_ps = pool.map_async(_sw_pairing_chunk, _chunks(
+        [iblk["prods"][i] for i in ps_sample], nproc * 4))
+    sw_bls = pool.map_async(_sw_bls_chunk, _chunks(
+        [(iblk["pk"], iblk["msgs"][i], iblk["sigs"][i])
+         for i in bls_sample], nproc * 4))
+    ref_msm = pool.map_async(_msm_ref_chunk, _chunks(
+        [iblk["msm"][i] for i in msm_sample], nproc * 4))
+    others = [k for k in prov.stats if k.endswith("_launches")
+              and k not in (MILLER, FINAL_EXP, MSM)]
+    rec = {"phase": "pairing_path", "ok": True, "card": card,
+           "products": n, "msm_lanes": 2 * n, "bls_lanes": nb,
+           "bad_products": {k: sum(1 for v in iblk["kind_of"].values()
+                                   if v == k) for k in PAIRING_BAD_KINDS},
+           "bad_bls": {k: sum(1 for v in iblk["bls_kind"].values()
+                              if v == k) for k in BLS_BAD_KINDS},
+           "make_s": iblk["make_s"]}
+    counts = {}
+    calls = {
+        "pairing_check_batch": ((MILLER, FINAL_EXP), lambda:
+                                prov.pairing_check_batch(iblk["prods"])),
+        "g2_msm_batch": ((MSM,), lambda: prov.g2_msm_batch(iblk["msm"])),
+        "bls_verify_batch": ((MILLER, FINAL_EXP), lambda:
+                             prov.bls_verify_batch(iblk["pk"],
+                                                   iblk["msgs"],
+                                                   iblk["sigs"]))}
+    out = {}
+    for name, (need, fn) in calls.items():
+        out[name], counts[name], delta, secs = counted(prov, name, need, fn)
+        rec[f"{name}_s"] = secs
+        lanes = nb if name == "bls_verify_batch" else (
+            2 * n if name == "g2_msm_batch" else n)
+        chunks = -(-lanes // prov._chunk)
+        for k in need:
+            check(counts[name][k] == chunks, f"{name}: {k} "
+                  f"{counts[name][k]}, not one per chunk ({chunks})")
+        check(all(counts[name][k] == 0 for k in others),
+              f"{name}: other kernels ran: {counts[name]}")
+        rec[f"{name}_launches"] = {k: counts[name][k] for k in need}
+    got = np.array(out["pairing_check_batch"], bool)
+    check(bool((got == iblk["expected"]).all()),
+          f"pairing_check_batch != expected at "
+          f"{np.nonzero(got != iblk['expected'])[0][:10].tolist()}")
+    got_b = np.array(out["bls_verify_batch"], bool)
+    check(bool((got_b == iblk["bls_expected"]).all()),
+          f"bls_verify_batch != expected at "
+          f"{np.nonzero(got_b != iblk['bls_expected'])[0][:10].tolist()}")
+    msm = out["g2_msm_batch"]
+    sub_bad = [j for j in range(n) if msm[2 * j + 1]
+               != b.g2_frobenius_fast(iblk["pts"][j][1])]
+    check(not sub_bad, f"g2_msm_batch: subgroup lanes != psi(T~) at "
+          f"{sub_bad[:10]}")
+    # the steady call of each method, under the profiler (its wall time
+    # includes the profiler's overhead)
+    rec["profiled"] = {name: profile_call(fn)
+                       for name, (_, fn) in calls.items()}
+    # the host oracles, run in the pool meanwhile
+    t0 = time.perf_counter()
+    sw_parts = sw_ps.get()
+    sw_ps = [v for part, _ in sw_parts for v in part]
+    # the sw provider's seconds a product on one core, over the sample
+    rec["sw_s_per_product_one_core"] = (sum(s for _, s in sw_parts)
+                                        / len(sw_ps))
+    sw_bls = [v for part in sw_bls.get() for v in part]
+    ref_msm = [v for part in ref_msm.get() for v in part]
+    rec["host_oracle_wait_s"] = time.perf_counter() - t0
+    check(bool((np.array(sw_ps) == got[ps_sample]).all()),
+          "pairing_check_batch != sw on the sample")
+    check(bool((np.array(sw_bls) == got_b[bls_sample]).all()),
+          "bls_verify_batch != sw on the sample")
+    check([msm[i] for i in msm_sample] == ref_msm,
+          "g2_msm_batch != bn254_ref.g2_msm on the sample")
+    rec.update(sample_vs_sw=len(ps_sample), bls_sample_vs_sw=len(bls_sample),
+               msm_sample_vs_ref=len(msm_sample),
+               pairings_per_s=n / rec["pairing_check_batch_s"])
+    emit(rec)
+    return counts
+
+
+def pairing_edges():
+    """Edge products (kind, [(P, Q), (P', Q')]): G1 with G2 twice (Q1 and
+    nQ2 of G2), the identity product e(P, Q) e(P, -Q), e(2P, Q) e(P, -2Q),
+    and an off-by-one product."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    g2 = (b.G2_X, b.G2_Y)
+    P = b.g1_mul_fast(5, b.G1)
+    Q = b.g2_mul_fast(7, g2)
+    return [("g1_g2", [(b.G1, g2), (b.G1, g2)]),
+            ("identity", [(P, Q), (P, b.g2_neg_tw(Q))]),
+            ("identity_g", [(b.G1, g2), (b.G1, b.g2_neg_tw(g2))]),
+            ("bilinear", [(b.g1_mul_fast(2, P), Q),
+                          (P, b.g2_neg_tw(b.g2_add_fast(Q, Q)))]),
+            ("off", [(b.g1_add_fast(P, b.G1), Q), (P, b.g2_neg_tw(Q))])]
+
+
+def msm_edges():
+    """Edge MSM lanes: k = 0, 1, r - 1; Q + Q; T + (-T) (infinity); the
+    subgroup lane of G2; all terms zero."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    g2 = (b.G2_X, b.G2_Y)
+    T = b.g2_mul_fast(99991, g2)
+    return [("k0", [(0, T), (1, g2), (0, None)]),
+            ("k1", [(1, T), (0, None), (0, None)]),
+            ("k_r_minus_1", [(b.R - 1, T), (b.R - 1, g2), (1, g2)]),
+            ("q_plus_q", [(1, T), (1, T), (0, None)]),
+            ("t_minus_t", [(12345, T), (0, None), (12345, b.g2_neg_tw(T))]),
+            ("subgroup_g2", [(6 * b.T_BN * b.T_BN, g2), (0, None),
+                             (0, None)]),
+            ("all_zero", [(0, None), (0, None), (0, None)])]
+
+
+def pairing_vs_plain(iblk, prov, card, pool, nproc):
+    """The Miller, final-exp and MSM entries against their plain versions
+    on the card at full length: PAIRING_LANES product lanes (edge
+    products first; the Miller entry over their 2 x PAIRING_LANES terms,
+    the final-exp entry with T = 2), PAIRING_LANES MSM lanes (edges
+    first); Miller values and GT values equal canonically, verdicts equal
+    and the expected bitmap; edge lanes also held to Python ints (the
+    Miller values through the final exponentiation, GT, the MSM points).
+    Then each entry's time at the block's bucket against its bound."""
+    import torch
+
+    from fabric_tpu_torch.ops import bn254, tower
+    from fabric_tpu_torch.ops import bn254_ref as b
+
+    dev = prov.device
+    F = bn254.F
+    edges = pairing_edges()
+    E = len(edges)
+    prods = [t for _, t in edges] + iblk["prods"][:PAIRING_LANES - E]
+    want_ok = np.concatenate([[k != "off" and k != "g1_g2"
+                               for k, _ in edges],
+                              iblk["expected"][:PAIRING_LANES - E]])
+    st = bn254.to_device(bn254.stage_pairing_products(prods), dev)
+    xPs, yPs, Qs, Q1s, nQ2s = st
+
+    def cat_pt(qs):
+        return tuple(tuple(torch.cat([q[i][j] for q in qs])
+                           for j in range(2)) for i in range(2))
+    mst = (torch.cat(xPs), torch.cat(yPs), cat_pt(Qs), cat_pt(Q1s),
+           cat_pt(nQ2s))
+    res = {}
+    f_k = tower.flat_from_f12(bn254.miller_loop_batch(*mst))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    f_p = F.canonical(tower.flat_from_f12(bn254.miller_loop_plain(*mst)))
+    e1.record()
+    torch.cuda.synchronize()
+    err = int((f_k - f_p).abs().max())
+    check(err == 0, "Miller entry != plain at lanes "
+          f"{torch.nonzero((f_k != f_p).any(0).any(-1))[:10].tolist()}")
+    res["miller"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                         lanes_vs_plain=2 * PAIRING_LANES)
+    prog = bn254._FINAL_EXP_PROGRAM
+    gt_k, ok_k = bn254._final_exp_kernel(f_k, 2, PAIRING_LANES, prog)
+    e0.record()
+    prod = bn254.f12_mul(tower.f12_from_flat(f_p[:, :PAIRING_LANES]),
+                         tower.f12_from_flat(f_p[:, PAIRING_LANES:]))
+    gt_p = bn254.final_exp_plain(prod)
+    ok_p = bn254.gt_is_one(gt_p)
+    e1.record()
+    gt_p = F.canonical(tower.flat_from_f12(gt_p))
+    torch.cuda.synchronize()
+    err = int((gt_k - gt_p).abs().max())
+    check(err == 0, "final-exp entry != plain")
+    check(torch.equal(ok_k, ok_p), "final-exp verdicts != plain")
+    check(bool((ok_k.cpu().numpy() == want_ok).all()),
+          "final-exp verdicts != expected at "
+          f"{np.nonzero(ok_k.cpu().numpy() != want_ok)[0][:10].tolist()}")
+    res["final_exp"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                            lanes_vs_plain=PAIRING_LANES)
+    # the edge lanes against Python ints: each term's Miller value through
+    # the final exponentiation, and each product's GT
+    f_e = bn254.f12_from_device(tower.f12_from_flat(
+        torch.cat([f_k[:, :E], f_k[:, PAIRING_LANES:PAIRING_LANES + E]],
+                  dim=1)))
+    g_e = bn254.f12_from_device(tower.f12_from_flat(gt_k[:, :E]))
+    jobs = [(f_e[t * E + i], [terms[t]], True) for t in range(2)
+            for i, (_, terms) in enumerate(edges)]
+    jobs += [(g_e[i], terms, False) for i, (_, terms) in enumerate(edges)]
+    gt_ints = pool.map_async(_gt_int_chunk, [[j] for j in jobs])
+
+    # the MSM entry
+    medges = msm_edges()
+    ME = len(medges)
+    lanes = [ln for _, ln in medges] + iblk["msm"][:PAIRING_LANES - ME]
+    kw, qf = bn254.stage_g2_msm_words(lanes)
+    kt = torch.as_tensor(kw.view(np.int32)).to(dev)
+    qt = [torch.as_tensor(a).to(dev) for a in qf]
+    m_k = bn254.g2_msm(kt, *qt)
+    e0.record()
+    m_p = bn254.g2_msm_plain(bn254.words_to_bits(kt), *qt)
+    e1.record()
+    torch.cuda.synchronize()
+    mk = torch.stack([c for p in m_k for c in p])
+    mp = F.canonical(torch.stack([c for p in m_p for c in p]))
+    err = int((mk - mp).abs().max())
+    check(err == 0, "MSM entry != plain")
+    got_edges = bn254.read_g2_msm(tuple(tuple(c[:ME] for c in p)
+                                        for p in m_k))
+    want_edges = [b.g2_msm(ln) for _, ln in medges]
+    check(got_edges == want_edges, "MSM edge lanes != bn254_ref.g2_msm at "
+          f"{[k for (k, _), g, w in zip(medges, got_edges, want_edges) if g != w]}")
+    check(got_edges[4] is None and got_edges[6] is None
+          and got_edges[5] == b.g2_frobenius_fast((b.G2_X, b.G2_Y)),
+          "MSM edges: T + (-T) or the zero lane not at infinity, or G2 "
+          "outside the subgroup")
+    res["msm"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                      lanes_vs_plain=PAIRING_LANES)
+    gt_ints = [v for part in gt_ints.get() for v in part]
+    check(all(gt_ints), f"pairing edges != Python ints: "
+          f"{[j for j, v in enumerate(gt_ints) if not v]}")
+
+    # times at the block's bucket
+    bucket = 1
+    while bucket < PS_LANES:
+        bucket *= 2
+    reps = max(1, bucket // PAIRING_LANES)     # 2 x bucket Miller lanes
+    big = tuple(torch.cat([x] * reps) if isinstance(x, torch.Tensor)
+                else tuple(tuple(torch.cat([c] * reps) for c in xy)
+                           for xy in x) for x in mst)
+    B2 = big[0].shape[0]
+    ms = cuda_ms(lambda: bn254.miller_loop_batch(*big), 3)
+    f_big = tower.flat_from_f12(bn254.miller_loop_batch(*big))
+    res["miller"].update(lanes_timed=B2, **bn_reading(
+        ms, B2 * miller_products_min(b.ATE_LOOP),
+        B2 * miller_products(b.ATE_LOOP), B2 * (14 + 12) * L * 4))
+    Bf = B2 // 2
+    ms = cuda_ms(lambda: bn254._final_exp_kernel(f_big, 2, Bf, prog), 3)
+    res["final_exp"].update(lanes_timed=Bf, **bn_reading(
+        ms, Bf * final_exp_products_min(prog, 2),
+        Bf * final_exp_products(prog, 2), Bf * (24 + 12) * L * 4 + Bf))
+    kw_b, qf_b = bn254.stage_g2_msm_words(iblk["msm"] + [[(0, None)] * 3] * (
+        2 * bucket - len(iblk["msm"])))
+    kt_b = torch.as_tensor(kw_b.view(np.int32)).to(dev)
+    qt_b = [torch.as_tensor(a).to(dev) for a in qf_b]
+    ms = cuda_ms(lambda: bn254.g2_msm(kt_b, *qt_b), 3)
+    Bm = kt_b.shape[0]
+    executed, least, live = msm_products(kw_b, bn254.NBITS_R)
+    res["msm"].update(lanes_timed=Bm, live_lanes=live, **bn_reading(
+        ms, least, executed, Bm * (3 * 32 + 12 * L * 4 + 6 * L * 4)))
+    for entry, r in res.items():
+        # milliseconds a call: events time the card (see ladder_vs_plain)
+        r["ms_from"] = "cuda_events"
+        emit({"phase": "pairing_vs_plain", "entry": entry, "ok": True,
+              "card": card, **({"edge_products": [k for k, _ in edges]}
+                               if entry != "msm" else
+                               {"edge_lanes": [k for k, _ in medges]}),
+              **r})
+    return res
+
+
+def bn_tower_cases(rng, n: int):
+    """Tower self-test cases (36 plain values: x, y in Fp12, P in G1, T
+    projective and Q affine on the twist), with T's point q and Q: case 0
+    has x in Fp2 alone, case 1 adds T's own point (a doubling inside the
+    complete addition)."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    g2 = (b.G2_X, b.G2_Y)
+
+    def fp():
+        return int.from_bytes(rng.bytes(32), "big") % b.P
+
+    def sc():
+        return int.from_bytes(rng.bytes(32), "big") % (b.R - 1) + 1
+    cases = []
+    for i in range(n):
+        x, y = [fp() for _ in range(12)], [fp() for _ in range(12)]
+        if i == 0:
+            x[2:] = [0] * 10
+        p = b.g1_mul_fast(sc(), b.G1)
+        q = b.g2_mul_fast(sc(), g2)
+        z = (fp() or 1, fp())
+        t = [b.f2_mul(q[0], z), b.f2_mul(q[1], z), z]
+        qa = q if i == 1 else b.g2_mul_fast(sc(), g2)
+        cases.append((x + y + list(p) + [c for f2 in t for c in f2]
+                      + [c for f2 in qa for c in f2], q, qa))
+    return cases
+
+
+def bn_tower_int_misses(case, row) -> list[str]:
+    """The tower self-test's outputs (90 ints) against the int tower and
+    group law: the names of the outputs that differ."""
+    from fabric_tpu_torch.ops import bn254_ref as b
+    vals, q, qa = case
+
+    def f12(v, o):
+        return (tuple(tuple(v[o + 2 * j:o + 2 * j + 2]) for j in range(3)),
+                tuple(tuple(v[o + 6 + 2 * j:o + 8 + 2 * j])
+                      for j in range(3)))
+
+    def affine(o):
+        X, Y, Z = (tuple(row[o + 2 * j:o + 2 * j + 2]) for j in range(3))
+        zi = b.f2_inv(Z)
+        return (b.f2_mul(X, zi), b.f2_mul(Y, zi))
+    x, y = f12(vals, 0), f12(vals, 12)
+    dbl, add = b.g2_add_fast(q, q), b.g2_add_fast(q, qa)
+    want = {"f2_mul": (tuple(row[0:2]), b.f2_mul(x[0][0], y[0][0])),
+            "f2_sqr": (tuple(row[2:4]), b.f2_mul(x[0][0], x[0][0])),
+            "f2_inv": (tuple(row[4:6]), b.f2_inv(x[0][0])),
+            "f12_mul": (f12(row, 6), b.f12_mul(x, y)),
+            "f12_frob": (f12(row, 18), b.f12_frob(x)),
+            "f12_inv": (f12(row, 30), b.f12_inv(x)),
+            "dbl_line_point": (affine(42), dbl),
+            "add_line_point": (affine(60), add),
+            "dbl_point": (affine(78), dbl), "add_point": (affine(84), add)}
+    return [k for k, (g, w) in want.items() if g != w]
+
+
 def field_vs_ints(card, seed: int) -> None:
     """The nvcc-built field core against Python ints (ptree.field_selftest
     and its plain version): edge operands in 13-bit form, every pair, and
@@ -1675,10 +2307,37 @@ def field_vs_ints(card, seed: int) -> None:
     torch.cuda.synchronize()
     bad_e = int((got_e.cpu() != want_e).any(dim=1).sum())
     check(bad_e == 0, f"ed_add/ed_dbl != ed25519_host on {bad_e} cases")
+
+    # BN254's core and tower (csrc/bn254_field.cuh, bn254_tower.cuh)
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    BP = bref.P
+    b_edges = [0, 1, BP - 1, BP, BP + 1]
+    b_rand = [int.from_bytes(rng.bytes(32), "big") % (2 * BP)
+              for _ in range(512)]
+    b_pairs = [(a, b) for a in b_edges for b in b_edges] + list(
+        zip(b_rand[::2], b_rand[1::2]))
+    ba, bb = words(a for a, _ in b_pairs), words(b for _, b in b_pairs)
+    got_b = bn254.fp_selftest(ba.cuda(), bb.cuda())
+    want_b = bn254.fp_selftest_plain(ba, bb)
+    torch.cuda.synchronize()
+    bad_b = int((got_b.cpu() != want_b).any(dim=1).sum())
+    check(bad_b == 0, f"BN254 core != Python ints on {bad_b} cases")
+    t_cases = bn_tower_cases(rng, 16)
+    cw = words(v for vals, _, _ in t_cases for v in vals).reshape(
+        len(t_cases), -1)
+    got_t = bn254.tower_selftest(cw.cuda()).cpu()
+    want_t = bn254.tower_selftest_plain(cw)
+    bad_t = int((got_t != want_t).any(dim=1).sum())
+    check(bad_t == 0, f"BN254 tower != the plain tower on {bad_t} cases")
+    misses = [bn_tower_int_misses(case, limb.words_to_ints(row))
+              for case, row in zip(t_cases, got_t.numpy())]
+    check(not any(misses), f"BN254 tower != Python ints: {misses}")
     emit({"phase": "field_vs_ints", "ok": True, "card": card,
           "op_cases": len(pairs), "add_cases": len(adds),
           "modn_cases": len(cases), "dbl_cases": len(dbl),
           "f25_cases": len(f_pairs), "ed_cases": len(e_cases),
+          "bn254_fp_cases": len(b_pairs), "bn254_tower_cases": len(t_cases),
           "mismatches": 0})
 
 
@@ -1766,6 +2425,14 @@ def drive(args, pool, nproc, card):
     eblk = make_ed_block(args.seed, pool, nproc)
     ced = ed25519_path(eblk, blk, prov16, card, pool, nproc)
     edr = ed25519_vs_plain(eblk, prov16, card, pool, nproc)
+    # BN254: the idemix checks of a block (pairings, MSMs, BLS)
+    iblk = make_idemix_block(args.seed, pool, nproc)
+    emit({"phase": "idemix_block", "ok": True, "products": PS_LANES,
+          "msm_lanes": len(iblk["msm"]), "bls_lanes": BLS_LANES,
+          "make_s": iblk["make_s"]})
+    provp = factory.new_bccsp({"Default": "CUDA"})
+    cp = pairing_path(iblk, provp, card, pool, nproc)
+    pvp = pairing_vs_plain(iblk, provp, card, pool, nproc)
 
     def n(counts, k):
         return sum(c[k] for c in counts.values())
@@ -1815,7 +2482,28 @@ def drive(args, pool, nproc, card):
              source=src + "ed25519_verify.cu",
              replaces="fabric_tpu/ops/ed25519.py:264",
              launches=ced[ED], **edr),
+        dict(name="bn254.miller_loop_batch", source=src + "bn254_pairing.cu",
+             replaces="fabric_tpu/ops/bn254.py:137",
+             launches=n(cp, MILLER),
+             ptxas=ptxas_of("bn254_pairing", "bn254_miller_kernel"),
+             **pvp["miller"]),
+        dict(name="bn254.final_exp_batch (product of the terms)",
+             source=src + "bn254_pairing.cu",
+             replaces="fabric_tpu/ops/bn254.py:251",
+             launches=n(cp, FINAL_EXP),
+             ptxas=ptxas_of("bn254_pairing", "bn254_final_exp_kernel"),
+             **pvp["final_exp"]),
+        dict(name="bn254.g2_msm", source=src + "g2_msm.cu",
+             replaces="fabric_tpu/ops/bn254.py:332", launches=n(cp, MSM),
+             ptxas=ptxas_of("g2_msm", "g2_msm_kernel"), **pvp["msm"]),
     ]
+
+
+def ptxas_of(lib: str, kernel: str) -> dict:
+    """ptxas' registers, stack and spills of `kernel` in `lib`'s build."""
+    from fabric_tpu_torch import kernels
+    return next((v for k, v in kernels.ptxas_summary(lib).items()
+                 if k.endswith(kernel)), {})
 
 
 def main() -> int:
@@ -1851,7 +2539,7 @@ def main() -> int:
     emit({"phase": "build", "ok": True, "seconds": build_s, "ptxas": ptxas,
           "sass": {k: kernels.sass_mix(k) for k in (
               "ptree", "sha_windows", "fused_resident", "ladder",
-              "ed25519_verify")}})
+              "ed25519_verify", "bn254_pairing", "g2_msm")}})
     # stage A's entries and the resident kernel keep everything in
     # registers: no stack frame, no spills
     for lib in ("sha_windows", "fused_resident"):

@@ -2,9 +2,10 @@
 
 The port's counterpart of fabric_tpu/bccsp/tpu.py TPUProvider, for the
 slices the port has so far: the P-256 comb-digest path, the fused verify
-tier, the Shamir ladder and the Ed25519 batch path. Everything but the
-batch paths delegates to the port's SWProvider (the pkcs11-style
-containment of the reference). `verify_batch` is the scheme router: it
+tier, the Shamir ladder, the Ed25519 batch path and the BN254 pairings of
+the idemix credential checks. Everything but the batch paths delegates
+to the port's SWProvider (the pkcs11-style containment of the
+reference). `verify_batch` is the scheme router: it
 splits a batch by key scheme (`_lane_scheme`) into a P-256 sub-batch
 (`_verify_batch_p256`) and an Ed25519 one (`_verify_batch_ed25519`). A
 P-256 batch is staged on the host — strict DER, low-S and range gates,
@@ -46,12 +47,28 @@ Ed25519 lanes: host gates and the SHA-512 challenge per lane
 (csrc/ed25519_verify.cu, `ops/ed25519.py`); sub-batches under
 `MinBatch` and the `Ed25519: false` knob serve the sw provider.
 
-Device errors propagate: the port has no breaker and no sw fallback yet,
-and no counterpart of `_try_fused`'s demotion to host hashing.
+BN254 pairings (the idemix MSP's consumers, fabric_tpu/msp/idemix.py
+392-427): `pairing_check_batch` pads a batch of pairing products to a
+power-of-two bucket (a 2-term pad lane is e(P0, Q0) e(P0, -Q0), the
+reference's rule), stages it (`bn254.stage_pairing_products`) and runs,
+per chunk, one Miller launch over the products' terms and one final-exp
+launch (csrc/bn254_pairing.cu); `g2_msm_batch` runs the G2 MSM kernel
+(csrc/g2_msm.cu) a chunk at a time; `bls_verify_batch` checks the lanes
+with a signature as 2-term products. Batches under the host cutoffs
+(`max(2, MinBatch // 4)` products, `max(2, MinBatch // 8)` MSM lanes),
+and products of other than 2 terms that would need padding, are served
+by the sw provider and `bn254_ref.g2_msm`: routing by size, as the
+reference does.
+
+Device errors propagate: the port has no breaker and no sw fallback yet
+(the reference's pairing methods fall back to the host on any device
+error; here they raise), and no counterpart of `_try_fused`'s demotion to
+host hashing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -67,8 +84,8 @@ from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
 from fabric_tpu_torch.common import torchenv
-from fabric_tpu_torch.ops import comb, ed25519, fused_verify, limb, ptree
-from fabric_tpu_torch.ops import sha256, verify
+from fabric_tpu_torch.ops import bn254, comb, ed25519, fused_verify, limb
+from fabric_tpu_torch.ops import bn254_ref, ptree, sha256, verify
 
 logger = logging.getLogger("fabric_tpu_torch.bccsp.cuda")
 
@@ -86,6 +103,9 @@ LAUNCH_COUNTERS = {
     "resident_launches": (fused_verify, "resident_launches"),
     "ladder_launches": (verify, "launches"),
     "ed25519_launches": (ed25519, "launches"),
+    "miller_launches": (bn254, "miller_launches"),
+    "final_exp_launches": (bn254, "final_exp_launches"),
+    "g2_msm_launches": (bn254, "msm_launches"),
 }
 
 
@@ -105,6 +125,13 @@ def host_prep_scalars(pub, signature):
     w = pow(s, -1, N)
     return (r.to_bytes(32, "big"), rpn.to_bytes(32, "big"),
             w.to_bytes(32, "big"))
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
 
 
 class CUDAProvider(api.BCCSP):
@@ -156,7 +183,10 @@ class CUDAProvider(api.BCCSP):
                       "resident_launches": 0, "ladder_batches": 0,
                       "ladder_launches": 0, "ed25519_batches": 0,
                       "ed25519_sw_lanes": 0, "ed25519_launches": 0,
-                      "ed25519_prep_s": 0.0}
+                      "ed25519_prep_s": 0.0, "pairing_batches": 0,
+                      "pairing_pairs": 0, "g2_msm_batches": 0,
+                      "miller_launches": 0, "final_exp_launches": 0,
+                      "g2_msm_launches": 0}
 
     def _fused_enabled(self) -> bool:
         """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
@@ -569,19 +599,98 @@ class CUDAProvider(api.BCCSP):
                                            self.device)
             return self._ed_tab
 
+    # -- BN254 pairings (idemix; BASELINE config 4) --
+
+    def pairing_check_batch(self, products) -> list[bool]:
+        """prod_j e(P_j, Q_j) == 1 per lane, on the card (fabric_tpu's
+        `pairing_check_batch` without its host fallback on device errors).
+
+        products: [[(P_int_affine, Q_twist_int_affine), ...] per lane]
+        with a uniform term count. Batches under the host cutoff, and
+        products of other than 2 terms that would need padding, go to
+        the sw provider's exact pairing."""
+        if len(products) < max(2, self._min_batch // 4):
+            return self._sw.pairing_check_batch(products)
+        nterms, n = len(products[0]), len(products)
+        bucket = _pow2(n)
+        if nterms != 2 and bucket != n:
+            return self._sw.pairing_check_batch(products)
+        # pad with a trivially-true product: infinity is not representable
+        # affine, so a VALID identity product e(P, Q) * e(P, -Q) from lane
+        # 0's first term
+        p0, q0 = products[0][0]
+        pad = [(p0, q0), (p0, bn254_ref.g2_neg_tw(q0))]
+        staged = bn254.stage_pairing_products(
+            list(products) + [pad] * (bucket - n))
+        outs = []
+        with self._count_launches():
+            for lo in range(0, bucket, self._chunk):
+                hi = lo + self._chunk
+                outs.append(bn254.pairing_product_is_one(
+                    *bn254.to_device(staged, self.device, lo, hi)))
+        out = torch.cat(outs).cpu().numpy()
+        self.stats["pairing_batches"] += 1
+        self.stats["pairing_pairs"] += n * nterms
+        return out[:n].tolist()
+
+    def g2_msm_batch(self, lanes) -> list:
+        """Per lane sum_t k_t * Q_t over the BN254 twist (affine int
+        points or None; returns affine int points, None for infinity), on
+        the card: the idemix PS presentations' Schnorr recombinations and
+        subgroup lanes in one dispatch. Batches under the host cutoff take
+        the host Strauss MSM (bn254_ref.g2_msm)."""
+        if len(lanes) < max(2, self._min_batch // 8):
+            return [bn254_ref.g2_msm(lane) for lane in lanes]
+        nterms, n = len(lanes[0]), len(lanes)
+        bucket = _pow2(n)
+        kw, q_flat = bn254.stage_g2_msm_words(
+            list(lanes) + [[(0, None)] * nterms] * (bucket - n))
+        kw = kw.view(np.int32)
+        outs = []
+        with self._count_launches():
+            for lo in range(0, bucket, self._chunk):
+                hi = lo + self._chunk
+                outs.append(bn254.g2_msm(
+                    *bn254.to_device([kw, *q_flat], self.device, lo, hi)))
+        self.stats["g2_msm_batches"] += 1
+        out = tuple(tuple(torch.cat([o[i][j] for o in outs]).cpu()
+                          for j in range(2)) for i in range(3))
+        return bn254.read_g2_msm(out)[:n]
+
+    def bls_verify_batch(self, pk_tw, msgs, sig_points) -> list[bool]:
+        """Issuer-credential BLS verify: e(sig, G2) e(H(m), -pk) == 1 per
+        lane. None entries of `sig_points` (malformed) are False without
+        touching the card."""
+        idx = [i for i, s in enumerate(sig_points) if s is not None]
+        out = [False] * len(msgs)
+        if idx:
+            prods = bn254.bls_products(pk_tw, [msgs[i] for i in idx],
+                                       [sig_points[i] for i in idx])
+            for i, v in zip(idx, self.pairing_check_batch(prods)):
+                out[i] = v
+        return out
+
+    @contextlib.contextmanager
+    def _count_launches(self):
+        """Add the kernels launched inside the block to the stats."""
+        before = {k: getattr(*c) for k, c in LAUNCH_COUNTERS.items()}
+        try:
+            yield
+        finally:
+            for k, c in LAUNCH_COUNTERS.items():
+                self.stats[k] += getattr(*c) - before[k]
+
     def _chunked(self, bucket, run):
         """Call run(c) for each `chunk` of the bucket, c(a) putting a
         chunk of host array `a` on the card; count the kernels launched
         and return a thunk that waits for the (bucket,) numpy verdicts."""
-        before = {k: getattr(*c) for k, c in LAUNCH_COUNTERS.items()}
         outs = []
-        for lo in range(0, bucket, self._chunk):
-            def c(a, lo=lo):
-                return torch.from_numpy(np.ascontiguousarray(
-                    a[lo:lo + self._chunk])).to(self.device)
-            outs.append(run(c))
-        for k, c in LAUNCH_COUNTERS.items():
-            self.stats[k] += getattr(*c) - before[k]
+        with self._count_launches():
+            for lo in range(0, bucket, self._chunk):
+                def c(a, lo=lo):
+                    return torch.from_numpy(np.ascontiguousarray(
+                        a[lo:lo + self._chunk])).to(self.device)
+                outs.append(run(c))
         return lambda: torch.cat(outs).cpu().numpy()
 
     def _resolve_tables(self, key_map, key_idx):

@@ -1,13 +1,20 @@
-"""Software BCCSP provider, P-256 and Ed25519 — the port's CPU oracle.
+"""Software BCCSP provider, P-256, Ed25519 and the BN254 pairings — the
+port's CPU oracle.
 
-A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256 and Ed25519 slices, on
-the port's pure-Python backends (bccsp/p256_host.py, bccsp/ed25519_host.py):
-the card's host has no `cryptography` wheel. ECDSA verification semantics
+A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256, Ed25519 and BN254
+pairing slices, on the port's pure-Python backends (bccsp/p256_host.py,
+bccsp/ed25519_host.py, ops/bn254_ref.py): the card's host has no
+`cryptography` wheel. ECDSA verification semantics
 follow `bccsp/sw/ecdsa.go:41-57` in order: strict DER unmarshal, the low-S
 policy against the key's curve order, then the curve equation. Ed25519's
 policy (strict encodings, S < L, small-order rejection, the cofactorless
 equation) lives in `ed25519_host`; Ed25519 keys sign and verify messages,
 not digests (`sign_message`).
+
+The pairing methods (`pairing_check_batch`, `bls_verify_batch`: the exact
+Python-int pairing) are the idemix credential checks' host oracle; the
+CUDA provider batches them on the card and serves batches under its host
+cutoffs here.
 
 ECDSA keys on other curves can be represented (so a provider can tell
 them apart) but not verified here: that needs OpenSSL, and raises
@@ -277,3 +284,25 @@ class SWProvider(api.BCCSP):
                     else self.hash(it.message)
             out.append(self.verify(it.key, it.signature, data))
         return out
+
+    # -- pairings (host oracle; the CUDA provider batches these on the
+    #    card — reference consumer: idemix credential verification) --
+
+    def pairing_check_batch(self, products) -> list[bool]:
+        """prod_j e(P_j, Q_j) == 1 per lane: products [[(P_int_affine,
+        Q_twist_int_affine), ...] per lane]."""
+        from fabric_tpu_torch.ops import bn254_ref as bref
+        out = []
+        for lanes in products:
+            acc = bref.F12_ONE
+            for p, q in lanes:
+                acc = bref.f12_mul(acc, bref.miller_loop(q, p))
+            out.append(bref.final_exponentiation(acc) == bref.F12_ONE)
+        return out
+
+    def bls_verify_batch(self, pk_tw, msgs, sig_points) -> list[bool]:
+        """Issuer-credential BLS verify per lane; a None signature point
+        (malformed) is False."""
+        from fabric_tpu_torch.ops import bn254_ref as bref
+        return [s is not None and bref.bls_verify(pk_tw, m, s)
+                for m, s in zip(msgs, sig_points)]

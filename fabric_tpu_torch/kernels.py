@@ -89,6 +89,25 @@ KERNELS = {
         "ed25519_verify_launch": ([_VOIDP] * 9 + [_INT] + [_VOIDP], _INT),
         "ed25519_verify_error_string": ([_INT], ctypes.c_char_p),
     }),
+    "bn254_pairing": ("bn254_pairing.cu", {
+        # pts, consts, out, B, bits_lo, bits_hi, nbits, stream
+        "bn254_miller_launch": ([_VOIDP] * 3 + [_INT] * 4 + [_VOIDP], _INT),
+        # f, consts, prog, nrows, gt, ok, nterms, B, stream
+        "bn254_final_exp_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2
+                                   + [_INT] * 2 + [_VOIDP], _INT),
+        # a, b, consts, n, out, stream: the BN254 core
+        "bn_fp_selftest_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2,
+                                  _INT),
+        # cases, consts, n, out, stream: the BN254 tower and twist steps
+        "bn_tower_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2,
+                                     _INT),
+        "bn254_pairing_error_string": ([_INT], ctypes.c_char_p),
+    }),
+    "g2_msm": ("g2_msm.cu", {
+        # k words, q, consts, out, B, nterms, nbits, stream
+        "g2_msm_launch": ([_VOIDP] * 4 + [_INT] * 3 + [_VOIDP], _INT),
+        "g2_msm_error_string": ([_INT], ctypes.c_char_p),
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -371,17 +371,6 @@ def ed25519_verify(tab, s8, k8, anx8, ay8, rx8, ry8, premask):
 # The field and group-law self-tests (csrc/field_selftest.cu)
 # ---------------------------------------------------------------------------
 
-def _ints8(rows) -> list[int]:
-    """(8k,) little-endian 32-bit words -> k Python ints."""
-    return [sum((int(w) & 0xFFFFFFFF) << (32 * i)
-                for i, w in enumerate(rows[j:j + 8]))
-            for j in range(0, len(rows), 8)]
-
-
-def _words8(vals) -> list[int]:
-    return [(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(8)]
-
-
 def f25_selftest_plain(a, b):
     """Python ints, the reference of csrc/fe25519.cuh: a, b (n, 8)
     little-endian 32-bit words (any value below 2^256) -> (n, 32) int64
@@ -389,8 +378,9 @@ def f25_selftest_plain(a, b):
     P = P_ED
     rows = []
     for ra, rb in zip(a.tolist(), b.tolist()):
-        x, y = _ints8(ra)[0], _ints8(rb)[0]
-        rows.append(_words8([x % P, (x + y) % P, (x - y) % P, x * y % P]))
+        x, y = limb.words_to_ints(ra)[0], limb.words_to_ints(rb)[0]
+        rows.append(limb.ints_to_words([x % P, (x + y) % P, (x - y) % P,
+                                        x * y % P]))
     return torch.tensor(rows, dtype=torch.int64).reshape(-1, 32)
 
 
@@ -400,9 +390,9 @@ def ed_selftest_plain(p, q):
     pt_add(p, q) then pt_double(p)."""
     rows = []
     for rp, rq in zip(p.tolist(), q.tolist()):
-        pp, qq = tuple(_ints8(rp)), tuple(_ints8(rq))
-        rows.append(_words8([c % P_ED for c in edh.pt_add(pp, qq)
-                             + edh.pt_double(pp)]))
+        pp, qq = tuple(limb.words_to_ints(rp)), tuple(limb.words_to_ints(rq))
+        rows.append(limb.ints_to_words(
+            [c % P_ED for c in edh.pt_add(pp, qq) + edh.pt_double(pp)]))
     return torch.tensor(rows, dtype=torch.int64).reshape(-1, 64)
 
 

@@ -61,6 +61,20 @@ def limbs_to_int(a) -> int:
     return sum(int(v) << (W * i) for i, v in enumerate(a.tolist()))
 
 
+def ints_to_words(vals) -> list[int]:
+    """Python ints below 2^256 -> their little-endian 32-bit words, 8
+    each, concatenated (the CUDA cores' layout)."""
+    return [(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(8)]
+
+
+def words_to_ints(words) -> list[int]:
+    """(8k,) little-endian 32-bit words (any integer type; signed values
+    are taken mod 2^32) -> k Python ints."""
+    return [sum((int(w) & 0xFFFFFFFF) << (32 * i)
+                for i, w in enumerate(words[j:j + 8]))
+            for j in range(0, len(words), 8)]
+
+
 def ints_to_limbs(xs, n: int = L) -> np.ndarray:
     """Batch of Python ints -> (B, n) int32 limb array."""
     return np.stack([int_to_limbs(x, n) for x in xs])

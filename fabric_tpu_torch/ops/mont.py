@@ -1,10 +1,12 @@
 """Montgomery modular arithmetic on 13-bit limb tensors.
 
-Port of fabric_tpu/ops/mont.py `MontMod`, cut to what Ed25519 needs (the
-20-limb layout, R = 2^260): `limb.Mod`'s fold at 2^256 needs a modulus
-above 2^255, which 2^255 - 19 misses, so that field uses word-level
-Montgomery reduction (REDC). Every operation follows the JAX class step
-for step, so results agree limb for limb.
+Port of fabric_tpu/ops/mont.py `MontMod` on the 20-limb layout
+(R = 2^260), for the fields whose prime `limb.Mod`'s fold at 2^256 does
+not serve: 2^255 - 19 (Ed25519, below 2^255) and BN254's dense 254-bit
+p (the pairing tower, ops/tower.py). Both use word-level Montgomery
+reduction (REDC). Every operation follows the JAX class step for step,
+so results agree limb for limb. The 381-bit layout of BLS12-381 is not
+here yet.
 
 Value discipline (R = 2^260, 4m < R):
   * every value is kept below 2m with limbs in [0, 2^13];
@@ -103,6 +105,9 @@ class MontMod:
         s = a + self.const("sub_off", a.device) - b
         s = carry3(F.pad(s, (0, 1)))
         return self._cond_sub_2m(self._cond_sub_2m(s))[..., :self.L]
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self.sub(torch.zeros_like(a), a)
 
     def _cond_sub_2m(self, x: torch.Tensor) -> torch.Tensor:
         """x < 4m (any width >= L, carried limbs) -> x - 2m in strict

@@ -321,10 +321,6 @@ def tree_verify_windows(w1, w2, key_idx, g_tab, q_tab, K: int, wbits_g: int,
 # The field core's self-test (csrc/field_selftest.cu)
 # ---------------------------------------------------------------------------
 
-def _words(x: int) -> list[int]:
-    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-
-
 def field_selftest_plain(a13, b13, p13, q13):
     """Python ints, the reference of csrc/p256_field.cuh: a13, b13
     (n, 20) int32 13-bit limbs -> (n, 32) int64 words of a mod p, a + b,
@@ -334,13 +330,13 @@ def field_selftest_plain(a13, b13, p13, q13):
     ops = []
     for a, b in zip(a13.tolist(), b13.tolist()):
         a, b = limb.limbs_to_int(a) % P, limb.limbs_to_int(b) % P
-        ops.append([w for v in (a, (a + b) % P, (a - b) % P, a * b % P)
-                    for w in _words(v)])
+        ops.append(limb.ints_to_words((a, (a + b) % P, (a - b) % P,
+                                       a * b % P)))
     adds = []
     for p, q in zip(p13.tolist(), q13.tolist()):
         pt = [tuple(limb.limbs_to_int(c[20 * k:20 * k + 20]) % P
                     for k in range(3)) for c in (p, q)]
-        adds.append([w for v in p256.cadd4_int(*pt) for w in _words(v)])
+        adds.append(limb.ints_to_words(p256.cadd4_int(*pt)))
     return (torch.tensor(ops, dtype=torch.int64).reshape(-1, 32),
             torch.tensor(adds, dtype=torch.int64).reshape(-1, 24))
 

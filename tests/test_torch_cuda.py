@@ -9,7 +9,8 @@ fabric_tpu, so it also runs on the card's machine, which has neither
 
 Each kernel is held to its plain torch version on the same inputs (the
 tree kernel also to Python-int sums, the SHA kernels to hashlib, the
-field and mod-n cores to Python ints): exact equality. The provider, on
+field and mod-n cores to Python ints, the BN254 pairing kernels at
+truncated loops, and in full to bn254_ref): exact equality. The provider, on
 every message route and on the commit path, to its sw provider.
 """
 
@@ -601,3 +602,148 @@ def test_provider_ladder_and_ed25519_on_the_card(dev):
         lambda i: p_items[i].signature)
     assert got == [w for i, w in enumerate(want) if i % 3 != 2]
     assert prov.stats["ladder_launches"] == 2
+
+
+# -- BN254 (the idemix pairings) --
+
+def _bn_points(seed, n):
+    import random
+
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    rng = random.Random(seed)
+    g2 = (bref.G2_X, bref.G2_Y)
+    ps = [bref.g1_mul_fast(rng.randrange(2, bref.R), bref.G1)
+          for _ in range(n)]
+    qs = [bref.g2_mul_fast(rng.randrange(2, bref.R), g2) for _ in range(n)]
+    ps[0], qs[0] = bref.G1, g2
+    return ps, qs
+
+
+def test_bn254_core_and_tower_match_ints(dev):
+    """csrc/bn254_field.cuh and bn254_tower.cuh (nvcc, bn254_pairing.cu)
+    against Python ints and the plain tower: words equal."""
+    import random
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    P = bref.P
+    rng = random.Random(95)
+    edges = [0, 1, P - 1, P, P + 1]
+    pairs = [(a, b) for a in edges for b in edges] + [
+        (rng.randrange(2 * P), rng.randrange(2 * P)) for _ in range(64)]
+
+    def words(vals):
+        return torch.as_tensor(np.array(
+            [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+             for v in vals], dtype=np.uint32).view(np.int32))
+    a, b = words(x for x, _ in pairs), words(y for _, y in pairs)
+    got = bn254.fp_selftest(a.to(dev), b.to(dev)).cpu()
+    assert torch.equal(got, bn254.fp_selftest_plain(a, b))
+    cases = words(rng.randrange(P) for _ in range(36 * 3)).reshape(3, -1)
+    got = bn254.tower_selftest(cases.to(dev)).cpu()
+    assert torch.equal(got, bn254.tower_selftest_plain(cases))
+
+
+def test_bn254_miller_and_final_exp_match_plain(dev):
+    """The Miller entry at a truncated loop and the final-exp entry on a
+    short two-term program against their plain versions on the card
+    (canonical limbs equal); the full loop and program on two lanes
+    against bn254_ref.pairing."""
+    from fabric_tpu_torch.ops import bn254, tower
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    ps, qs = _bn_points(96, 6)
+    st = bn254.to_device(bn254.stage_g1(ps) + bn254.stage_g2(qs), dev)
+    loop = 0b1011010
+    m0, f0 = bn254.miller_launches, bn254.final_exp_launches
+    got = tower.flat_from_f12(bn254.miller_loop_batch(*st, loop=loop))
+    assert bn254.miller_launches == m0 + 1
+    plain = tower.flat_from_f12(bn254.miller_loop_plain(*st, loop=loop))
+    assert torch.equal(got, bn254.F.canonical(plain))
+    A = bn254._Asm()
+    A.conj(2, 0)
+    A.mul(2, 2, 1)
+    A.frob(6, 2)
+    A.mul(0, 6, 2)
+    A.pow_static(3, 0, 7, 0b1101)
+    A.mul(0, 3, 0)
+    gt, ok = bn254._final_exp_kernel(got, 2, 3, A.program())
+    assert bn254.final_exp_launches == f0 + 1
+    prod = bn254.f12_mul(tower.f12_from_flat(got[:, :3]),
+                         tower.f12_from_flat(got[:, 3:]))
+    want = bn254.final_exp_plain(prod, A.program())
+    assert torch.equal(gt, bn254.F.canonical(tower.flat_from_f12(want)))
+    assert torch.equal(ok, bn254.gt_is_one(want))
+    full = bn254.final_exp_batch(bn254.miller_loop_batch(
+        *bn254.to_device(bn254.stage_g1(ps[:2]) + bn254.stage_g2(qs[:2]),
+                         dev)))
+    assert bn254.f12_from_device(full) == [bref.pairing(qs[i], ps[i])
+                                           for i in range(2)]
+
+
+def test_bn254_msm_matches_plain_and_ints(dev):
+    """The MSM entry on 8-bit scalars (k = 0, Q + (-Q), Q + Q lanes)
+    against its plain version on the card and the host MSM; full-width
+    scalars (r - 1, the subgroup lane's 6x^2) against the host MSM."""
+    import random
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    rng = random.Random(97)
+    g2 = (bref.G2_X, bref.G2_Y)
+    T = bref.g2_mul_fast(4242, g2)
+    lanes = [[(rng.randrange(1 << 8), g2), (rng.randrange(1 << 8), T),
+              (rng.randrange(1 << 8), T)] for _ in range(5)]
+    lanes += [[(0, g2), (0, None), (0, g2)],
+              [(7, T), (0, None), (7, bref.g2_neg_tw(T))],
+              [(1, T), (1, T), (0, None)]]
+    kw, qf = bn254.stage_g2_msm_words(lanes)
+    kw = torch.as_tensor(kw.view(np.int32))
+    q = [torch.as_tensor(a) for a in qf]
+    before = bn254.msm_launches
+    got = bn254.g2_msm(kw.to(dev), *[a.to(dev) for a in q], nbits=8)
+    assert bn254.msm_launches == before + 1
+    plain = bn254.g2_msm_plain(bn254.words_to_bits(kw.to(dev), 8),
+                               *[a.to(dev) for a in q])
+    for (ga, gb), (pa, pb) in zip(got, plain):
+        assert torch.equal(ga, bn254.F.canonical(pa))
+        assert torch.equal(gb, bn254.F.canonical(pb))
+    assert bn254.read_g2_msm(got) == [bref.g2_msm(lane) for lane in lanes]
+    full = [[(rng.randrange(bref.R), g2), (rng.randrange(bref.R), T),
+             (bref.R - 1, T)], [(6 * bref.T_BN ** 2, T), (0, None),
+                                (0, None)]]
+    kw, qf = bn254.stage_g2_msm_words(full)
+    out = bn254.g2_msm(torch.as_tensor(kw.view(np.int32)).to(dev),
+                       *[torch.as_tensor(a).to(dev) for a in qf])
+    assert bn254.read_g2_msm(out) == [bref.g2_msm(lane) for lane in full]
+
+
+def test_provider_pairing_methods_match_sw(dev):
+    """CUDAProvider's pairing_check_batch, bls_verify_batch and
+    g2_msm_batch on the card against the port's sw provider and the host
+    MSM; one Miller and one final-exp launch per chunk."""
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    ps, qs = _bn_points(98, 5)
+    prods = []
+    for i, (p, q) in enumerate(zip(ps, qs)):
+        q2 = qs[(i + 1) % 5] if i in (1, 3) else q
+        prods.append([(p, q), (p, bref.g2_neg_tw(q2))])
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {"MinBatch": 4}})
+    csp = sw.SWProvider()
+    got = prov.pairing_check_batch(prods)
+    assert got == csp.pairing_check_batch(prods) == [
+        True, False, True, False, True]
+    assert prov.stats["miller_launches"] == 1
+    assert prov.stats["final_exp_launches"] == 1
+    assert prov.stats["pairing_pairs"] == 10
+    sk, pk = bref.bls_keygen(b"card")
+    msgs = [b"a", b"b", b"c", b"d"]
+    sigs = [bref.g1_mul_fast(sk, bref.hash_to_g1(m)) for m in msgs]
+    sigs[1] = bref.g1_mul_fast(sk, bref.hash_to_g1(b"other"))
+    sigs[2] = None
+    assert prov.bls_verify_batch(pk, msgs, sigs) == \
+        csp.bls_verify_batch(pk, msgs, sigs) == [True, False, False, True]
+    lanes = [[(7, qs[1]), (11, qs[2]), (bref.R - 3, qs[3])],
+             [(6 * bref.T_BN ** 2, qs[4]), (0, None), (0, None)],
+             [(5, qs[0]), (0, None), (5, bref.g2_neg_tw(qs[0]))]]
+    assert prov.g2_msm_batch(lanes) == [bref.g2_msm(lane) for lane in lanes]
+    assert prov.stats["g2_msm_launches"] == 1
