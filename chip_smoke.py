@@ -31,7 +31,12 @@ Phases, one JSON line each; any failure exits non-zero:
                    tower (csrc/bn254_tower.cuh: Fp2 mul/sqr/inv, Fp12 mul,
                    Frobenius and inverse, the twist doubling and addition
                    with their lines) against the plain tower and the
-                   bn254_ref ints; words equal
+                   bn254_ref ints; BLS12-381's 381-bit core
+                   (csrc/bls12_381_field.cuh on 12 words: the same ops
+                   and the 13-bit layout's round trip on 0, 1, p - 1, p,
+                   p + 1, 2p - 1 and random operands below 2p) and its
+                   M-type tower (csrc/bls12_381_tower.cuh, the same cases)
+                   against Python ints and the plain tower; words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -169,6 +174,36 @@ Phases, one JSON line each; any failure exits non-zero:
                    final_exp_products_min, msm_products) and, beside it,
                    one from the products the kernels execute
                    (executed_bound_ms).
+  bls_span         one orderer identity's span of 1,023 BLS12-381 block
+                   signatures from --seed (fabric_tpu/orderer/
+                   blockwriter.py _self_verify's shape), signed in the
+                   process pool, its aggregates at every width.
+  bls_aggregate_path  CUDAProvider.verify_aggregate on the card for the
+                   span's first k signatures, k = 3, 7, 15, 31 (the
+                   reference's sweep) and 1,023 (1,024 pairs): the valid
+                   aggregate True; one message swapped for b"forged", the
+                   aggregate plus a point off the subgroup, and one key off
+                   the subgroup False; each call counted (valid and forged:
+                   one Miller, log2(bucket) reduce and one final-exp
+                   launch; the gated cases none); the sw provider's
+                   verdicts equal on every case up to 31 keys and on the
+                   valid 1,023-key span (in the pool meanwhile). Per
+                   width: steady seconds, host staging seconds, the card's
+                   busy ms by entry and idle share from one profiled call,
+                   and sw_s_per_call_one_core.
+  bls_vs_plain     the Miller entry on the span's 1,024 lanes (edge lanes
+                   (G1, G2), (-G1, G2), (2 G1, G2), (G1, 2 G2) in them, the
+                   last 4 masked off), the reduce on the same lanes and the
+                   final-exp entry on 4 single-lane inputs (that product,
+                   the span's product, one, a random value) against their
+                   plain versions on the card, canonically; the final
+                   exponentiation's GT values and verdicts against
+                   bls12_381_ref.final_exponentiation_chain, Miller lanes
+                   0, 1 and the edges against bls12_381_ref.miller_loop up
+                   to an Fp2 * w^(3k) monomial. Then each entry at the
+                   path's shape (1,024 lanes, one final-exp lane): CUDA
+                   events against bounds from the functions' least Fp
+                   products (576 IMAD each) and the products executed.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -397,23 +432,25 @@ def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
 
 # -- main path --
 
-def profile_call(fn) -> dict:
+def profile_call(fn, pad_s: float = 0.05) -> dict:
     """One call under torch.profiler: its wall time, the summed time of
     the device's kernels and copies (the card's busy share of the call)
-    and the device activities that took most. The window stays open a
-    while after the call's work has finished: the profiler has dropped
-    kernels that ended just before a window closed (see `device_ms`)."""
+    and the device activities that took most. The window stays open
+    `pad_s` seconds before the call and after its work has finished: the
+    profiler has dropped kernels near a window's edges (see
+    `device_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        time.sleep(0.05)
+        time.sleep(pad_s)
     by_name: dict = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1676,41 +1713,44 @@ EASY_ROWS = 5                   # the program's easy part: no squaring
 BN_MUL_IMAD = 2 * 2 * 8 * 8
 
 
-def miller_products(loop: int) -> int:
-    """Fp products one Miller lane executes (csrc/bn254_pairing.cuh): per
-    step f^2, the tangent step and f * line; per set bit, and twice after
-    the loop, the chord step and f * line."""
+def miller_products(loop: int, corrections: int = 2) -> int:
+    """Fp products one Miller lane executes (csrc/bn254_pairing.cuh,
+    bls12_381_pairing.cuh): per step f^2, the tangent step and f * line;
+    per set bit, and after the loop once per correction step (BN254's two,
+    none for BLS12-381), the chord step and f * line."""
     bits = bin(loop)[3:]
     return (len(bits) * (2 * F12_MUL_FP + DBL_LINE_FP)
-            + (bits.count("1") + 2) * (ADD_LINE_FP + F12_MUL_FP))
+            + (bits.count("1") + corrections) * (ADD_LINE_FP + F12_MUL_FP))
 
 
-def miller_products_min(loop: int) -> int:
+def miller_products_min(loop: int, corrections: int = 2) -> int:
     """The least Fp products of one Miller value (see F12_MUL_MIN)."""
     bits = bin(loop)[3:]
     return (DBL_LINE_MIN + (len(bits) - 1) * (F12_SQR_MIN + DBL_LINE_MIN
                                               + SPARSE_MIN)
-            + (bits.count("1") + 2) * (ADD_LINE_MIN + SPARSE_MIN))
+            + (bits.count("1") + corrections) * (ADD_LINE_MIN + SPARSE_MIN))
 
 
-def final_exp_products(program, nterms: int) -> int:
-    """Fp products one final-exp lane executes: the terms' product, 1/f,
-    the program's Fp12 products and Frobenius maps."""
+def final_exp_products(program, nterms: int, inv: int = F12_INV_FP) -> int:
+    """Fp products one final-exp lane executes: the terms' product, 1/f
+    (`inv` products), the program's Fp12 products and Frobenius maps."""
     ops = np.asarray(program)[:, 0]
-    return ((nterms - 1) * F12_MUL_FP + F12_INV_FP
+    return ((nterms - 1) * F12_MUL_FP + inv
             + int((ops == 0).sum()) * F12_MUL_FP
             + int((ops == 2).sum()) * FROB_FP)
 
 
-def final_exp_products_min(program, nterms: int) -> int:
+def final_exp_products_min(program, nterms: int,
+                           inv: int = F12_INV_MIN) -> int:
     """The least Fp products of one final-exp lane: the program's rows at
-    their cheapest (cyclotomic squarings, Karatsuba products)."""
+    their cheapest (cyclotomic squarings, Karatsuba products), 1/f at
+    `inv`."""
     prog = np.asarray(program)
     mul = prog[:, 0] == 0
     sqr = mul & (prog[:, 2] == prog[:, 3])
     check(not sqr[:EASY_ROWS].any(), "final-exp program: a squaring in "
           "the easy part")
-    return ((nterms - 1) * F12_MUL_MIN + F12_INV_MIN
+    return ((nterms - 1) * F12_MUL_MIN + inv
             + int((mul & ~sqr).sum()) * F12_MUL_MIN
             + int(sqr.sum()) * CYC_SQR_MIN
             + int((prog[:, 0] == 2).sum()) * FROB_MIN)
@@ -1735,21 +1775,23 @@ def msm_products(k_words, nbits: int) -> tuple[int, int, int]:
     return executed, least, live
 
 
-def bn_bound(products: int, nbytes: int) -> tuple[float, str]:
-    """Least time (ms) for `products` Fp products, or for `nbytes` of
-    operands and results, whichever is larger."""
-    t_ops = products * BN_MUL_IMAD / INT32_IMAD_PER_S
+def bn_bound(products: int, nbytes: int,
+             imad: int = BN_MUL_IMAD) -> tuple[float, str]:
+    """Least time (ms) for `products` Fp products of `imad` multiply-adds
+    each, or for `nbytes` of operands and results, whichever is larger."""
+    t_ops = products * imad / INT32_IMAD_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def bn_reading(ms: float, products: int, executed: int,
-               nbytes: int) -> dict:
-    """A BN254 entry's bound at the function's least products and, beside
-    it, at the products the kernel executes."""
-    bound, by = bn_bound(products, nbytes)
-    ex, ex_by = bn_bound(executed, nbytes)
+               nbytes: int, imad: int = BN_MUL_IMAD) -> dict:
+    """A pairing entry's bound at the function's least products and,
+    beside it, at the products the kernel executes (BN254's 256-IMAD
+    products by default, `BLS_MUL_IMAD` for BLS12-381's)."""
+    bound, by = bn_bound(products, nbytes, imad)
+    ex, ex_by = bn_bound(executed, nbytes, imad)
     return dict(ms=ms, bound_ms=bound, bound_by=by,
                 share_of_bound=bound / ms, products=products,
                 executed_bound_ms=ex, executed_bound_by=ex_by,
@@ -2147,6 +2189,475 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     return res
 
 
+# -- BLS12-381: the orderer's aggregate verify --
+
+BLS_MILLER, BLS_REDUCE, BLS_FINAL_EXP = (
+    "bls_miller_launches", "bls_reduce_launches", "bls_final_exp_launches")
+BLS_KERNELS = (BLS_MILLER, BLS_REDUCE, BLS_FINAL_EXP)
+# a span of k block signatures by one orderer identity: the reference's
+# own sweep (bench.py:1363-1365) and a long span of 1,024 pairs
+BLS_WIDTHS = (3, 7, 15, 31, 1023)
+BLS_SW_ALL = 31                 # sw on every case up to here, 1,023 once
+BLS_CASES = ("valid", "forged", "sig_off", "pk_off")
+BLS_FE_INPUTS = 4               # single-lane final-exp inputs vs plain
+# a 381-bit product on 12 words: 12 x 12 partial products, a low and a
+# high IMAD each, and a Montgomery reduction of the same size
+BLS_MUL_IMAD = 2 * 2 * 12 * 12
+# 1/f as executed (four Fp6 products, the Fp6 inverse's 12 Fp2 products,
+# the Fp2 inverse's 4 products and Fermat's 380 squarings and 228
+# products) and at its least (see F12_INV_MIN, Fermat at its 380
+# squarings)
+BLS_F12_INV_FP = 4 * 27 + 12 * 3 + 4 + 380 + 228
+BLS_F12_INV_MIN = 2 * 12 + (6 * 3 + 3 * 2) + 4 + 380 + 2 * 18
+
+
+def _bls_sign_span_chunk(jobs):
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    return [b.bls_sign(sk, m) for sk, m in jobs]
+
+
+def bls_key(point, checked: bool = True):
+    """The port's sw BLS public key on `point`; checked=False builds a key
+    whose point skipped the import's subgroup check (an adversarial key)."""
+    from fabric_tpu_torch.bccsp import sw
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    if checked:
+        return sw.BLSPublicKey(b.g2_to_bytes(point))
+    k = object.__new__(sw.BLSPublicKey)
+    k.point, k._raw = point, b.g2_to_bytes(point)
+    return k
+
+
+def _sw_aggregate_chunk(jobs):
+    """The port's sw provider's verify_aggregate on (points, checked
+    flags, messages, signature) jobs: (verdict, seconds) each, one pool
+    process, one core."""
+    from fabric_tpu_torch.bccsp import sw
+    prov = sw.SWProvider()
+    out = []
+    for pts, checked, msgs, sig in jobs:
+        keys = [bls_key(p, c) for p, c in zip(pts, checked)]
+        t0 = time.perf_counter()
+        v = prov.verify_aggregate(keys, msgs, sig)
+        out.append((v, time.perf_counter() - t0))
+    return out
+
+
+def _bls_chain_chunk(jobs):
+    """Python-int final_exponentiation_chain of each Fp12 value."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    return [b.final_exponentiation_chain(f) for f in jobs]
+
+
+def _bls_miller_ref_chunk(jobs):
+    """(kernel Miller value, P, Q): is the kernel's value the int Miller
+    loop's times one Fp2 coefficient on w^0 or w^3?"""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    out = []
+    for val, p, q in jobs:
+        ratio = b.f12_mul(val, b.f12_inv(b.miller_loop(q, p)))
+        nz = [i for i, c in enumerate(c for half in ratio for c in half)
+              if c != b.F2_ZERO]
+        out.append(len(nz) == 1 and nz[0] in (0, 4))
+    return out
+
+
+def off_subgroup_g1():
+    """A point of E(Fp) outside the order-r subgroup: try-and-increment
+    on x without the cofactor clearing."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    x = 1
+    while True:
+        rhs = (x * x * x + b.B_G1) % b.P
+        y = pow(rhs, (b.P + 1) // 4, b.P)
+        if y * y % b.P == rhs and not b.g1_in_subgroup((x, y)):
+            return (x, y)
+        x += 1
+
+
+def _f2_sqrt(a):
+    """A square root in Fp2 = Fp[u]/(u^2 + 1), p = 3 mod 4, or None."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    P = b.P
+    n = (a[0] * a[0] + a[1] * a[1]) % P
+    s = pow(n, (P + 1) // 4, P)
+    if s * s % P != n:
+        return None
+    for t in (s, P - s):
+        h = (a[0] + t) * pow(2, -1, P) % P
+        x0 = pow(h, (P + 1) // 4, P)
+        if x0 * x0 % P == h and x0:
+            x1 = a[1] * pow(2 * x0, -1, P) % P
+            if b.f2_mul((x0, x1), (x0, x1)) == a:
+                return (x0, x1)
+    return None
+
+
+def off_subgroup_g2():
+    """A point of the twist E'(Fp2) outside the order-r subgroup: the
+    smallest x = (k, 1) whose x^3 + 4(1 + u) is a square."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    b_tw = b.f2_mul((b.B_G1, 0), b.XI)
+    k = 0
+    while True:
+        x = (k, 1)
+        y = _f2_sqrt(b.f2_add(b.f2_mul(b.f2_mul(x, x), x), b_tw))
+        if y is not None and not b.g2_in_subgroup((x, y)):
+            return (x, y)
+        k += 1
+
+
+def make_bls_span(seed: int, pool, nproc):
+    """One orderer identity's span of max(BLS_WIDTHS) block signatures
+    from `seed` (the shape of fabric_tpu/orderer/blockwriter.py
+    _self_verify: one key, one message a block), signed in the pool, and
+    the off-subgroup points the bad cases use."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    rng = np.random.default_rng(seed + 5)
+    t0 = time.perf_counter()
+    sk, pk = b.bls_keygen(rng.bytes(32))
+    n = max(BLS_WIDTHS)
+    msgs = [b"block %d|" % i + rng.bytes(48) for i in range(n)]
+    sigs = pool_map(pool, _bls_sign_span_chunk, [(sk, m) for m in msgs],
+                    nproc)
+    aggs, acc = {}, None
+    for i, s in enumerate(sigs):
+        acc = b.g1_add(acc, s)
+        if i + 1 in BLS_WIDTHS:
+            aggs[i + 1] = acc
+    return dict(pk=pk, msgs=msgs, aggs=aggs, off_g1=off_subgroup_g1(),
+                off_g2=off_subgroup_g2(), make_s=time.perf_counter() - t0)
+
+
+def _bls_cases(span, k):
+    """The four calls at width k: (keys' points, checked flags, messages,
+    signature bytes, expected verdict) by case."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    pts, msgs = [span["pk"]] * k, span["msgs"][:k]
+    agg = span["aggs"][k]
+    sig = b.g1_to_bytes(agg)
+    j = k // 2
+    ok = [True] * k
+    return {
+        "valid": (pts, ok, msgs, sig, True),
+        "forged": (pts, ok, msgs[:j] + [b"forged"] + msgs[j + 1:], sig,
+                   False),
+        "sig_off": (pts, ok, msgs,
+                    b.g1_to_bytes(b.g1_add(agg, span["off_g1"])), False),
+        "pk_off": (pts[:j] + [span["off_g2"]] + pts[j + 1:],
+                   ok[:j] + [False] + ok[j + 1:], msgs, sig, False)}
+
+
+BLS_ENTRY_NAMES = {"miller": "bls_miller_kernel",
+                   "reduce": "bls_reduce_kernel",
+                   "final_exp": "bls_final_exp_kernel"}
+
+
+def profile_kept(fn, names, windows: int = 3):
+    """profile_call, repeated at most `windows` times with the window's
+    pads doubled each time until every kernel named in `names` shows (the
+    profiler on the H100 has dropped all the kernels of a ~100 ms window,
+    cause unknown): (the last profile, the windows it took, whether they
+    showed)."""
+    for w in range(1, windows + 1):
+        prof = profile_call(fn, pad_s=0.05 * 2 ** (w - 1))
+        kept = all(any(n in k for k in prof["kernel_names"]) for n in names)
+        if kept:
+            break
+    return prof, w, kept
+
+
+def _by_kernel(top_ms: dict) -> dict:
+    """The profiler's device ms of the BLS entries, by entry."""
+    return {entry: sum(v for k, v in top_ms.items() if name in k)
+            for entry, name in BLS_ENTRY_NAMES.items()}
+
+
+def bls_aggregate_path(span, prov, card, pool, nproc):
+    """A span of k block signatures by one identity through the provider's
+    verify_aggregate on the card, k in BLS_WIDTHS: at each width the valid
+    aggregate (True), one message swapped for b"forged" (False), the
+    aggregate plus a point off the subgroup (False) and one key off the
+    subgroup (False), each counted (every kernel count 0 before; valid and
+    forged one Miller, log2(bucket) reduce and one final-exp launch,
+    the gated cases none); the sw provider's verdicts on every case up to
+    BLS_SW_ALL keys and on the valid 1,023-key span (run in the pool
+    meanwhile) equal. Per width: the steady seconds of a valid call, the
+    host staging seconds (gates, H(m_i), limbs), one valid call under the
+    profiler (the card's busy ms by entry, the idle share; profiled again,
+    a few times at most, while a window misses an entry's kernel, and
+    listed under "profile_not_measured" when none kept them) and the sw
+    provider's seconds a call on one core."""
+    from fabric_tpu_torch.ops import bls12_381 as blsagg
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+
+    jobs, where = [], []
+    for k in BLS_WIDTHS:
+        for case, (pts, ck, msgs, sig, _) in _bls_cases(span, k).items():
+            if k <= BLS_SW_ALL or case == "valid":
+                jobs.append((pts, ck, msgs, sig))
+                where.append((k, case))
+    sw_async = pool.map_async(_sw_aggregate_chunk, [[j] for j in jobs])
+    others = [k for k in prov.stats if k.endswith("_launches")
+              and k not in BLS_KERNELS]
+    keys = {}
+    total = {k: 0 for k in BLS_KERNELS}
+    widths, not_measured = {}, []
+    for k in BLS_WIDTHS:
+        cases = _bls_cases(span, k)
+        bucket = 1 << k.bit_length()          # k + 1 pairs, a power of two
+        row = {"pairs": k + 1, "bucket": bucket}
+        for case, (pts, ck, msgs, sig, want) in cases.items():
+            for p, c in zip(pts, ck):
+                if (p, c) not in keys:
+                    keys[(p, c)] = bls_key(p, c)
+            ks = [keys[(p, c)] for p, c in zip(pts, ck)]
+            device = case in ("valid", "forged")
+            out, counts, _, secs = counted(
+                prov, f"bls {case} k={k}", BLS_KERNELS if device else (),
+                lambda: prov.verify_aggregate(ks, msgs, sig))
+            check(out is want, f"bls k={k} {case}: {out}, not {want}")
+            per = {BLS_MILLER: 1, BLS_REDUCE: bucket.bit_length() - 1,
+                   BLS_FINAL_EXP: 1} if device else dict.fromkeys(
+                       BLS_KERNELS, 0)
+            for kk, v in per.items():
+                check(counts[kk] == v, f"bls k={k} {case}: {kk} "
+                      f"{counts[kk]}, not {v}")
+                total[kk] += counts[kk]
+            check(all(counts[kk] == 0 for kk in others),
+                  f"bls k={k} {case}: other kernels ran: {counts}")
+            row[f"{case}_s"] = secs
+        pts, ck, msgs, sig, _ = cases["valid"]
+        ks = [keys[(p, c)] for p, c in zip(pts, ck)]
+        t0 = time.perf_counter()
+        check(prov.verify_aggregate(ks, msgs, sig) is True,
+              f"bls k={k}: steady call")
+        row["steady_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = blsagg.stage_pairs(pts, msgs, b.g1_from_bytes(sig))
+        blsk.stage_pairs(pairs, pad_to=bucket)
+        row["host_staging_s"] = time.perf_counter() - t0
+        prof, row["profile_windows"], kept = profile_kept(
+            lambda: prov.verify_aggregate(ks, msgs, sig),
+            BLS_ENTRY_NAMES.values())
+        row["profiled"] = prof
+        if kept:
+            row["device_busy_ms_by_entry"] = _by_kernel(prof["top_ms"])
+            row["device_idle_share"] = prof["device_idle_share"]
+        else:
+            # no window kept the three entries' kernels: say so, and put
+            # no number in their place
+            row["device_busy_ms_by_entry"] = "not measured"
+            row["device_idle_share"] = "not measured"
+            not_measured.append(k)
+        widths[k] = row
+    t0 = time.perf_counter()
+    sw = [v for part in sw_async.get() for v in part]
+    wait_s = time.perf_counter() - t0
+    for (k, case), (v, secs) in zip(where, sw):
+        want = _bls_cases(span, k)[case][4]
+        check(v is want, f"bls k={k} {case}: sw says {v}, not {want}")
+        if case == "valid":
+            widths[k]["sw_s_per_call_one_core"] = secs
+    emit({"phase": "bls_aggregate_path", "ok": True, "card": card,
+          "widths": {str(k): v for k, v in widths.items()},
+          "sw_cases": len(sw), "sw_wait_s": wait_s,
+          "make_s": span["make_s"], "launches": total,
+          "profile_not_measured": not_measured})
+    return total, widths
+
+
+def bls_vs_plain(span, prov, card, pool):
+    """Each BLS entry against its plain version on the card: the Miller
+    entry on the 1,023-key span's 1,024 lanes with edge lanes in it ((G1,
+    G2), (-G1, G2), (2 G1, G2), (G1, 2 G2)) and its last four lanes masked
+    off, limb for limb after `canonical`; the reduce on the same lanes;
+    the final exponentiation on BLS_FE_INPUTS single-lane inputs (that
+    reduce's product, the span's own product, Fp12 one and a random
+    value), its GT values and verdicts also against
+    bls12_381_ref.final_exponentiation_chain on Python ints; lanes 0, 1
+    and the edges against bls12_381_ref.miller_loop up to an Fp2 *
+    w^(3k) monomial. Then each entry at the path's shape (1,024 lanes;
+    the reduce over them; one final-exp lane): CUDA events against
+    bounds from the functions' least Fp products and, beside them, the
+    products the kernels execute."""
+    import torch
+
+    from fabric_tpu_torch.ops import bls12_381 as blsagg
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    from fabric_tpu_torch.ops import tower
+
+    dev = prov.device
+    F = blsk.F
+    n = max(BLS_WIDTHS)
+    pairs = blsagg.stage_pairs([span["pk"]] * n, span["msgs"][:n],
+                               span["aggs"][n])
+    B = len(pairs)
+    g2 = (b.G2_X, b.G2_Y)
+    edges = [("g1_g2", (b.G1, g2)), ("neg_g1", (b.g1_neg(b.G1), g2)),
+             ("two_g1", (b.g1_mul(2, b.G1), g2)),
+             ("two_g2", (b.G1, b.g2_mul(2, g2)))]
+    E0 = B - 8                                 # edges, then 4 masked lanes
+    lanes = list(pairs)
+    for i, (_, pq) in enumerate(edges):
+        lanes[E0 + i] = pq
+    staged = blsk.stage_pairs(lanes)
+    staged[6][B - 4:] = False
+    st = blsk.to_device(staged, dev)
+    Q = ((st[2], st[3]), (st[4], st[5]))
+    res = {}
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    f_k = tower.flat_from_f12(blsk.miller_loop_batch(st[0], st[1], Q,
+                                                     mask=st[6]))
+    e0.record()
+    f_p = blsk.miller_loop_plain(st[0], st[1], Q)
+    f_p = tower.select_f12(st[6], f_p, blsk.f12_one_like(st[0]))
+    e1.record()
+    f_p = F.canonical(tower.flat_from_f12(f_p))
+    torch.cuda.synchronize()
+    err = int((f_k - f_p).abs().max())
+    check(err == 0, "BLS Miller entry != plain at lanes "
+          f"{torch.nonzero((f_k != f_p).any(0).any(-1))[:10].tolist()}")
+    res["miller"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                         lanes_vs_plain=B)
+    check(blsk.f12_from_device(tower.f12_from_flat(f_k[:, B - 4:]))
+          == [b.F12_ONE] * 4, "BLS Miller entry: masked lanes are not one")
+    look = [0, 1] + [E0 + i for i in range(len(edges))]
+    vals = blsk.f12_from_device(tower.f12_from_flat(f_k[:, look]))
+    miller_ref = pool.map_async(_bls_miller_ref_chunk, [
+        [(v, *lanes[i])] for v, i in zip(vals, look)])
+
+    r_k = tower.flat_from_f12(blsk.product_reduce(tower.f12_from_flat(f_k)))
+    e0.record()
+    r_p = blsk.product_reduce_plain(tower.f12_from_flat(f_p))
+    e1.record()
+    r_p = F.canonical(tower.flat_from_f12(r_p))
+    torch.cuda.synchronize()
+    err = int((r_k - r_p).abs().max())
+    check(err == 0, "BLS reduce entry != plain")
+    res["reduce"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                         lanes_vs_plain=B)
+
+    # the span's own 1,024 pairs: its product is one
+    sp = blsk.to_device(blsk.stage_pairs(pairs), dev)
+    Qs = ((sp[2], sp[3]), (sp[4], sp[5]))
+    f_s = blsk.miller_loop_batch(sp[0], sp[1], Qs, mask=sp[6])
+    r_s = tower.flat_from_f12(blsk.product_reduce(f_s))
+    one = tower.flat_from_f12(blsk.f12_one_like(sp[0][:1]))
+    rng = np.random.default_rng(12)
+    rnd = torch.as_tensor(np.stack([F.to_mont(int.from_bytes(
+        rng.bytes(48), "big") % b.P) for _ in range(12)])[:, None]).to(dev)
+    inputs = torch.cat([r_k, r_s, one, rnd], dim=1)        # (12, 4, L)
+    prog = blsk._FINAL_EXP_PROGRAM
+    outs = [blsk._final_exp_kernel(inputs[:, i:i + 1].contiguous(), prog)
+            for i in range(BLS_FE_INPUTS)]
+    gt_k = torch.cat([g for g, _ in outs], dim=1)
+    ok_k = torch.cat([o for _, o in outs])
+    e0.record()
+    gt_p = blsk.final_exp_plain(tower.f12_from_flat(inputs), prog)
+    ok_p = blsk.gt_is_one(gt_p)
+    e1.record()
+    gt_p = F.canonical(tower.flat_from_f12(gt_p))
+    torch.cuda.synchronize()
+    err = int((gt_k - gt_p).abs().max())
+    check(err == 0, "BLS final-exp entry != plain")
+    check(torch.equal(ok_k, ok_p), "BLS final-exp verdicts != plain")
+    ints = blsk.f12_from_device(tower.f12_from_flat(inputs))
+    chain = [v for part in pool.map(_bls_chain_chunk, [[f] for f in ints])
+             for v in part]
+    check(blsk.f12_from_device(tower.f12_from_flat(gt_k)) == chain,
+          "BLS final-exp entry != final_exponentiation_chain")
+    want = [c == b.F12_ONE for c in chain]
+    check(ok_k.cpu().tolist() == want and want[1:] == [True, True, False],
+          f"BLS final-exp verdicts {ok_k.cpu().tolist()}, chain {want}")
+    res["final_exp"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                            lanes_vs_plain=BLS_FE_INPUTS,
+                            verdicts=ok_k.cpu().tolist())
+    miller_ref = [v for part in miller_ref.get() for v in part]
+    check(all(miller_ref), "BLS Miller lanes != bls12_381_ref.miller_loop "
+          f"up to a w^(3k) monomial at {[look[i] for i, v in enumerate(miller_ref) if not v]}")
+
+    # times at the path's shape: the 1,023-key span, one call
+    ms = cuda_ms(lambda: blsk.miller_loop_batch(sp[0], sp[1], Qs,
+                                                mask=sp[6]), 3)
+    res["miller"].update(lanes_timed=B, **bn_reading(
+        ms, B * miller_products_min(b.X_BLS, 0),
+        B * miller_products(b.X_BLS, 0), B * (6 + 12) * blsk.L * 4 + B,
+        BLS_MUL_IMAD))
+    ms = cuda_ms(lambda: blsk.product_reduce(f_s), 3)
+    res["reduce"].update(lanes_timed=B, **bn_reading(
+        ms, (B - 1) * F12_MUL_MIN, (B - 1) * F12_MUL_FP,
+        (B + 1) * 12 * blsk.L * 4, BLS_MUL_IMAD))
+    one_lane = r_s.contiguous()
+    ms = cuda_ms(lambda: blsk._final_exp_kernel(one_lane, prog), 3)
+    res["final_exp"].update(lanes_timed=1, **bn_reading(
+        ms, final_exp_products_min(prog, 1, BLS_F12_INV_MIN),
+        final_exp_products(prog, 1, BLS_F12_INV_FP),
+        2 * 12 * blsk.L * 4 + 1 + prog.size * 4, BLS_MUL_IMAD))
+    for entry, r in res.items():
+        r["ms_from"] = "cuda_events"
+        emit({"phase": "bls_vs_plain", "entry": entry, "ok": True,
+              "card": card, "edge_lanes": [k for k, _ in edges],
+              "masked_lanes": 4, **r})
+    return res
+
+
+def bls_tower_cases(rng, n: int):
+    """BLS12-381 tower self-test cases, as bn_tower_cases."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    g2 = (b.G2_X, b.G2_Y)
+
+    def fp():
+        return int.from_bytes(rng.bytes(48), "big") % b.P
+
+    def sc():
+        return int.from_bytes(rng.bytes(32), "big") % (b.R - 1) + 1
+    cases = []
+    for i in range(n):
+        x, y = [fp() for _ in range(12)], [fp() for _ in range(12)]
+        if i == 0:
+            x[2:] = [0] * 10
+        p = b.g1_mul(sc(), b.G1)
+        q = b.g2_mul(sc(), g2)
+        z = (fp() or 1, fp())
+        t = [b.f2_mul(q[0], z), b.f2_mul(q[1], z), z]
+        qa = q if i == 1 else b.g2_mul(sc(), g2)
+        cases.append((x + y + list(p) + [c for f2 in t for c in f2]
+                      + [c for f2 in qa for c in f2], q, qa))
+    return cases
+
+
+def bls_tower_int_misses(case, row) -> list[str]:
+    """The BLS12-381 tower self-test's 90 outputs against the int tower
+    and group law: the names of the outputs that differ."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+    vals, q, qa = case
+
+    def f12(v, o):
+        return (tuple(tuple(v[o + 2 * j:o + 2 * j + 2]) for j in range(3)),
+                tuple(tuple(v[o + 6 + 2 * j:o + 8 + 2 * j])
+                      for j in range(3)))
+
+    def affine(o):
+        X, Y, Z = (tuple(row[o + 2 * j:o + 2 * j + 2]) for j in range(3))
+        zi = b.f2_inv(Z)
+        return (b.f2_mul(X, zi), b.f2_mul(Y, zi))
+    x, y = f12(vals, 0), f12(vals, 12)
+    dbl, add = b.g2_add(q, q), b.g2_add(q, qa)
+    want = {"f2_mul": (tuple(row[0:2]), b.f2_mul(x[0][0], y[0][0])),
+            "f2_sqr": (tuple(row[2:4]), b.f2_mul(x[0][0], x[0][0])),
+            "f2_inv": (tuple(row[4:6]), b.f2_inv(x[0][0])),
+            "f12_mul": (f12(row, 6), b.f12_mul(x, y)),
+            "f12_frob": (f12(row, 18), b.f12_frob(x)),
+            "f12_inv": (f12(row, 30), b.f12_inv(x)),
+            "dbl_line_point": (affine(42), dbl),
+            "add_line_point": (affine(60), add),
+            "dbl_point": (affine(78), dbl), "add_point": (affine(84), add)}
+    return [k for k, (g, w) in want.items() if g != w]
+
+
 def bn_tower_cases(rng, n: int):
     """Tower self-test cases (36 plain values: x, y in Fp12, P in G1, T
     projective and Q affine on the twist), with T's point q and Q: case 0
@@ -2333,12 +2844,44 @@ def field_vs_ints(card, seed: int) -> None:
     misses = [bn_tower_int_misses(case, limb.words_to_ints(row))
               for case, row in zip(t_cases, got_t.numpy())]
     check(not any(misses), f"BN254 tower != Python ints: {misses}")
+
+    # BLS12-381's 381-bit core and tower (csrc/bls12_381_field.cuh,
+    # bls12_381_tower.cuh), on 12-word values
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    LP = blsk.ref.P
+
+    def words12(vals):
+        return torch.as_tensor(np.array(limb.ints_to_words(
+            list(vals), 12), dtype=np.uint32).reshape(-1, 12).view(np.int32))
+    l_edges = [0, 1, LP - 1, LP, LP + 1, 2 * LP - 1]
+    l_rand = [int.from_bytes(rng.bytes(48), "big") % (2 * LP)
+              for _ in range(512)]
+    l_pairs = [(a, b) for a in l_edges for b in l_edges] + list(
+        zip(l_rand[::2], l_rand[1::2]))
+    la, lb = words12(a for a, _ in l_pairs), words12(b for _, b in l_pairs)
+    got_l = blsk.fp_selftest(la.cuda(), lb.cuda())
+    want_l = blsk.fp_selftest_plain(la, lb)
+    torch.cuda.synchronize()
+    bad_l = int((got_l.cpu() != want_l).any(dim=1).sum())
+    check(bad_l == 0, f"381-bit core != Python ints on {bad_l} cases")
+    lt_cases = bls_tower_cases(rng, 8)
+    lw = words12(v for vals, _, _ in lt_cases for v in vals).reshape(
+        len(lt_cases), -1)
+    got_lt = blsk.tower_selftest(lw.cuda()).cpu()
+    want_lt = blsk.tower_selftest_plain(lw)
+    bad_lt = int((got_lt != want_lt).any(dim=1).sum())
+    check(bad_lt == 0, f"BLS12-381 tower != the plain tower on {bad_lt} "
+          "cases")
+    misses = [bls_tower_int_misses(case, limb.words_to_ints(row, 12))
+              for case, row in zip(lt_cases, got_lt.numpy())]
+    check(not any(misses), f"BLS12-381 tower != Python ints: {misses}")
     emit({"phase": "field_vs_ints", "ok": True, "card": card,
           "op_cases": len(pairs), "add_cases": len(adds),
           "modn_cases": len(cases), "dbl_cases": len(dbl),
           "f25_cases": len(f_pairs), "ed_cases": len(e_cases),
           "bn254_fp_cases": len(b_pairs), "bn254_tower_cases": len(t_cases),
-          "mismatches": 0})
+          "bls12_381_fp_cases": len(l_pairs),
+          "bls12_381_tower_cases": len(lt_cases), "mismatches": 0})
 
 
 def sw_sample(blk, pool, nproc, label):
@@ -2433,6 +2976,16 @@ def drive(args, pool, nproc, card):
     provp = factory.new_bccsp({"Default": "CUDA"})
     cp = pairing_path(iblk, provp, card, pool, nproc)
     pvp = pairing_vs_plain(iblk, provp, card, pool, nproc)
+    # BLS12-381: an orderer's span of block signatures, aggregated
+    span = make_bls_span(args.seed, pool, nproc)
+    emit({"phase": "bls_span", "ok": True, "signatures": max(BLS_WIDTHS),
+          "widths": list(BLS_WIDTHS), "make_s": span["make_s"]})
+    provb = factory.new_bccsp({"Default": "CUDA"})
+    cb, cbw = bls_aggregate_path(span, provb, card, pool, nproc)
+    bvp = bls_vs_plain(span, provb, card, pool)
+    # launches a call on the 1,023-key span: log2(bucket) reduce levels
+    per_call = dict(zip(BLS_KERNELS, (
+        1, cbw[max(BLS_WIDTHS)]["bucket"].bit_length() - 1, 1)))
 
     def n(counts, k):
         return sum(c[k] for c in counts.values())
@@ -2496,6 +3049,27 @@ def drive(args, pool, nproc, card):
         dict(name="bn254.g2_msm", source=src + "g2_msm.cu",
              replaces="fabric_tpu/ops/bn254.py:332", launches=n(cp, MSM),
              ptxas=ptxas_of("g2_msm", "g2_msm_kernel"), **pvp["msm"]),
+        dict(name="bls12_381.miller_loop_batch",
+             source=src + "bls12_381_pairing.cu",
+             replaces="fabric_tpu/ops/bls12_381_kernel.py:87",
+             launches=cb[BLS_MILLER],
+             launches_per_call=per_call[BLS_MILLER],
+             ptxas=ptxas_of("bls12_381_pairing", "bls_miller_kernel"),
+             **bvp["miller"]),
+        dict(name="bls12_381.product_reduce",
+             source=src + "bls12_381_pairing.cu",
+             replaces="fabric_tpu/ops/bls12_381_kernel.py:172",
+             launches=cb[BLS_REDUCE],
+             launches_per_call=per_call[BLS_REDUCE],
+             ptxas=ptxas_of("bls12_381_pairing", "bls_reduce_kernel"),
+             **bvp["reduce"]),
+        dict(name="bls12_381.final_exp_batch (one lane, gt_is_one)",
+             source=src + "bls12_381_pairing.cu",
+             replaces="fabric_tpu/ops/bls12_381_kernel.py:158",
+             launches=cb[BLS_FINAL_EXP],
+             launches_per_call=per_call[BLS_FINAL_EXP],
+             ptxas=ptxas_of("bls12_381_pairing", "bls_final_exp_kernel"),
+             **bvp["final_exp"]),
     ]
 
 
@@ -2539,7 +3113,8 @@ def main() -> int:
     emit({"phase": "build", "ok": True, "seconds": build_s, "ptxas": ptxas,
           "sass": {k: kernels.sass_mix(k) for k in (
               "ptree", "sha_windows", "fused_resident", "ladder",
-              "ed25519_verify", "bn254_pairing", "g2_msm")}})
+              "ed25519_verify", "bn254_pairing", "g2_msm",
+              "bls12_381_pairing")}})
     # stage A's entries and the resident kernel keep everything in
     # registers: no stack frame, no spills
     for lib in ("sha_windows", "fused_resident"):

@@ -2,7 +2,8 @@
 
 The port's copy of fabric_tpu/bccsp/bccsp.py (the reference contract,
 `bccsp/bccsp.go:15-134`, plus the batch-first `verify_batch`): keys,
-the verify item, the ECDSA and Ed25519 key options and the provider ABC.
+the verify item, the ECDSA, Ed25519 and BLS12-381 key options and the
+provider ABC.
 """
 
 from __future__ import annotations
@@ -59,6 +60,19 @@ class Ed25519KeyGenOpts:
 
 @dataclass(frozen=True)
 class Ed25519PublicKeyImportOpts:
+    ephemeral: bool = False
+
+
+@dataclass(frozen=True)
+class BLSKeyGenOpts:
+    """BLS12-381 min-sig keys (pk on the G2 twist, signatures in G1 —
+    the aggregatable consensus-identity shape)."""
+
+    ephemeral: bool = False
+
+
+@dataclass(frozen=True)
+class BLSPublicKeyImportOpts:
     ephemeral: bool = False
 
 

@@ -2,14 +2,17 @@
 
 The port's counterpart of fabric_tpu/bccsp/tpu.py TPUProvider, for the
 slices the port has so far: the P-256 comb-digest path, the fused verify
-tier, the Shamir ladder, the Ed25519 batch path and the BN254 pairings of
-the idemix credential checks. Everything but the batch paths delegates
+tier, the Shamir ladder, the Ed25519 batch path, the BN254 pairings of
+the idemix credential checks and the BLS12-381 aggregate verify of the
+orderer's block signatures. Everything but the batch paths delegates
 to the port's SWProvider (the pkcs11-style containment of the
 reference). `verify_batch` is the scheme router: it
 splits a batch by key scheme (`_lane_scheme`) into a P-256 sub-batch
-(`_verify_batch_p256`) and an Ed25519 one (`_verify_batch_ed25519`). A
-P-256 batch is staged on the host — strict DER, low-S and range gates,
-w = s^-1 mod n — and verified on the card.
+(`_verify_batch_p256`), an Ed25519 one (`_verify_batch_ed25519`) and
+BLS12-381 lanes, which the sw provider verifies one by one (aggregates
+arrive through `verify_aggregate`). A P-256 batch is staged on the
+host — strict DER, low-S and range gates, w = s^-1 mod n — and verified
+on the card.
 
 Message lanes (`verify_batch` items without a digest) take one of three
 routes, chosen as `_verify_batch_device` chooses them:
@@ -60,10 +63,22 @@ and products of other than 2 terms that would need padding, are served
 by the sw provider and `bn254_ref.g2_msm`: routing by size, as the
 reference does.
 
+BLS12-381 aggregates (the orderer's span of block signatures,
+fabric_tpu/orderer/blockwriter.py 131-170): `verify_aggregate` gates and
+stages the call on the host (`bls12_381.stage_pairs`: the signature's and
+keys' subgroup checks, H(m_i)), pads its pairs to a power-of-two bucket
+(masked filler lanes) and runs one Miller launch over every pair,
+log2(bucket) reduce launches and one final-exp launch on the product's
+lane (csrc/bls12_381_pairing.cu, `ops/bls12_381_kernel.py`): one verdict.
+Pair lists under `max(2, MinBatch // 4)`, and every call with the
+`BLSPairing` knob off (on by default for a CUDA device), take the staged
+host path (`bls12_381.miller_products`, `check_products`): routing by
+size, as the reference does.
+
 Device errors propagate: the port has no breaker and no sw fallback yet
-(the reference's pairing methods fall back to the host on any device
-error; here they raise), and no counterpart of `_try_fused`'s demotion to
-host hashing.
+(the reference's pairing methods and `verify_aggregate` fall back to the
+host on any device error; here they raise), and no counterpart of
+`_try_fused`'s demotion to host hashing.
 """
 
 from __future__ import annotations
@@ -84,6 +99,8 @@ from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
 from fabric_tpu_torch.common import torchenv
+from fabric_tpu_torch.ops import bls12_381 as blsagg
+from fabric_tpu_torch.ops import bls12_381_kernel as blsk
 from fabric_tpu_torch.ops import bn254, comb, ed25519, fused_verify, limb
 from fabric_tpu_torch.ops import bn254_ref, ptree, sha256, verify
 
@@ -106,6 +123,9 @@ LAUNCH_COUNTERS = {
     "miller_launches": (bn254, "miller_launches"),
     "final_exp_launches": (bn254, "final_exp_launches"),
     "g2_msm_launches": (bn254, "msm_launches"),
+    "bls_miller_launches": (blsk, "miller_launches"),
+    "bls_reduce_launches": (blsk, "reduce_launches"),
+    "bls_final_exp_launches": (blsk, "final_exp_launches"),
 }
 
 
@@ -141,7 +161,8 @@ class CUDAProvider(api.BCCSP):
                  table_cache_bytes: int = 6 << 30,
                  hash_on_host: bool = True,
                  fused_verify: bool | None = None,
-                 max_blocks: int = 64, ed25519_enabled: bool = True):
+                 max_blocks: int = 64, ed25519_enabled: bool = True,
+                 bls_pairing: bool | None = None):
         self.device = torchenv.resolve_device(device)
         self._sw = swmod.SWProvider()
         self._min_batch = min_batch
@@ -166,6 +187,9 @@ class CUDAProvider(api.BCCSP):
         # the Ed25519 kernel (CUDA.Ed25519); False serves Ed25519 lanes on
         # the sw provider
         self._ed25519 = ed25519_enabled
+        # the BLS12-381 aggregate kernels (CUDA.BLSPairing); None = on for
+        # a CUDA device; off serves every aggregate on the staged host path
+        self._bls_pairing = bls_pairing
         self._ed_tab = None
         # per-key-set tables, least recently used first: Q16 bounded by
         # bytes, Q8 (~1.97 MB per key slot) by count
@@ -186,7 +210,10 @@ class CUDAProvider(api.BCCSP):
                       "ed25519_prep_s": 0.0, "pairing_batches": 0,
                       "pairing_pairs": 0, "g2_msm_batches": 0,
                       "miller_launches": 0, "final_exp_launches": 0,
-                      "g2_msm_launches": 0}
+                      "g2_msm_launches": 0, "bls_aggregate_checks": 0,
+                      "bls_sw_lanes": 0, "bls_miller_launches": 0,
+                      "bls_reduce_launches": 0,
+                      "bls_final_exp_launches": 0}
 
     def _fused_enabled(self) -> bool:
         """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
@@ -231,18 +258,23 @@ class CUDAProvider(api.BCCSP):
     @staticmethod
     def _lane_scheme(item) -> str:
         """The router's partition key for one lane: "ed25519" for an
-        Ed25519 key, else "p256" (P-256, other ECDSA curves and dead
-        non-ECDSA keys, which the P-256 staging handles inline)."""
-        if getattr(item.key, "scheme", None) == "ed25519":
+        Ed25519 key, "bls" for a BLS12-381 key, else "p256" (P-256, other
+        ECDSA curves and dead non-ECDSA keys, which the P-256 staging
+        handles inline)."""
+        scheme = getattr(item.key, "scheme", None)
+        if scheme == "ed25519":
             return "ed25519"
+        if scheme == "bls12381":
+            return "bls"
         return "p256"
 
     def verify_batch(self, items: Sequence[api.VerifyItem]) -> list[bool]:
         """The scheme router (fabric_tpu's `verify_batch`): a batch under
         `MinBatch` serves the sw provider; otherwise its lanes are split
         by `_lane_scheme` into per-scheme sub-batches, each verified on
-        its path, and the verdicts go back in the items' order. A batch
-        of P-256 lanes alone takes the P-256 path as it is."""
+        its path (BLS lanes one by one on the sw provider, as fabric_tpu's
+        router sends them), and the verdicts go back in the items' order.
+        A batch of P-256 lanes alone takes the P-256 path as it is."""
         if len(items) < self._min_batch:
             return self._sw.verify_batch(items)
         schemes = [self._lane_scheme(it) for it in items]
@@ -254,8 +286,13 @@ class CUDAProvider(api.BCCSP):
         result = [False] * len(items)
         for scheme, lanes in by_scheme.items():
             sub = [items[i] for i in lanes]
-            out = (self._verify_batch_ed25519(sub) if scheme == "ed25519"
-                   else self._verify_batch_p256(sub))
+            if scheme == "ed25519":
+                out = self._verify_batch_ed25519(sub)
+            elif scheme == "bls":
+                self.stats["bls_sw_lanes"] += len(sub)
+                out = self._sw.verify_batch(sub)
+            else:
+                out = self._verify_batch_p256(sub)
             for i, v in zip(lanes, out):
                 result[i] = v
         return result
@@ -669,6 +706,51 @@ class CUDAProvider(api.BCCSP):
             for i, v in zip(idx, self.pairing_check_batch(prods)):
                 out[i] = v
         return out
+
+    # -- BLS12-381 aggregate verify (the orderer's block signatures) --
+
+    def verify_aggregate(self, keys, messages, signature) -> bool:
+        """BLS12-381 aggregate verify (fabric_tpu's `verify_aggregate`
+        without its sw fallback): the structural and subgroup gates stage
+        the pairing-product pair list (`bls12_381.stage_pairs`), then
+        `_bls_pairing_check` decides it, on the card or on the staged host
+        path. Verdicts equal the sw provider's on every route."""
+        ops = swmod.bls_aggregate_operands(keys, signature)
+        if ops is None:
+            return False
+        pairs = blsagg.stage_pairs(ops[0], list(messages), ops[1])
+        out = False if pairs is None else self._bls_pairing_check(pairs)
+        self.stats["bls_aggregate_checks"] += 1
+        return out
+
+    def _bls_pairing_enabled(self) -> bool:
+        """The BLS kernels' knob (CUDA.BLSPairing): as set, else on for a
+        CUDA device and off on the CPU."""
+        if self._bls_pairing is not None:
+            return self._bls_pairing
+        return self.device.type == "cuda"
+
+    def _bls_pairing_check(self, pairs) -> bool:
+        """One staged pair list: the card's kernels when the knob is on
+        and the pair count reaches `max(2, MinBatch // 4)`, else the
+        staged host path (routing by size, as the reference does)."""
+        if (not self._bls_pairing_enabled()
+                or len(pairs) < max(2, self._min_batch // 4)):
+            return blsagg.check_products(blsagg.miller_products(pairs))
+        return self._dispatch_bls_pairing(pairs)
+
+    def _dispatch_bls_pairing(self, pairs) -> bool:
+        """Pad the pairs to a power-of-two bucket (masked filler lanes
+        contribute Fp12 one), stage them, and run one Miller, log2(bucket)
+        reduce and one final-exp launch; one verdict comes back."""
+        n = len(pairs)
+        staged = blsk.to_device(blsk.stage_pairs(pairs, pad_to=_pow2(n)),
+                                self.device)
+        with self._count_launches():
+            out = blsk.pairs_product_is_one(*staged)
+        self.stats["pairing_batches"] += 1
+        self.stats["pairing_pairs"] += n
+        return bool(out.cpu()[0])
 
     @contextlib.contextmanager
     def _count_launches(self):

@@ -9,7 +9,7 @@ package's `TPU:` block (`TpuOpts`):
      "CUDA": {"Device": "cuda:0" | "cpu", "MinBatch": 16, "MaxKeys": 16,
               "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144,
               "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64,
-              "Ed25519": true}}
+              "Ed25519": true, "BLSPairing": true}}
 
 With no Device the provider runs on cuda:0 and raises where CUDA is
 absent; "cpu" runs the plain torch versions (the tests' choice).
@@ -42,6 +42,9 @@ class CudaOpts:
     # the Ed25519 kernel; False serves Ed25519 lanes on the sw provider
     # (verdicts identical)
     ed25519: bool = True
+    # the BLS12-381 aggregate kernels; None = on for the card, off on the
+    # CPU; off serves every aggregate on the staged host path
+    bls_pairing: Optional[bool] = None
 
 
 @dataclass
@@ -69,6 +72,8 @@ class FactoryOpts:
                               if c.get("FusedVerify") is not None else None),
                 max_blocks=int(c.get("MaxBlocks", 64)),
                 ed25519=bool(c.get("Ed25519", True)),
+                bls_pairing=(bool(c["BLSPairing"])
+                             if c.get("BLSPairing") is not None else None),
             ),
         )
 
@@ -90,5 +95,6 @@ def new_bccsp(opts) -> BCCSP:
                             hash_on_host=c.hash_on_host,
                             fused_verify=c.fused_verify,
                             max_blocks=c.max_blocks,
-                            ed25519_enabled=c.ed25519)
+                            ed25519_enabled=c.ed25519,
+                            bls_pairing=c.bls_pairing)
     raise ValueError(f"unknown BCCSP default {opts.default!r}")

@@ -1,15 +1,21 @@
-"""Software BCCSP provider, P-256, Ed25519 and the BN254 pairings — the
-port's CPU oracle.
+"""Software BCCSP provider, P-256, Ed25519, BLS12-381 and the BN254
+pairings — the port's CPU oracle.
 
-A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256, Ed25519 and BN254
-pairing slices, on the port's pure-Python backends (bccsp/p256_host.py,
-bccsp/ed25519_host.py, ops/bn254_ref.py): the card's host has no
-`cryptography` wheel. ECDSA verification semantics
+A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256, Ed25519, BLS12-381 and
+BN254 pairing slices, on the port's pure-Python backends
+(bccsp/p256_host.py, bccsp/ed25519_host.py, ops/bls12_381_ref.py,
+ops/bn254_ref.py): the card's host has no `cryptography` wheel. ECDSA verification semantics
 follow `bccsp/sw/ecdsa.go:41-57` in order: strict DER unmarshal, the low-S
 policy against the key's curve order, then the curve equation. Ed25519's
 policy (strict encodings, S < L, small-order rejection, the cofactorless
 equation) lives in `ed25519_host`; Ed25519 keys sign and verify messages,
 not digests (`sign_message`).
+
+BLS12-381 keys (min-sig: pk on the G2 twist, signatures in G1) sign and
+verify messages too; `verify_aggregate` checks a span's aggregated
+signature against its keys and messages with one pairing product
+(`bls12_381_ref.aggregate_verify`), the host reference the CUDA
+provider's aggregate path is held to.
 
 The pairing methods (`pairing_check_batch`, `bls_verify_batch`: the exact
 Python-int pairing) are the idemix credential checks' host oracle; the
@@ -24,6 +30,7 @@ NotImplementedError.
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,6 +38,7 @@ import numpy as np
 from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import p256_host, utils
+from fabric_tpu_torch.ops import bls12_381_ref as bref
 
 NOT_P256 = ("ECDSA over curves other than P-256 needs OpenSSL on the sw "
             "side; the port's non-P-256 sw-lane slice (ROADMAP) adds it")
@@ -165,6 +173,94 @@ class Ed25519PrivateKey(api.Key):
         return self._seed
 
 
+class BLSPublicKey(api.Key):
+    """BLS12-381 min-sig public key: a G2 twist point (192-byte
+    uncompressed encoding), subgroup-checked at construction —
+    aggregation is unsound over points outside the order-r group."""
+
+    scheme = "bls12381"
+    sign_message = True
+
+    def __init__(self, raw: bytes):
+        self.point = bref.g2_from_bytes(raw)
+        if self.point is None:
+            raise ValueError("BLS public key is the identity")
+        self._raw = bytes(raw)
+
+    def bytes(self) -> bytes:
+        return self._raw
+
+    def ski(self) -> bytes:
+        return hashlib.sha256(self._raw).digest()
+
+    def symmetric(self) -> bool:
+        return False
+
+    def private(self) -> bool:
+        return False
+
+    def public_key(self) -> "BLSPublicKey":
+        return self
+
+
+class BLSPrivateKey(api.Key):
+    scheme = "bls12381"
+    sign_message = True
+
+    def __init__(self, sk: int):
+        if not 1 <= sk < bref.R:
+            raise ValueError("BLS secret scalar out of range")
+        self._sk = sk
+        self._pub = BLSPublicKey(bref.g2_to_bytes(
+            bref.g2_mul(sk, (bref.G2_X, bref.G2_Y))))
+
+    def bytes(self) -> bytes:
+        raise TypeError("private key export not allowed")
+
+    def ski(self) -> bytes:
+        return self._pub.ski()
+
+    def symmetric(self) -> bool:
+        return False
+
+    def private(self) -> bool:
+        return True
+
+    def public_key(self) -> BLSPublicKey:
+        return self._pub
+
+    @property
+    def sk(self) -> int:
+        return self._sk
+
+
+def bls_aggregate_signatures(sigs) -> bytes:
+    """Aggregate serialized G1 signatures into one 96-byte signature (the
+    sum of the points). Raises ValueError on malformed input: callers
+    aggregate their own just-produced signatures (the blockwriter's
+    span), so garbage here is a bug, not data."""
+    pts = [bref.g1_from_bytes(s, subgroup_check=False) for s in sigs]
+    return bref.g1_to_bytes(bref.bls_aggregate(pts))
+
+
+def bls_aggregate_operands(keys, signature: bytes):
+    """`verify_aggregate`'s operands, for every provider: (the keys' G2
+    points, the aggregated signature's G1 point, not yet subgroup-checked
+    and None for the identity), or None where the signature's bytes do
+    not decode (the verdict is then False). TypeError unless every key
+    is a BLS key."""
+    pks = []
+    for k in keys:
+        pub = k.public_key()
+        if not isinstance(pub, BLSPublicKey):
+            raise TypeError("verify_aggregate requires BLS keys")
+        pks.append(pub.point)
+    try:
+        return pks, bref.g1_from_bytes(signature, subgroup_check=False)
+    except ValueError:
+        return None
+
+
 _HASHERS = {
     "SHA256": hashlib.sha256,
     "SHA384": hashlib.sha384,
@@ -190,8 +286,8 @@ def check_signature(key, signature: bytes) -> Optional[tuple[int, int]]:
 
 
 class SWProvider(api.BCCSP):
-    """CPU provider (reference: `bccsp/sw/new.go`), P-256 ECDSA and
-    Ed25519."""
+    """CPU provider (reference: `bccsp/sw/new.go`), P-256 ECDSA, Ed25519
+    and BLS12-381."""
 
     def __init__(self):
         # non-ephemeral keys by SKI, so get_key(ski) resolves them (the
@@ -208,6 +304,9 @@ class SWProvider(api.BCCSP):
     def key_gen(self, opts) -> api.Key:
         if isinstance(opts, api.Ed25519KeyGenOpts):
             key: api.Key = Ed25519PrivateKey(edh.generate_seed())
+        elif isinstance(opts, api.BLSKeyGenOpts):
+            sk, _ = bref.bls_keygen(os.urandom(32))
+            key = BLSPrivateKey(sk)
         elif not isinstance(opts, api.ECDSAKeyGenOpts):
             raise TypeError(f"unsupported KeyGenOpts {opts!r}")
         elif opts.curve != "P-256":
@@ -222,6 +321,9 @@ class SWProvider(api.BCCSP):
         if isinstance(opts, api.Ed25519PublicKeyImportOpts):
             key: api.Key = raw if isinstance(raw, Ed25519PublicKey) \
                 else Ed25519PublicKey(bytes(raw))
+        elif isinstance(opts, api.BLSPublicKeyImportOpts):
+            key = raw if isinstance(raw, BLSPublicKey) \
+                else BLSPublicKey(bytes(raw))
         elif isinstance(opts, api.ECDSAPublicKeyImportOpts):
             key = raw if isinstance(raw, ECDSAPublicKey) \
                 else ECDSAPublicKey(*p256_host.decode_spki(bytes(raw)))
@@ -247,10 +349,12 @@ class SWProvider(api.BCCSP):
     def sign(self, key: api.Key, digest: bytes, opts=None) -> bytes:
         """Low-S DER signature over a precomputed digest (reference:
         `bccsp/sw/ecdsa.go:27-39`), with RFC 6979 nonces. For an Ed25519
-        key (`sign_message`) `digest` is the message itself: RFC 8032
-        hashes internally."""
+        or BLS key (`sign_message`) `digest` is the message itself: RFC
+        8032 and the BLS hash-to-G1 hash internally."""
         if isinstance(key, Ed25519PrivateKey):
             return edh.sign(key.seed, digest)
+        if isinstance(key, BLSPrivateKey):
+            return bref.g1_to_bytes(bref.bls_sign(key.sk, digest))
         if not isinstance(key, ECDSAPrivateKey):
             raise TypeError("sign requires an ECDSA private key")
         if len(digest) not in _DIGEST_LENS:
@@ -263,6 +367,12 @@ class SWProvider(api.BCCSP):
         pub = key.public_key()
         if isinstance(pub, Ed25519PublicKey):
             return edh.verify(pub.bytes(), signature, digest)
+        if isinstance(pub, BLSPublicKey):
+            try:
+                sig = bref.g1_from_bytes(signature, subgroup_check=False)
+            except ValueError:
+                return False
+            return bref.bls_verify(pub.point, digest, sig)
         if not isinstance(pub, ECDSAPublicKey):
             raise TypeError("verify requires an ECDSA key")
         if not pub.is_p256():
@@ -276,14 +386,24 @@ class SWProvider(api.BCCSP):
         out = []
         for it in items:
             if getattr(it.key, "sign_message", False):
-                # Ed25519 hashes internally: whichever field the caller
-                # set carries the raw message, never pre-hashed
+                # Ed25519 and BLS hash internally: whichever field the
+                # caller set carries the raw message, never pre-hashed
                 data = it.message if it.message is not None else it.digest
             else:
                 data = it.digest if it.digest is not None \
                     else self.hash(it.message)
             out.append(self.verify(it.key, it.signature, data))
         return out
+
+    def verify_aggregate(self, keys, messages, signature) -> bool:
+        """BLS aggregate verify, the host reference (one pairing product
+        by `bls12_381_ref`): keys[i] signed messages[i], `signature` is
+        the 96-byte aggregated G1 point. The CUDA provider's aggregate
+        path gives the same verdicts."""
+        ops = bls_aggregate_operands(keys, signature)
+        if ops is None:
+            return False
+        return bref.aggregate_verify(ops[0], list(messages), ops[1])
 
     # -- pairings (host oracle; the CUDA provider batches these on the
     #    card — reference consumer: idemix credential verification) --

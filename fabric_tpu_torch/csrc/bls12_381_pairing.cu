@@ -1,0 +1,196 @@
+// BLS12-381 aggregate verification on Hopper, for the orderer's span of
+// block signatures (CUDAProvider.verify_aggregate). Not a port of a Pallas
+// kernel: the JAX package runs these as XLA programs,
+// fabric_tpu/ops/bls12_381_kernel.py miller_loop_batch (:87),
+// _product_reduce (:172) and final_exp_batch (:158) with gt_is_one, which
+// pairs_product_is_one (:189) chains. In the port their plain torch
+// versions are millions of small launches a call, so the card runs each
+// as a kernel:
+//
+//   bls_miller_launch: pts (6, B, 30) int32 limbs (xP, yP, qx0, qx1, qy0,
+//     qy1; ops/bls12_381_kernel.py stage_pairs), mask (B,) bool, consts
+//     (218 words, BlsConsts), out (12, B, 30), B, the loop's bits after
+//     its leading one as two 32-bit halves (lo, hi) and their count
+//     (1..64).
+//   bls_reduce_launch: f (12, B, 30) in place, consts, B, half: for
+//     i < half, f[i] = f[i] * f[i + half] (one level of the halving
+//     product; the wrapper launches log2(B) levels).
+//   bls_final_exp_launch: f (12, B, 30), consts, the program (rows, 4)
+//     int32 and its row count, gt (12, B, 30), ok (B,) bool, B. The
+//     provider runs it on one lane: the product of every pair.
+//
+// Beside them, on no path, the self-tests of the core and the tower
+// (ops/bls12_381_kernel.py fp_selftest, tower_selftest; chip_smoke.py
+// field_vs_ints):
+//   bls_fp_selftest_launch: a, b (n, 12) 32-bit little-endian words of
+//     plain values below 2p, consts -> out (n, 72) uint32: a mod p,
+//     a + b, a - b, a * b, a^-1 and a through the 13-bit layout
+//     (canonical words).
+//   bls_tower_selftest_launch: cases (n, 432) words of 36 plain values,
+//     consts -> out (n, 1080) uint32: the 90 canonical values of
+//     tower_selftest (bls12_381_tower.cuh).
+//
+// What bounds them on this card: 32-bit integer multiply-adds. A field
+// product is 12 x 12 partial products (a low and a high IMAD each) and a
+// Montgomery reduction of the same size: 576 IMAD. The Miller loop over
+// |x| = 0xd201000000010000 is 63 steps of f^2 (81 products), a doubling
+// with its tangent line (52) and f * line (81), 5 of them an addition
+// with its chord line (58) and f * line (81): 14,177 products a lane. A
+// level of the reduce is one Fp12 product a lane (81). The final
+// exponentiation is 1/f (four Fp6 products, the adjoint, 380 squarings
+// and 228 products of Fermat's inverse in Fp), then the program's Fp12
+// products and Frobenius maps (15 each). Operands and results are ~2 KB a
+// lane, so bytes do not bound them (chip_smoke.py bls_vs_plain:
+// bn_reading at BLS_MUL_IMAD).
+//
+// The design, a simple first kernel, is bn254_pairing.cu's: one thread per
+// lane, the field on 12 x 32-bit words (bls12_381_field.cuh: CIOS, lazy
+// reduction below 2p), the tower's products, Frobenius, inversions and
+// twist steps as calls over operands in local memory
+// (bls12_381_tower.cuh), the constants in shared memory; the Miller loop
+// branches on its bits and the final exponentiation interprets the
+// program's rows, both the same for every lane. 32-thread blocks: a call
+// holds a few hundred to a few thousand lanes, so small blocks spread them
+// over more SMs. Later speed work (ROADMAP queue 2): sparse line products,
+// cyclotomic squarings, PTX carry chains, a one-launch reduce, several
+// threads a lane for the final exponentiation.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bls12_381_pairing.cuh"
+
+namespace {
+
+using namespace bls381;
+
+constexpr int THREADS = 32;
+
+__global__ void __launch_bounds__(THREADS)
+bls_miller_kernel(const int* __restrict__ pts,
+                  const uint8_t* __restrict__ mask,
+                  const uint32_t* __restrict__ consts, int* __restrict__ out,
+                  int B, uint32_t bits_lo, uint32_t bits_hi, int nbits) {
+  __shared__ BlsConsts k;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  miller_lane(pts, mask, B, lane, bits_lo, bits_hi, nbits, k, out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+bls_reduce_kernel(int* __restrict__ f, const uint32_t* __restrict__ consts,
+                  int B, int half) {
+  __shared__ BlsConsts k;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= half) return;
+  reduce_lane(f, B, i, half, k);
+}
+
+__global__ void __launch_bounds__(THREADS)
+bls_final_exp_kernel(const int* __restrict__ f,
+                     const uint32_t* __restrict__ consts,
+                     const int* __restrict__ prog, int nrows,
+                     int* __restrict__ gt, uint8_t* __restrict__ ok, int B) {
+  __shared__ BlsConsts k;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  final_exp_lane(f, B, lane, prog, nrows, k, gt, ok);
+}
+
+__global__ void __launch_bounds__(THREADS)
+bls_fp_selftest_kernel(const uint32_t* __restrict__ a,
+                       const uint32_t* __restrict__ b,
+                       const uint32_t* __restrict__ consts, int n,
+                       uint32_t* __restrict__ out) {
+  __shared__ BlsConsts k;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    fp_selftest(a + NW * i, b + NW * i, k.r2, k.c_in, k.c_out,
+                out + 6 * NW * i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+bls_tower_selftest_kernel(const uint32_t* __restrict__ cases,
+                          const uint32_t* __restrict__ consts, int n,
+                          uint32_t* __restrict__ out) {
+  __shared__ BlsConsts k;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    tower_selftest(cases + NW * TOWER_IN * i, k, out + NW * TOWER_OUT * i);
+}
+
+int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+}  // namespace
+
+// Each enqueues its kernel on `stream` and returns cudaGetLastError(): 0
+// when the launch was accepted. None allocates or synchronises.
+extern "C" int bls_miller_launch(const void* pts, const void* mask,
+                                 const void* consts, void* out, int B,
+                                 int bits_lo, int bits_hi, int nbits,
+                                 void* stream) {
+  if (B <= 0) return 0;
+  bls_miller_kernel<<<blocks(B), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pts), static_cast<const uint8_t*>(mask),
+      static_cast<const uint32_t*>(consts), static_cast<int*>(out), B,
+      static_cast<uint32_t>(bits_lo), static_cast<uint32_t>(bits_hi), nbits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bls_reduce_launch(void* f, const void* consts, int B,
+                                 int half, void* stream) {
+  if (half <= 0 || 2 * half > B) return static_cast<int>(cudaErrorInvalidValue);
+  bls_reduce_kernel<<<blocks(half), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(f), static_cast<const uint32_t*>(consts), B, half);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bls_final_exp_launch(const void* f, const void* consts,
+                                    const void* prog, int nrows, void* gt,
+                                    void* ok, int B, void* stream) {
+  if (B <= 0) return 0;
+  bls_final_exp_kernel<<<blocks(B), THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(f), static_cast<const uint32_t*>(consts),
+      static_cast<const int*>(prog), nrows, static_cast<int*>(gt),
+      static_cast<uint8_t*>(ok), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bls_fp_selftest_launch(const void* a, const void* b,
+                                      const void* consts, int n, void* out,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  bls_fp_selftest_kernel<<<blocks(n), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<const uint32_t*>(consts), n, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bls_tower_selftest_launch(const void* cases,
+                                         const void* consts, int n, void* out,
+                                         void* stream) {
+  if (n <= 0) return 0;
+  bls_tower_selftest_kernel<<<blocks(n), THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cases),
+      static_cast<const uint32_t*>(consts), n, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* bls12_381_pairing_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

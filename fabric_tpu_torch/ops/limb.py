@@ -15,6 +15,10 @@ so every later stage can be held against the JAX package limb for limb:
     is ≥ 2*2^13: intermediate limbs never go negative, so three carry
     rounds always settle.
 
+`LimbLayout` and `layout_for_bits` carry the limb count of a wider
+modulus (fabric_tpu's same-named pair): `mont.MontMod` derives 30 limbs
+for BLS12-381's 381-bit p from them, with the same int32 column bound.
+
 Where the JAX code accumulates product columns one row at a time, this
 port forms the outer product and sums it along anti-diagonals (and the
 high-limb fold as one broadcast product): the same integer sums, fewer
@@ -34,6 +38,57 @@ import torch.nn.functional as F
 W = 13                      # bits per limb
 L = 20                      # limbs per 256-bit value (13*20 = 260 bits)
 MASK = (1 << W) - 1
+
+
+# ---------------------------------------------------------------------------
+# Limb layout (the limb count per modulus width; 13-bit limbs stay)
+# ---------------------------------------------------------------------------
+
+class LimbLayout:
+    """Limb geometry for one modulus width (fabric_tpu's LimbLayout): the
+    20-limb layout above with the limb COUNT a parameter, so that
+    BLS12-381's 381-bit field (30 limbs) uses the same carry and multiply
+    code. The int32 bound is re-derived per layout: a schoolbook column
+    holds at most L terms of (2^W)^2, REDC adds up to L more terms of
+    u_i * m_limb into a carried (<= 2^W) limb plus a carry below
+    2^(31-W), so
+
+        L * 2^(2W) + 2^(31-W) + 2^W < 2^31,
+
+    which admits L <= 31 at W = 13; a wider layout raises ValueError."""
+
+    def __init__(self, nlimbs: int, w: int = W):
+        if nlimbs < 1:
+            raise ValueError("LimbLayout needs at least one limb")
+        worst = nlimbs * (1 << (2 * w)) + (1 << (31 - w)) + (1 << w)
+        if worst >= 1 << 31:
+            most = ((1 << 31) - (1 << (31 - w)) - (1 << w)) >> (2 * w)
+            raise ValueError(
+                f"limb layout L={nlimbs} W={w} overflows int32 column "
+                f"accumulation ({worst} >= 2^31); the schoolbook/REDC "
+                f"bound admits at most L={most} limbs at W={w}")
+        self.W = w
+        self.L = nlimbs
+
+    def __repr__(self) -> str:
+        return f"LimbLayout(L={self.L}, W={self.W})"
+
+
+# the 20-limb layout every <= 256-bit field of the port uses
+DEFAULT_LAYOUT = LimbLayout(L)
+
+
+def layout_for_bits(bits: int) -> LimbLayout:
+    """The smallest layout whose Montgomery R covers a `bits`-wide odd
+    modulus (W*L >= bits + 2): the 20-limb layout for every 251..258-bit
+    modulus, 30 limbs for BLS12-381's 381-bit p; widths past ~401 bits
+    raise in LimbLayout's int32 bound."""
+    if bits < 1:
+        raise ValueError("modulus width must be positive")
+    n = -(-(bits + 2) // W)          # ceil((bits + 2) / W)
+    if n <= DEFAULT_LAYOUT.L:
+        return DEFAULT_LAYOUT
+    return LimbLayout(n)
 
 
 # ---------------------------------------------------------------------------
@@ -61,18 +116,19 @@ def limbs_to_int(a) -> int:
     return sum(int(v) << (W * i) for i, v in enumerate(a.tolist()))
 
 
-def ints_to_words(vals) -> list[int]:
-    """Python ints below 2^256 -> their little-endian 32-bit words, 8
-    each, concatenated (the CUDA cores' layout)."""
-    return [(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(8)]
+def ints_to_words(vals, n: int = 8) -> list[int]:
+    """Python ints below 2^(32n) -> their little-endian 32-bit words, n
+    each (8 for 256-bit values, 12 for BLS12-381's), concatenated (the
+    CUDA cores' layout)."""
+    return [(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(n)]
 
 
-def words_to_ints(words) -> list[int]:
-    """(8k,) little-endian 32-bit words (any integer type; signed values
-    are taken mod 2^32) -> k Python ints."""
+def words_to_ints(words, n: int = 8) -> list[int]:
+    """(n*k,) little-endian 32-bit words (any integer type; signed values
+    are taken mod 2^32) -> k Python ints of n words each."""
     return [sum((int(w) & 0xFFFFFFFF) << (32 * i)
-                for i, w in enumerate(words[j:j + 8]))
-            for j in range(0, len(words), 8)]
+                for i, w in enumerate(words[j:j + n]))
+            for j in range(0, len(words), n)]
 
 
 def ints_to_limbs(xs, n: int = L) -> np.ndarray:

@@ -1,14 +1,15 @@
 """Montgomery modular arithmetic on 13-bit limb tensors.
 
-Port of fabric_tpu/ops/mont.py `MontMod` on the 20-limb layout
-(R = 2^260), for the fields whose prime `limb.Mod`'s fold at 2^256 does
-not serve: 2^255 - 19 (Ed25519, below 2^255) and BN254's dense 254-bit
-p (the pairing tower, ops/tower.py). Both use word-level Montgomery
-reduction (REDC). Every operation follows the JAX class step for step,
-so results agree limb for limb. The 381-bit layout of BLS12-381 is not
-here yet.
+Port of fabric_tpu/ops/mont.py `MontMod`, for the fields whose prime
+`limb.Mod`'s fold at 2^256 does not serve: 2^255 - 19 (Ed25519, below
+2^255), BN254's dense 254-bit p (the pairing tower, ops/tower.py) and
+BLS12-381's 381-bit p. All use word-level Montgomery reduction (REDC)
+over the limb layout `limb.layout_for_bits` derives from the modulus
+width, as the JAX class does: 20 limbs (R = 2^260) for the 251..258-bit
+moduli, 30 limbs (R = 2^390) for BLS12-381. Every operation follows the
+JAX class step for step, so results agree limb for limb.
 
-Value discipline (R = 2^260, 4m < R):
+Value discipline (R = 2^(13 L), 4m < R):
   * every value is kept below 2m with limbs in [0, 2^13];
   * mul: T = a*b < 4m^2 < m*R, so one REDC pass returns a value below 2m
     (one conditional subtraction of 2m); column sums stay below 2^31;
@@ -29,16 +30,22 @@ from fabric_tpu_torch.ops.limb import MASK, W, carry3, mul_columns
 
 
 class MontMod:
-    """Montgomery context for an odd modulus m of 251..258 bits on the
-    20-limb layout (the one fabric_tpu's layout_for_bits picks there)."""
+    """Montgomery context for an odd modulus m. `layout` pins the limb
+    geometry; None derives the smallest layout covering the modulus
+    (`limb.layout_for_bits`: 20 limbs for 251..258 bits, 30 for
+    BLS12-381's p). A layout too narrow for 4m < R raises ValueError, as
+    one past the int32 column bound does in `limb.LimbLayout`."""
 
-    def __init__(self, m: int):
+    def __init__(self, m: int, layout: limb.LimbLayout | None = None):
         if m < 3 or m % 2 == 0:
             raise ValueError("MontMod needs an odd modulus >= 3")
-        self.L = limb.L
-        if 4 * m >= 1 << (W * self.L):
-            raise ValueError("modulus is too wide for 20 limbs: REDC needs "
-                             "4m < R")
+        if layout is None:
+            layout = limb.layout_for_bits(m.bit_length())
+        if 4 * m >= 1 << (layout.W * layout.L):
+            raise ValueError(
+                f"modulus is too wide for {layout!r}: REDC needs 4m < R")
+        self.layout = layout
+        self.L = layout.L
         self.m = m
         self.R = 1 << (W * self.L)
         self.m_limbs = limb.int_to_limbs(m, self.L)
@@ -125,7 +132,8 @@ class MontMod:
 
 
 # a chunk of 4 limbs: 52 bits, so a chunk of limbs up to 2^13 and its
-# borrow fit an int64
+# borrow fit an int64; a width that is not a multiple of 4 (30 limbs, or
+# 31 in `add` at L = 30) pads its last chunk with zero limbs
 _CH = 4
 _CW = W * _CH
 _SHIFTS = torch.arange(0, _CW, W, dtype=torch.int64)

@@ -9,9 +9,10 @@ fabric_tpu, so it also runs on the card's machine, which has neither
 
 Each kernel is held to its plain torch version on the same inputs (the
 tree kernel also to Python-int sums, the SHA kernels to hashlib, the
-field and mod-n cores to Python ints, the BN254 pairing kernels at
-truncated loops, and in full to bn254_ref): exact equality. The provider, on
-every message route and on the commit path, to its sw provider.
+field and mod-n cores to Python ints, the BN254 and BLS12-381 pairing
+kernels at truncated loops, and in full to bn254_ref and bls12_381_ref):
+exact equality. The provider, on every message route, on the commit path
+and on the BLS12-381 aggregate path, to its sw provider.
 """
 
 import hashlib
@@ -747,3 +748,107 @@ def test_provider_pairing_methods_match_sw(dev):
              [(5, qs[0]), (0, None), (5, bref.g2_neg_tw(qs[0]))]]
     assert prov.g2_msm_batch(lanes) == [bref.g2_msm(lane) for lane in lanes]
     assert prov.stats["g2_msm_launches"] == 1
+
+
+# -- BLS12-381 (the orderer's aggregate verify) --
+
+def _bls_pairs(seed, n):
+    import random
+
+    from fabric_tpu_torch.ops import bls12_381_ref as lref
+    rng = random.Random(seed)
+    g2 = (lref.G2_X, lref.G2_Y)
+    return [(lref.G1, g2)] + [
+        (lref.g1_mul(rng.randrange(2, lref.R), lref.G1),
+         lref.g2_mul(rng.randrange(2, lref.R), g2)) for _ in range(n - 1)]
+
+
+def test_bls12_381_core_and_tower_match_ints(dev):
+    """csrc/bls12_381_field.cuh and bls12_381_tower.cuh (nvcc,
+    bls12_381_pairing.cu) against Python ints and the plain tower."""
+    import random
+
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    P = blsk.ref.P
+    rng = random.Random(99)
+    edges = [0, 1, P - 1, P, P + 1, 2 * P - 1]
+    pairs = [(a, b) for a in edges for b in edges] + [
+        (rng.randrange(2 * P), rng.randrange(2 * P)) for _ in range(64)]
+
+    def words(vals):
+        return torch.as_tensor(np.array(
+            [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
+             for v in vals], dtype=np.uint32).view(np.int32))
+    a, b = words(x for x, _ in pairs), words(y for _, y in pairs)
+    got = blsk.fp_selftest(a.to(dev), b.to(dev)).cpu()
+    assert torch.equal(got, blsk.fp_selftest_plain(a, b))
+    cases = words(rng.randrange(P) for _ in range(36 * 2)).reshape(2, -1)
+    got = blsk.tower_selftest(cases.to(dev)).cpu()
+    assert torch.equal(got, blsk.tower_selftest_plain(cases))
+
+
+def test_bls12_381_entries_match_plain(dev):
+    """The Miller entry at a truncated loop (a masked lane among them),
+    the reduce and the final-exp entry on a short program against their
+    plain versions on the card (canonical limbs equal), each one launch
+    (the reduce one a level); the full Miller loop, reduce and program
+    against bls12_381_ref on a product that is one."""
+    from fabric_tpu_torch.ops import bls12_381 as blsagg
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    from fabric_tpu_torch.ops import tower
+    lref = blsk.ref
+    st = blsk.to_device(blsk.stage_pairs(_bls_pairs(100, 7)), dev)
+    Q = ((st[2], st[3]), (st[4], st[5]))
+    loop = 0b1011010
+    m0, r0, f0 = (blsk.miller_launches, blsk.reduce_launches,
+                  blsk.final_exp_launches)
+    got = tower.flat_from_f12(blsk.miller_loop_batch(st[0], st[1], Q,
+                                                     loop=loop, mask=st[6]))
+    plain = blsk.miller_loop_plain(st[0], st[1], Q, loop=loop)
+    plain = tower.select_f12(st[6], plain, blsk.f12_one_like(st[0]))
+    assert torch.equal(got, blsk.F.canonical(tower.flat_from_f12(plain)))
+    red = tower.flat_from_f12(blsk.product_reduce(tower.f12_from_flat(got)))
+    want = tower.flat_from_f12(blsk.product_reduce_plain(plain))
+    assert torch.equal(red, blsk.F.canonical(want))
+    A = tower.Asm()
+    A.conj(2, 0)
+    A.mul(2, 2, 1)
+    A.frob(6, 2)
+    A.mul(0, 6, 2)
+    A.pow_static(3, 0, 7, 0b1101)
+    A.mul(0, 3, 0)
+    gt = tower.flat_from_f12(blsk.final_exp_batch(
+        tower.f12_from_flat(red), program=A.program()))
+    want = blsk.final_exp_plain(tower.f12_from_flat(want), A.program())
+    assert torch.equal(gt, blsk.F.canonical(tower.flat_from_f12(want)))
+    assert (blsk.miller_launches - m0, blsk.reduce_launches - r0,
+            blsk.final_exp_launches - f0) == (1, 3, 1)
+    sk, pk = lref.bls_keygen(b"card")
+    msgs = [b"x", b"y", b"z"]
+    agg = lref.bls_aggregate([lref.bls_sign(sk, m) for m in msgs])
+    pairs = blsagg.stage_pairs([pk] * 3, msgs, agg)
+    assert blsk.verify_pairs(pairs, device=dev) is True
+    pairs[2] = (lref.hash_to_g1(b"forged"), pk)
+    assert blsk.verify_pairs(pairs, device=dev) is False
+
+
+def test_provider_verify_aggregate_on_the_card(dev):
+    """A valid 7-key aggregate and a forged one through CUDAProvider on the
+    card, against the sw provider; one Miller, log2(8) = 3 reduce and one
+    final-exp launch a call."""
+    from fabric_tpu_torch.bccsp import bccsp as api
+    csp = sw.SWProvider()
+    keys = [csp.key_gen(api.BLSKeyGenOpts(ephemeral=True)) for _ in range(7)]
+    msgs = [b"block %d" % i for i in range(7)]
+    agg = sw.bls_aggregate_signatures([csp.sign(k, m)
+                                       for k, m in zip(keys, msgs)])
+    pubs = [k.public_key() for k in keys]
+    prov = factory.new_bccsp({"Default": "CUDA"})
+    forged = msgs[:3] + [b"forged"] + msgs[4:]
+    for m, want in ((msgs, True), (forged, False)):
+        assert prov.verify_aggregate(pubs, m, agg) is want
+        assert csp.verify_aggregate(pubs, m, agg) is want
+    assert (prov.stats["bls_miller_launches"],
+            prov.stats["bls_reduce_launches"],
+            prov.stats["bls_final_exp_launches"]) == (2, 6, 2)
+    assert prov.stats["pairing_pairs"] == 16

@@ -36,7 +36,8 @@ names = ["fabric_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 for name in ("ops.verify", "ops.mont", "ops.ed25519", "bccsp.ed25519_host",
-             "ops.tower", "ops.bn254", "ops.bn254_ref"):
+             "ops.tower", "ops.bn254", "ops.bn254_ref", "ops.bls12_381_ref",
+             "ops.bls12_381", "ops.bls12_381_kernel"):
     assert "fabric_tpu_torch." + name in names, name
 importlib.import_module("chip_smoke")
 leaked = [m for m in sys.modules
@@ -60,8 +61,9 @@ def test_port_imports_without_jax_or_fabric_tpu():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[1])
-    # __init__, kernels, stage_a_timing, common.torchenv,
+    # __init__, kernels, stage_a_timing, ladder_timing, common.torchenv,
     # ops.{limb,p256,comb,ptree,sha256,fused_verify,verify,mont,ed25519,
-    # tower,bn254,bn254_ref}, bccsp.{bccsp,utils,p256_host,ed25519_host,sw,
-    # cuda,factory} and the subpackages
-    assert n >= 26, out.stdout
+    # tower,bn254,bn254_ref,bls12_381_ref,bls12_381,bls12_381_kernel},
+    # bccsp.{bccsp,utils,p256_host,ed25519_host,sw,cuda,factory} and the
+    # subpackages
+    assert n >= 30, out.stdout
