@@ -8,7 +8,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
   device           the card (and nvidia-smi's name and power limit);
                    no CUDA device -> exit 2, nothing printed
-  build            every kernel under fabric_tpu_torch/csrc, one nvcc per
+  build            the host's native batch prep (csrc/batchprep.cpp, g++,
+                   timed apart: native_build_s), then every kernel under
+                   fabric_tpu_torch/csrc, one nvcc per
                    source, started together; ptxas registers, stack and
                    spills per kernel (stage A's and the resident kernel's
                    must have no stack and no spills); the SASS mix
@@ -41,7 +43,11 @@ Phases, one JSON line each; any failure exits non-zero:
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
                    (message flipped after signing, high-S, mangled DER,
-                   checked against the wrong org's key, r >= n)
+                   checked against the wrong org's key, r >= n), prepared
+                   by the native batch prep (host_prep_s) and held to
+                   host_prep_scalars, the plain version, on every lane
+                   and on an adversarial DER corpus with 256 bit flips
+                   (host_prep_python_s: the plain version's seconds)
   main_path        the block through CUDAProvider (new_bccsp), route by
                    route, each path driven with every kernel count set to
                    0 just before it and read just after:
@@ -71,6 +77,14 @@ Phases, one JSON line each; any failure exits non-zero:
                    kernel, may run in it); on q16, verify_batch then runs
                    in turns on the fused tier and with hashlib
                    (FTPU_FUSED=0).
+  mixed_curves     300 lanes on P-384, P-521 and P-224 keys (MIXED_LANES:
+                   message lanes and digest lanes of 48, 64 and 32 bytes,
+                   one tampered, one high-S, one on the wrong key) spread
+                   through the block in one verify_batch on the q16
+                   provider: they verify on sw, every verdict equal to
+                   the expected bitmap and sw's (in the pool), and the
+                   P-256 lanes launch exactly the kernels of the
+                   P-256-only call.
   kernel_vs_plain  both entries of the tree kernel against their plain
                    torch versions on the card at the main path's shape
                    (the block's 32,768-lane bucket, M = 32 and 64, windows
@@ -356,11 +370,62 @@ def _pub_chunk(ds):
     return [p256_host.derive_public(d) for d in ds]
 
 
+def check_prep(label, sigs, plain, prepped) -> None:
+    """The native prep's (ok, r, rpn, w) against `host_prep_scalars`'
+    rows (None where it rejects), lane for lane, bit for bit."""
+    ok, r8, rpn8, w8 = prepped
+    check(len(ok) == len(plain), f"{label}: prep lane count")
+    for i, rows in enumerate(plain):
+        if rows is None:
+            same = not ok[i] and not (r8[i].any() or rpn8[i].any()
+                                      or w8[i].any())
+        else:
+            same = bool(ok[i]) and (r8[i].tobytes(), rpn8[i].tobytes(),
+                                    w8[i].tobytes()) == rows
+        check(same, f"{label}: native prep != host_prep_scalars at lane "
+              f"{i} ({sigs[i].hex()})")
+
+
+def adversarial_sigs(seed: int) -> list:
+    """Malformed and edge DER signatures (truncations, zero and negative
+    integers, non-minimal encodings and lengths, trailing bytes, s at and
+    past the low-S bound, r at and past n, the r + n probe on both sides)
+    and 256 seeded bit flips of a valid one."""
+    from fabric_tpu_torch.bccsp import p256_host, utils
+    N, half = p256_host.N, p256_host.N >> 1
+    sig = utils.marshal_signature
+    corpus = [
+        b"", b"\x30", b"\x30\x00", b"\x02\x01\x01",
+        b"\x30\x06\x02\x01\x01\x02\x01\x01",
+        b"\x30\x06\x02\x01\x01\x02\x01\x01xx",
+        b"\x30\x07\x02\x01\x01\x02\x01\x01x",
+        b"\x30\x06\x02\x01\x00\x02\x01\x01",
+        b"\x30\x06\x02\x01\x01\x02\x01\x00",
+        b"\x30\x06\x02\x01\x81\x02\x01\x01",
+        b"\x30\x08\x02\x03\x00\x00\x01\x02\x01\x01",
+        b"\x30\x07\x02\x02\x00\x80\x02\x01\x01",
+        b"\x30\x84\x00\x00\x00\x06\x02\x01\x01\x02\x01\x01",
+        b"\x30\x81\x06\x02\x01\x01\x02\x01\x01",
+        sig(1, half), sig(1, half + 1), sig(N - 1, 1), sig(N, 1),
+        sig(N + 5, 1), sig(1, 1), sig(2**256 + 7, 1),
+        sig(p256_host.P - N - 1, half), sig(p256_host.P - N + 1, half),
+        sig(1, 2), sig(1, 3), sig(1, half - 1)]
+    rng = np.random.default_rng(seed)
+    base = sig(1234567890123456789, 987654321)
+    for _ in range(256):
+        m = bytearray(base)
+        for _ in range(int(rng.integers(1, 4))):
+            m[int(rng.integers(len(m)))] ^= 1 << int(rng.integers(8))
+        corpus.append(bytes(m))
+    return corpus
+
+
 def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
     """Keys, items and prepared arrays for one block, with the expected
     bitmap known by construction: 2 endorsements a tx from the 3 org keys
     and 1 creator signature, from an org key or, with `clients`, from
     client key 3 + (t mod clients)."""
+    from fabric_tpu_torch import native
     from fabric_tpu_torch.bccsp import bccsp as api
     from fabric_tpu_torch.bccsp import p256_host, sw, utils
     from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
@@ -409,25 +474,21 @@ def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
     items = [api.VerifyItem(key=pubs[key_of[i]], signature=sigs[i],
                             message=msgs[i]) for i in range(n)]
     t0 = time.perf_counter()
-    r8 = np.zeros((n, 32), np.uint8)
-    rpn8 = np.zeros((n, 32), np.uint8)
-    w8 = np.zeros((n, 32), np.uint8)
-    der_ok = np.zeros(n, dtype=bool)
-    for i in range(n):
-        prep = host_prep_scalars(pubs[key_of[i]], sigs[i])
-        if prep is not None:
-            der_ok[i] = True
-            r8[i], rpn8[i], w8[i] = (np.frombuffer(b, np.uint8)
-                                     for b in prep)
+    der_ok, r8, rpn8, w8 = native.batch_prep(sigs)
     prep_s = time.perf_counter() - t0
+    # the plain version, lane for lane: it must give the same rows
+    t0 = time.perf_counter()
+    plain = [host_prep_scalars(pubs[key_of[i]], sigs[i]) for i in range(n)]
+    prep_python_s = time.perf_counter() - t0
+    check_prep(f"block {seed}", sigs, plain, (der_ok, r8, rpn8, w8))
     prepared = dict(digests=np.frombuffer(b"".join(digests), np.uint8)
                     .reshape(n, 32), r=r8, rpn=rpn8, w=w8, der_ok=der_ok,
                     key_idx=key_of.copy(), keys=pubs,
                     get_sig=sigs.__getitem__)
     return dict(n=n, items=items, prepared=prepared, expected=expected,
                 kind_of=kind_of, pubs=pubs, sigs=sigs, digests=digests,
-                key_of=key_of, sign_s=sign_s, prep_s=prep_s, rng=rng,
-                msgs=msgs, ds=ds)
+                key_of=key_of, sign_s=sign_s, prep_s=prep_s,
+                prep_python_s=prep_python_s, rng=rng, msgs=msgs, ds=ds)
 
 
 # -- main path --
@@ -590,6 +651,119 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
             prov, blk, sw_bits, sample)
     emit(rec)
     return counts
+
+
+# -- lanes on the other NIST curves, mixed into the org block --
+
+# lanes by curve (digest lanes carry the curve's usual hash length); ~1%
+# of them bad, one of each kind
+MIXED_LANES = {"P-384": (120, 48), "P-521": (90, 64), "P-224": (90, 32)}
+MIXED_BAD = ("tampered", "high_s", "wrong_key")
+
+
+def _ec_sign_chunk(jobs):
+    from fabric_tpu_torch.bccsp import sw
+    prov = sw.SWProvider()
+    return [prov.sign(sw.ECDSAPrivateKey(d, curve=curve), digest)
+            for curve, d, digest in jobs]
+
+
+def _ec_sw_chunk(jobs):
+    from fabric_tpu_torch.bccsp import sw
+    prov = sw.SWProvider()
+    return [prov.verify(sw.ECDSAPublicKey(x, y, curve=curve), sig, digest)
+            for curve, x, y, sig, digest in jobs]
+
+
+def make_mixed_lanes(seed: int, pool, nproc) -> dict:
+    """MIXED_LANES' P-384, P-521 and P-224 lanes from --seed over two keys
+    a curve: every other lane a 256-byte message (SHA-256 on the host),
+    the rest a digest of the curve's hash length; the sw provider's
+    verdicts (in the pool) held to the expected bitmap."""
+    from fabric_tpu_torch.bccsp import bccsp as api
+    from fabric_tpu_torch.bccsp import ec_host, sw, utils
+
+    rng = np.random.default_rng(seed + 384)
+    lanes, sign_jobs = [], []
+    for curve, (count, dlen) in MIXED_LANES.items():
+        c = ec_host.CURVES[curve]
+        ds = [int.from_bytes(rng.bytes(c.size + 8), "big") % (c.n - 1) + 1
+              for _ in range(2)]
+        pubs = [sw.ECDSAPrivateKey(d, curve=curve).public_key() for d in ds]
+        for i in range(count):
+            msg = rng.bytes(256)
+            digest = (hashlib.sha256(msg).digest() if i % 2 else
+                      hashlib.sha512(msg).digest()[:dlen])
+            lanes.append(dict(pubs=pubs, msg=msg,
+                              digest=None if i % 2 else digest, kind="ok"))
+            sign_jobs.append((curve, ds[0], digest))
+    t0 = time.perf_counter()
+    sigs = pool_map(pool, _ec_sign_chunk, sign_jobs, nproc)
+    sign_s = time.perf_counter() - t0
+    bad = rng.choice(len(lanes), len(MIXED_BAD), replace=False).tolist()
+    for lane, kind in zip(bad, MIXED_BAD):
+        lanes[lane]["kind"] = kind
+    items, sw_jobs = [], []
+    for ln, sig in zip(lanes, sigs):
+        pub = ln["pubs"][1 if ln["kind"] == "wrong_key" else 0]
+        msg, digest = ln["msg"], ln["digest"]
+        if ln["kind"] == "tampered":
+            msg = msg[:-1] + bytes([msg[-1] ^ 1])
+            if digest is not None:
+                digest = hashlib.sha512(msg).digest()[:len(digest)]
+        elif ln["kind"] == "high_s":
+            r, s_ = utils.unmarshal_signature(sig)
+            sig = utils.marshal_signature(r, pub.order - s_)
+        items.append(api.VerifyItem(key=pub, signature=sig, digest=digest,
+                                    message=msg if digest is None else None))
+        sw_jobs.append((pub.curve, pub.x, pub.y, sig, digest
+                        or hashlib.sha256(msg).digest()))
+    expected = np.array([ln["kind"] == "ok" for ln in lanes])
+    sw_bits = np.array(pool_map(pool, _ec_sw_chunk, sw_jobs, nproc), bool)
+    check(bool((sw_bits == expected).all()),
+          "mixed curves: sw provider != expected bitmap")
+    return dict(items=items, expected=expected, sw_bits=sw_bits,
+                sign_s=sign_s, bad=len(bad))
+
+
+def mixed_curve_path(blk, mixed, prov, base_counts, sw_bits, sample, card):
+    """The org block's verify_batch with the mixed lanes spread through
+    it, on the q16 provider: every verdict equals the expected bitmap and
+    sw's, and the P-256 lanes still reach the card with the launch counts
+    of the P-256-only call (`base_counts`)."""
+    n, extra = blk["n"], len(mixed["items"])
+    at = set(np.linspace(0, n + extra - 1, extra).astype(int).tolist())
+    check(len(at) == extra, "mixed curves: lane positions collide")
+    items, where, base = [], [], iter(blk["items"])
+    it_mixed = iter(mixed["items"])
+    for pos in range(n + extra):
+        if pos in at:
+            where.append(pos)
+            items.append(next(it_mixed))
+        else:
+            items.append(next(base))
+    got, counts, delta, secs = counted(
+        prov, "mixed curves verify_batch", (SHA, TREE),
+        lambda: prov.verify_batch(items))
+    got = np.asarray(got, dtype=bool)
+    mine = np.zeros(n + extra, dtype=bool)
+    mine[where] = True
+    check_bits("mixed curves: the P-256 lanes", got[~mine], blk, sw_bits,
+               sample)
+    check(bool((got[mine] == mixed["expected"]).all()),
+          "mixed curves: lanes off P-256 != expected bitmap")
+    check(bool((got[mine] == mixed["sw_bits"]).all()),
+          "mixed curves: lanes off P-256 != sw")
+    check(counts == base_counts, f"mixed curves: launches {counts} != the "
+          f"P-256-only call's {base_counts}")
+    check(delta["nonp256_sw_lanes"] == extra,
+          f"mixed curves: {delta['nonp256_sw_lanes']} sw lanes, not {extra}")
+    emit({"phase": "mixed_curves", "ok": True, "card": card,
+          "lanes": n + extra, "lanes_by_curve": {
+              k: v[0] for k, v in MIXED_LANES.items()},
+          "bad_lanes": mixed["bad"], "sign_s": mixed["sign_s"],
+          "verify_batch_s": secs, "verify_batch_launches": counts,
+          "nonp256_sw_lanes": delta["nonp256_sw_lanes"]})
 
 
 # -- kernel vs plain --
@@ -2913,19 +3087,30 @@ def drive(args, pool, nproc, card):
     comparison; returns the kernels line's entries."""
     from fabric_tpu_torch.bccsp import factory
 
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
+
     field_vs_ints(card, args.seed)
     blk = make_block(args.seed, args.txs, pool, nproc)
+    corpus = adversarial_sigs(args.seed)
+    check_prep("adversarial corpus", corpus,
+               [host_prep_scalars(blk["pubs"][0], sig) for sig in corpus],
+               native.batch_prep(corpus))
     emit({"phase": "block", "ok": True, "lanes": blk["n"],
           "bad_lanes": {k: sum(1 for v in blk["kind_of"].values()
                                if v == k) for k in BAD_KINDS},
           "sign_s": blk["sign_s"], "host_prep_s": blk["prep_s"],
-          "workers": nproc})
+          "host_prep_python_s": blk["prep_python_s"],
+          "native_build_s": args.native_build_s,
+          "prep_checked_lanes": blk["n"] + len(corpus), "workers": nproc})
     sample, sw_bits = sw_sample(blk, pool, nproc, "sw")
 
     route = dict(blk=blk, sw_bits=sw_bits, sample=sample, card=card)
     prov16 = factory.new_bccsp({"Default": "CUDA"})
     c16 = run_route("q16", prov16, prepared=True, fused=True,
                     batch_need=(SHA, TREE), alternate=True, **route)
+    mixed_curve_path(blk, make_mixed_lanes(args.seed, pool, nproc), prov16,
+                     c16["verify_batch"], sw_bits, sample, card)
     prov8 = factory.new_bccsp({"Default": "CUDA", "CUDA": {"UseG16": False}})
     c8 = run_route("q8", prov8, prepared=True, fused=True,
                    batch_need=(SHA, TREE), **route)
@@ -2959,7 +3144,8 @@ def drive(args, pool, nproc, card):
           "keys": len(blk_l["pubs"]),
           "bad_lanes": {k: sum(1 for v in blk_l["kind_of"].values()
                                if v == k) for k in BAD_KINDS},
-          "sign_s": blk_l["sign_s"], "host_prep_s": blk_l["prep_s"]})
+          "sign_s": blk_l["sign_s"], "host_prep_s": blk_l["prep_s"],
+          "host_prep_python_s": blk_l["prep_python_s"]})
     sample_l, sw_l = sw_sample(blk_l, pool, nproc, "ladder_sw")
     provl = factory.new_bccsp({"Default": "CUDA"})
     cl = ladder_path(blk_l, provl, sw_l, sample_l, card)
@@ -3090,7 +3276,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch import kernels, native
     from fabric_tpu_torch.common import torchenv
     from fabric_tpu_torch.ops import comb
 
@@ -3107,10 +3293,14 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    native.load()
+    args.native_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {k: kernels.ptxas_summary(k) for k in kernels.KERNELS}
-    emit({"phase": "build", "ok": True, "seconds": build_s, "ptxas": ptxas,
+    emit({"phase": "build", "ok": True, "seconds": build_s,
+          "native_build_s": args.native_build_s, "ptxas": ptxas,
           "sass": {k: kernels.sass_mix(k) for k in (
               "ptree", "sha_windows", "fused_resident", "ladder",
               "ed25519_verify", "bn254_pairing", "g2_msm",

@@ -11,8 +11,10 @@ splits a batch by key scheme (`_lane_scheme`) into a P-256 sub-batch
 (`_verify_batch_p256`), an Ed25519 one (`_verify_batch_ed25519`) and
 BLS12-381 lanes, which the sw provider verifies one by one (aggregates
 arrive through `verify_aggregate`). A P-256 batch is staged on the
-host — strict DER, low-S and range gates, w = s^-1 mod n — and verified
-on the card.
+host — strict DER, low-S and range gates, w = s^-1 mod n, for the whole
+batch in one native call (`native.batch_prep`, csrc/batchprep.cpp) — and
+verified on the card; its lanes on ECDSA keys of other curves (P-224,
+P-384, P-521) verify on the sw provider.
 
 Message lanes (`verify_batch` items without a digest) take one of three
 routes, chosen as `_verify_batch_device` chooses them:
@@ -94,6 +96,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from fabric_tpu_torch import native
 from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
@@ -132,7 +135,9 @@ LAUNCH_COUNTERS = {
 def host_prep_scalars(pub, signature):
     """Per-lane signature prep: strict DER + low-S + scalar-range gates,
     then the device operands. Returns (r, rpn, w) as 32-byte big-endian
-    rows, or None when the host rejects the lane."""
+    rows, or None when the host rejects the lane. The plain version of
+    `native.batch_prep`, which the main path calls; the tests hold one to
+    the other lane for lane."""
     rs = swmod.check_signature(pub, signature)
     if rs is None:
         return None
@@ -258,9 +263,9 @@ class CUDAProvider(api.BCCSP):
     @staticmethod
     def _lane_scheme(item) -> str:
         """The router's partition key for one lane: "ed25519" for an
-        Ed25519 key, "bls" for a BLS12-381 key, else "p256" (P-256, other
-        ECDSA curves and dead non-ECDSA keys, which the P-256 staging
-        handles inline)."""
+        Ed25519 key, "bls" for a BLS12-381 key, else "p256" (ECDSA keys of
+        every curve and dead non-ECDSA keys, which the P-256 staging sorts
+        inline: other curves to sw, dead keys to reject)."""
         scheme = getattr(item.key, "scheme", None)
         if scheme == "ed25519":
             return "ed25519"
@@ -303,44 +308,53 @@ class CUDAProvider(api.BCCSP):
         take the fused tier, the device-SHA route or host hashing (see
         the module docstring), or the ladder over more than `MaxKeys`
         keys; digest lanes are digests on every route. Lanes on non-ECDSA
-        keys reject; a P-256 key with a digest other than 32 bytes
-        verifies on the sw path; an ECDSA key on another curve raises
-        NotImplementedError."""
+        keys reject; lanes on an ECDSA key of another curve, and P-256
+        lanes with a digest other than 32 bytes, verify on the sw path
+        without degrading the rest of the batch. The P-256 lanes'
+        signatures are prepared in one native call (`native.batch_prep`:
+        strict DER, low-S and range gates, w = s^-1 mod n)."""
         if len(items) < self._min_batch:
             return self._sw.verify_batch(items)
         n = len(items)
         bucket = self._bucket(n)
         fused = self._fused_enabled()
         hash_here = self._hash_on_host and not fused
+        pubs = [it.key.public_key() for it in items]
+        sw_lanes: list[int] = []
+        device = np.zeros(n, dtype=bool)        # P-256 lanes for the card
+        for i, (it, pub) in enumerate(zip(items, pubs)):
+            if not isinstance(pub, swmod.ECDSAPublicKey):
+                continue                    # premask stays False: reject
+            if not pub.is_p256() or (it.digest is not None
+                                     and len(it.digest) != 32):
+                sw_lanes.append(i)
+            else:
+                device[i] = True
+        ok, r8, rpn8, w8 = native.batch_prep(
+            [it.signature if device[i] else b""
+             for i, it in enumerate(items)])
         premask = np.zeros(bucket, dtype=bool)
+        premask[:n] = ok
         r_b = np.zeros((bucket, 32), dtype=np.uint8)
         rpn_b = np.zeros((bucket, 32), dtype=np.uint8)
         w_b = np.zeros((bucket, 32), dtype=np.uint8)
+        r_b[:n], rpn_b[:n], w_b[:n] = r8, rpn8, w8  # zero rows where not ok
         key_idx = np.zeros(bucket, dtype=np.int32)
         digests = np.zeros((bucket, 8), dtype=np.uint32)
         has_digest = np.zeros(bucket, dtype=bool)
         msgs = [b""] * bucket
+        # key slots in first-appearance order over the live lanes (a lane
+        # the gates reject registers no key), one lookup per key object
         key_map: dict[bytes, int] = {}
-        sw_lanes: list[int] = []
+        slot_of: dict[int, int] = {}
         hashed = 0
-        for i, it in enumerate(items):
-            pub = it.key.public_key()
-            if not isinstance(pub, swmod.ECDSAPublicKey):
-                continue                    # premask stays False: reject
-            if not pub.is_p256():
-                raise NotImplementedError(swmod.NOT_P256)
-            if it.digest is not None and len(it.digest) != 32:
-                sw_lanes.append(i)
-                continue
-            prep = host_prep_scalars(pub, it.signature)
-            if prep is None:
-                continue
-            premask[i] = True
-            r_b[i] = np.frombuffer(prep[0], np.uint8)
-            rpn_b[i] = np.frombuffer(prep[1], np.uint8)
-            w_b[i] = np.frombuffer(prep[2], np.uint8)
-            kb = pub.x_bytes().tobytes() + pub.y_bytes().tobytes()
-            key_idx[i] = key_map.setdefault(kb, len(key_map))
+        for i in np.flatnonzero(ok).tolist():
+            it, pub = items[i], pubs[i]
+            j = slot_of.get(id(pub))
+            if j is None:
+                kb = pub.x_bytes().tobytes() + pub.y_bytes().tobytes()
+                j = slot_of[id(pub)] = key_map.setdefault(kb, len(key_map))
+            key_idx[i] = j
             digest = it.digest
             if digest is None and hash_here:
                 # an empty message still hashes to SHA-256(b"")
@@ -412,7 +426,7 @@ class CUDAProvider(api.BCCSP):
                               der_ok: np.ndarray, key_idx: np.ndarray,
                               keys, get_sig):
         """Batched verify over pre-staged operands: digests (n, 32)
-        uint8, r/rpn/w (n, 32) uint8 big-endian (host_prep_scalars),
+        uint8, r/rpn/w (n, 32) uint8 big-endian (`native.batch_prep`),
         der_ok (n,) bool, key_idx (n,) int indexing `keys` (Key objects),
         get_sig(i) -> lane i's DER (read on the sw path only).
 
@@ -422,30 +436,31 @@ class CUDAProvider(api.BCCSP):
         n = len(der_ok)
         if n == 0:
             return lambda: []
-        pubs = []
-        for k in keys:
-            pub = k.public_key() if k is not None else None
-            if isinstance(pub, swmod.ECDSAPublicKey) and not pub.is_p256():
-                raise NotImplementedError(swmod.NOT_P256)
-            pubs.append(pub if isinstance(pub, swmod.ECDSAPublicKey)
-                        else None)
         if n < self._min_batch:
             out = self._verify_prepared_sw(range(n), digests, key_idx, keys,
                                            get_sig)
             return lambda: out
 
-        bucket = self._bucket(n)
+        # per-key gates (fabric_tpu's `_verify_prepared_device`): lanes on
+        # a P-256 key go to the card, lanes on an ECDSA key of another
+        # curve to the sw path, lanes on a non-ECDSA key reject
+        pubs = [k.public_key() if k is not None else None for k in keys]
+        ecdsa = [isinstance(p, swmod.ECDSAPublicKey) for p in pubs]
+        key_ok = np.array([e and p.is_p256() for e, p in zip(ecdsa, pubs)],
+                          dtype=bool)
+        key_sw = np.array([e and not p.is_p256()
+                           for e, p in zip(ecdsa, pubs)], dtype=bool)
         lane_key = np.asarray(key_idx, dtype=np.int64)
-        key_ok = np.array([p is not None for p in pubs], dtype=bool)
+        bucket = self._bucket(n)
         premask = np.zeros(bucket, dtype=bool)
         premask[:n] = np.asarray(der_ok, dtype=bool) & key_ok[lane_key]
         # key slots over the P-256 keys; dead lanes keep slot 0 (masked)
         key_map: dict[bytes, int] = {}
         slot_of = np.zeros(len(keys), dtype=np.int32)
-        for j, p in enumerate(pubs):
-            if p is not None:
-                kb = p.x_bytes().tobytes() + p.y_bytes().tobytes()
-                slot_of[j] = key_map.setdefault(kb, len(key_map))
+        for j in np.flatnonzero(key_ok).tolist():
+            p = pubs[j]
+            kb = p.x_bytes().tobytes() + p.y_bytes().tobytes()
+            slot_of[j] = key_map.setdefault(kb, len(key_map))
         lane_slot = np.zeros(bucket, dtype=np.int32)
         lane_slot[:n] = slot_of[lane_key]
         dg = np.zeros((bucket, 8), dtype=np.uint32)
@@ -456,13 +471,25 @@ class CUDAProvider(api.BCCSP):
             out[:n] = a
             return out
 
-        if not key_map:
-            return lambda: [False] * n
-        dispatch = (self._dispatch_ladder if len(key_map) > self._max_keys
-                    else self._dispatch_comb_digest)
-        thunk = dispatch(bucket, key_map, lane_slot, pad(r), pad(rpn),
-                         pad(w), premask, dg)
-        return lambda: thunk()[:n].tolist()
+        thunk = None
+        if key_map:
+            dispatch = (self._dispatch_ladder
+                        if len(key_map) > self._max_keys
+                        else self._dispatch_comb_digest)
+            thunk = dispatch(bucket, key_map, lane_slot, pad(r), pad(rpn),
+                             pad(w), premask, dg)
+        # the sw lanes run while the card works
+        sw_lanes = np.flatnonzero(key_sw[lane_key]).tolist()
+        sw_out = self._verify_prepared_sw(sw_lanes, digests, key_idx, keys,
+                                          get_sig)
+        self.stats["nonp256_sw_lanes"] += len(sw_lanes)
+
+        def resolve():
+            result = [False] * n if thunk is None else thunk()[:n].tolist()
+            for i, v in zip(sw_lanes, sw_out):
+                result[i] = v
+            return result
+        return resolve
 
     def _verify_prepared_sw(self, lanes, digests, key_idx, keys,
                             get_sig) -> list[bool]:

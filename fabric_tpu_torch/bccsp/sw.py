@@ -1,12 +1,14 @@
-"""Software BCCSP provider, P-256, Ed25519, BLS12-381 and the BN254
+"""Software BCCSP provider, ECDSA, Ed25519, BLS12-381 and the BN254
 pairings — the port's CPU oracle.
 
-A cut of fabric_tpu/bccsp/sw.py to the ECDSA-P256, Ed25519, BLS12-381 and
-BN254 pairing slices, on the port's pure-Python backends
-(bccsp/p256_host.py, bccsp/ed25519_host.py, ops/bls12_381_ref.py,
-ops/bn254_ref.py): the card's host has no `cryptography` wheel. ECDSA verification semantics
-follow `bccsp/sw/ecdsa.go:41-57` in order: strict DER unmarshal, the low-S
-policy against the key's curve order, then the curve equation. Ed25519's
+A cut of fabric_tpu/bccsp/sw.py to the ECDSA (P-224, P-256, P-384,
+P-521), Ed25519, BLS12-381 and BN254 pairing slices, on the port's
+pure-Python backends (bccsp/p256_host.py for P-256, bccsp/ec_host.py for
+the other curves, bccsp/ed25519_host.py, ops/bls12_381_ref.py,
+ops/bn254_ref.py): the card's host has no `cryptography` wheel. ECDSA
+verification semantics follow `bccsp/sw/ecdsa.go:41-57` in order: strict
+DER unmarshal, the low-S policy against the key's curve order, then the
+curve equation. Ed25519's
 policy (strict encodings, S < L, small-order rejection, the cofactorless
 equation) lives in `ed25519_host`; Ed25519 keys sign and verify messages,
 not digests (`sign_message`).
@@ -21,10 +23,6 @@ The pairing methods (`pairing_check_batch`, `bls_verify_batch`: the exact
 Python-int pairing) are the idemix credential checks' host oracle; the
 CUDA provider batches them on the card and serves batches under its host
 cutoffs here.
-
-ECDSA keys on other curves can be represented (so a provider can tell
-them apart) but not verified here: that needs OpenSSL, and raises
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,21 +34,23 @@ from typing import Optional, Sequence
 import numpy as np
 
 from fabric_tpu_torch.bccsp import bccsp as api
+from fabric_tpu_torch.bccsp import ec_host
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import p256_host, utils
 from fabric_tpu_torch.ops import bls12_381_ref as bref
 
-NOT_P256 = ("ECDSA over curves other than P-256 needs OpenSSL on the sw "
-            "side; the port's non-P-256 sw-lane slice (ROADMAP) adds it")
+
+def _curve(name: str) -> ec_host.Curve:
+    c = ec_host.CURVES.get(name)
+    if c is None:
+        raise ValueError(f"unsupported curve {name!r}")
+    return c
 
 
 class ECDSAPublicKey(api.Key):
     def __init__(self, x: int, y: int, curve: str = "P-256"):
-        if curve not in utils.CURVE_ORDERS:
-            raise ValueError(f"unsupported curve {curve!r}")
-        if curve == "P-256" and (not p256_host.on_curve(x, y)
-                                 or (x == 0 and y == 0)):
-            raise ValueError("public point not on P-256")
+        if not ec_host.on_curve(_curve(curve), x, y):
+            raise ValueError(f"public point not on {curve}")
         self.x, self.y, self.curve = x, y, curve
         self._xy = None
 
@@ -63,7 +63,10 @@ class ECDSAPublicKey(api.Key):
 
     def x_bytes(self) -> np.ndarray:
         """Cached 32-byte big-endian coordinates (the same org keys recur
-        thousands of times per block)."""
+        thousands of times per block): the card's P-256 packing, which no
+        other curve's key may reach."""
+        if not self.is_p256():
+            raise TypeError(f"a {self.curve} key has no 32-byte packing")
         if self._xy is None:
             self._xy = (np.frombuffer(self.x.to_bytes(32, "big"), np.uint8),
                         np.frombuffer(self.y.to_bytes(32, "big"), np.uint8))
@@ -74,9 +77,7 @@ class ECDSAPublicKey(api.Key):
         return self._xy[1]
 
     def bytes(self) -> bytes:
-        if not self.is_p256():
-            raise NotImplementedError(NOT_P256)
-        return p256_host.encode_spki(self.x, self.y)
+        return ec_host.encode_spki(_curve(self.curve), self.x, self.y)
 
     def ski(self) -> bytes:
         size = (self.order.bit_length() + 7) // 8
@@ -94,11 +95,12 @@ class ECDSAPublicKey(api.Key):
 
 
 class ECDSAPrivateKey(api.Key):
-    def __init__(self, d: int):
-        if not 1 <= d < p256_host.N:
+    def __init__(self, d: int, curve: str = "P-256"):
+        c = _curve(curve)
+        if not 1 <= d < c.n:
             raise ValueError("private scalar out of range")
         self.d = d
-        self._pub = ECDSAPublicKey(*p256_host.derive_public(d))
+        self._pub = ECDSAPublicKey(*ec_host.derive_public(c, d), curve=curve)
 
     def bytes(self) -> bytes:
         raise TypeError("private key export not allowed")
@@ -286,8 +288,8 @@ def check_signature(key, signature: bytes) -> Optional[tuple[int, int]]:
 
 
 class SWProvider(api.BCCSP):
-    """CPU provider (reference: `bccsp/sw/new.go`), P-256 ECDSA, Ed25519
-    and BLS12-381."""
+    """CPU provider (reference: `bccsp/sw/new.go`): ECDSA on P-224,
+    P-256, P-384 and P-521, Ed25519 and BLS12-381."""
 
     def __init__(self):
         # non-ephemeral keys by SKI, so get_key(ski) resolves them (the
@@ -307,12 +309,11 @@ class SWProvider(api.BCCSP):
         elif isinstance(opts, api.BLSKeyGenOpts):
             sk, _ = bref.bls_keygen(os.urandom(32))
             key = BLSPrivateKey(sk)
-        elif not isinstance(opts, api.ECDSAKeyGenOpts):
-            raise TypeError(f"unsupported KeyGenOpts {opts!r}")
-        elif opts.curve != "P-256":
-            raise NotImplementedError(NOT_P256)
+        elif isinstance(opts, api.ECDSAKeyGenOpts):
+            key = ECDSAPrivateKey(ec_host.generate_scalar(
+                _curve(opts.curve)), curve=opts.curve)
         else:
-            key = ECDSAPrivateKey(p256_host.generate_scalar())
+            raise TypeError(f"unsupported KeyGenOpts {opts!r}")
         if not opts.ephemeral:
             self._retain(key)
         return key
@@ -325,11 +326,17 @@ class SWProvider(api.BCCSP):
             key = raw if isinstance(raw, BLSPublicKey) \
                 else BLSPublicKey(bytes(raw))
         elif isinstance(opts, api.ECDSAPublicKeyImportOpts):
-            key = raw if isinstance(raw, ECDSAPublicKey) \
-                else ECDSAPublicKey(*p256_host.decode_spki(bytes(raw)))
+            if isinstance(raw, ECDSAPublicKey):
+                key = raw
+            else:
+                c, x, y = ec_host.decode_spki(bytes(raw))
+                key = ECDSAPublicKey(x, y, curve=c.name)
         elif isinstance(opts, api.ECDSAPrivateKeyImportOpts):
-            key = raw if isinstance(raw, ECDSAPrivateKey) \
-                else ECDSAPrivateKey(p256_host.decode_pkcs8(bytes(raw)))
+            if isinstance(raw, ECDSAPrivateKey):
+                key = raw
+            else:
+                c, d = ec_host.decode_pkcs8(bytes(raw))
+                key = ECDSAPrivateKey(d, curve=c.name)
         else:
             raise TypeError(f"unsupported KeyImportOpts {opts!r}")
         if not opts.ephemeral:
@@ -359,8 +366,12 @@ class SWProvider(api.BCCSP):
             raise TypeError("sign requires an ECDSA private key")
         if len(digest) not in _DIGEST_LENS:
             raise ValueError(f"unsupported digest length {len(digest)}")
-        r, s = p256_host.sign(key.d, digest)
-        return utils.marshal_signature(r, utils.to_low_s(s))
+        pub = key.public_key()
+        if pub.is_p256():
+            r, s = p256_host.sign(key.d, digest)
+        else:
+            r, s = ec_host.sign(_curve(pub.curve), key.d, digest)
+        return utils.marshal_signature(r, utils.to_low_s(s, pub.order))
 
     def verify(self, key: api.Key, signature: bytes, digest: bytes,
                opts=None) -> bool:
@@ -375,12 +386,12 @@ class SWProvider(api.BCCSP):
             return bref.bls_verify(pub.point, digest, sig)
         if not isinstance(pub, ECDSAPublicKey):
             raise TypeError("verify requires an ECDSA key")
-        if not pub.is_p256():
-            raise NotImplementedError(NOT_P256)
         rs = check_signature(pub, signature)
         if rs is None or len(digest) not in _DIGEST_LENS:
             return False
-        return p256_host.verify(pub.x, pub.y, digest, *rs)
+        if pub.is_p256():
+            return p256_host.verify(pub.x, pub.y, digest, *rs)
+        return ec_host.verify(_curve(pub.curve), pub.x, pub.y, digest, *rs)
 
     def verify_batch(self, items: Sequence[api.VerifyItem]) -> list[bool]:
         out = []

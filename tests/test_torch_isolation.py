@@ -3,7 +3,9 @@
 In a fresh interpreter whose import system refuses `jax`, `fabric_tpu`
 and their submodules (an exact-name match, not a prefix:
 fabric_tpu_torch shares the prefix), every module of fabric_tpu_torch
-and chip_smoke.py must import.
+and chip_smoke.py must import, and the native batch prep must build
+from the port's own source (csrc/batchprep.cpp), never the root's
+native/.
 """
 
 import os
@@ -37,8 +39,13 @@ for name in names:
     importlib.import_module(name)
 for name in ("ops.verify", "ops.mont", "ops.ed25519", "bccsp.ed25519_host",
              "ops.tower", "ops.bn254", "ops.bn254_ref", "ops.bls12_381_ref",
-             "ops.bls12_381", "ops.bls12_381_kernel"):
+             "ops.bls12_381", "ops.bls12_381_kernel", "native",
+             "bccsp.ec_host"):
     assert "fabric_tpu_torch." + name in names, name
+# the native prep builds the port's own source, not the root's native/
+from fabric_tpu_torch import native
+assert native.SOURCE == os.path.join(root, "fabric_tpu_torch", "csrc",
+                                     "batchprep.cpp"), native.SOURCE
 importlib.import_module("chip_smoke")
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -64,6 +71,6 @@ def test_port_imports_without_jax_or_fabric_tpu():
     # __init__, kernels, stage_a_timing, ladder_timing, common.torchenv,
     # ops.{limb,p256,comb,ptree,sha256,fused_verify,verify,mont,ed25519,
     # tower,bn254,bn254_ref,bls12_381_ref,bls12_381,bls12_381_kernel},
-    # bccsp.{bccsp,utils,p256_host,ed25519_host,sw,cuda,factory} and the
-    # subpackages
-    assert n >= 30, out.stdout
+    # bccsp.{bccsp,utils,p256_host,ec_host,ed25519_host,sw,cuda,factory},
+    # native and the subpackages
+    assert n >= 32, out.stdout

@@ -21,8 +21,9 @@ import torch
 from fabric_tpu.bccsp import bccsp as japi
 from fabric_tpu.bccsp import sw as jsw
 
+from fabric_tpu_torch import native
 from fabric_tpu_torch.bccsp import bccsp as api
-from fabric_tpu_torch.bccsp import factory, sw, utils
+from fabric_tpu_torch.bccsp import cuda, factory, sw, utils
 from fabric_tpu_torch.bccsp.cuda import CUDAProvider, host_prep_scalars
 from fabric_tpu_torch.common import torchenv
 from fabric_tpu_torch.ops import fused_verify, ptree
@@ -166,19 +167,175 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 
 def test_non_p256_key_raises(provider, block):
-    p384 = sw.ECDSAPublicKey(1, 2, curve="P-384")
-    ln = block["lanes"][0]
+    """Until the port had ECDSA on every curve, a P-384 key raised
+    NotImplementedError on every path, and the constructor took any point
+    off P-256 (`ECDSAPublicKey(1, 2, curve="P-384")`). Now a point off
+    its curve raises ValueError on every curve, and a key off P-256
+    raises rather than reach the card's 32-byte key packing; the paths
+    themselves verify such keys on sw (test_non_p256_lanes_match_jax_sw)."""
+    for curve in ("P-224", "P-384", "P-521"):
+        with pytest.raises(ValueError):
+            sw.ECDSAPublicKey(1, 2, curve=curve)
+    with pytest.raises(ValueError):
+        sw.ECDSAPublicKey(1, 2, curve="P-192")
+    p384 = sw.ECDSAPrivateKey(12345, curve="P-384").public_key()
+    with pytest.raises(TypeError):
+        p384.x_bytes()
+    with pytest.raises(TypeError):
+        p384.y_bytes()
+    assert block["pubs"][0].x_bytes().shape == (32,)
+
+
+@pytest.fixture(scope="module")
+def mixed(block):
+    """The block's 64 P-256 lanes with 15 lanes on P-224, P-384 and P-521
+    keys spliced in (digest lanes of 32, 48 and 64 bytes and message
+    lanes; tampered, high-S and wrong-key lanes among them), the keys'
+    JAX twins (OpenSSL) beside them."""
+    from cryptography.hazmat.primitives.asymmetric import ec
+
+    rng = np.random.default_rng(384)
+    csp = sw.SWProvider()
+    curves = {"P-224": (ec.SECP224R1(), 32), "P-384": (ec.SECP384R1(), 48),
+              "P-521": (ec.SECP521R1(), 64)}
+    extra = []
+    for curve, (ocurve, dlen) in curves.items():
+        n = utils.CURVE_ORDERS[curve]
+        ds = [int.from_bytes(rng.bytes(72), "big") % (n - 1) + 1
+              for _ in range(2)]
+        privs = [sw.ECDSAPrivateKey(d, curve=curve) for d in ds]
+        jpubs = [jsw.ECDSAPrivateKey(ec.derive_private_key(d, ocurve))
+                 .public_key() for d in ds]
+        for kind in ("ok", "ok_msg", "tampered", "high_s", "wrong_key"):
+            msg = rng.bytes(int(rng.integers(1, 200)))
+            digest = None if kind == "ok_msg" else \
+                hashlib.sha512(msg).digest()[:dlen]
+            sig = csp.sign(privs[0], digest or hashlib.sha256(msg).digest())
+            k = 1 if kind == "wrong_key" else 0
+            if kind == "tampered":
+                digest = hashlib.sha512(msg + b"!").digest()[:dlen]
+            elif kind == "high_s":
+                r, s_ = utils.unmarshal_signature(sig)
+                sig = utils.marshal_signature(r, n - s_)
+            extra.append(dict(pub=privs[k].public_key(), jpub=jpubs[k],
+                              msg=msg, digest=digest, sig=sig,
+                              ok=kind.startswith("ok")))
+    base = _items(block, api, block["pubs"], _DeadKey())
+    jbase = _items(block, japi, block["jpubs"], None)
+    items, jitems, expected, where = [], [], [], []
+    for i in range(len(base)):
+        items.append(base[i])
+        jitems.append(None if block["lanes"][i]["kind"] == "dead"
+                      else jbase[i])
+        expected.append(bool(block["expected"][i]))
+        if i % 4 == 1 and extra:
+            e = extra.pop()
+            where.append(len(items))
+            items.append(api.VerifyItem(key=e["pub"], signature=e["sig"],
+                                        digest=e["digest"], message=e["msg"]
+                                        if e["digest"] is None else None))
+            jitems.append(japi.VerifyItem(key=e["jpub"], signature=e["sig"],
+                                          digest=e["digest"],
+                                          message=e["msg"]
+                                          if e["digest"] is None else None))
+            expected.append(e["ok"])
+    assert not extra and len(where) == 15
+    return dict(items=items, jitems=jitems, expected=np.array(expected),
+                where=where)
+
+
+def test_non_p256_lanes_match_jax_sw(provider, block, mixed):
+    """P-224, P-384 and P-521 lanes of a batch verify on sw beside the
+    P-256 lanes on the comb: verify_batch, verify and
+    verify_prepared_start give the JAX package's sw verdicts, the P-256
+    lanes those of the P-256-only batch, and a P-384 key in `keys` that
+    no lane uses raises nothing."""
+    items, where = mixed["items"], mixed["where"]
+    before = dict(provider.stats)
+    got = provider.verify_batch(items)
+    np.testing.assert_array_equal(got, mixed["expected"])
+    live = [i for i, it in enumerate(mixed["jitems"]) if it is not None]
+    want = jsw.SWProvider().verify_batch([mixed["jitems"][i] for i in live])
+    np.testing.assert_array_equal(np.array(got)[live], want)
+    assert provider.stats["comb_batches"] == before["comb_batches"] + 1
+    assert provider.stats["nonp256_sw_lanes"] == \
+        before["nonp256_sw_lanes"] + len(where)
+    p256 = [i for i in range(len(items)) if i not in where]
+    assert [got[i] for i in p256] == block["expected"].tolist()
+    jsp = jsw.SWProvider()
+    for i in where:
+        it, jt = items[i], mixed["jitems"][i]
+        data = it.digest if it.digest is not None else \
+            hashlib.sha256(it.message).digest()
+        assert provider.verify(it.key, it.signature, data) == \
+            jsp.verify(jt.key, jt.signature, data) == got[i]
+
+    # the prepared path over 32-byte digests: P-256 lanes on the card,
+    # the rest on sw, an unused P-384 key in `keys`
+    n = len(items)
+    keys, key_idx = [], np.zeros(n, np.int64)
+    for i, it in enumerate(items):
+        if it.key not in keys:
+            keys.append(it.key)
+        key_idx[i] = keys.index(it.key)
+    unused = sw.ECDSAPrivateKey(99, curve="P-384").public_key()
+    digests = np.frombuffer(b"".join(
+        it.digest if it.digest is not None and len(it.digest) == 32
+        else hashlib.sha256(it.message or it.digest).digest()
+        for it in items), np.uint8).reshape(n, 32)
+    ok, r8, rpn8, w8 = native.batch_prep([it.signature for it in items])
+    sigs = [it.signature for it in items]
+    want_prepared = [
+        isinstance(it.key, sw.ECDSAPublicKey) and jsp.verify(
+            mixed["jitems"][i].key, it.signature, digests[i].tobytes())
+        for i, it in enumerate(items)]
+    for extra_keys in ([], [unused]):
+        got_p = provider.verify_prepared_start(
+            digests, r8, rpn8, w8, ok, key_idx, keys + extra_keys,
+            sigs.__getitem__)()
+        assert got_p == want_prepared
+
+
+def test_verify_batch_preps_natively_once(provider, block, monkeypatch):
+    """`_verify_batch_p256` preps its lanes in one `native.batch_prep`
+    call and never calls `host_prep_scalars`; the comb gets the premask,
+    rows and key slots that per-lane `host_prep_scalars` staging gives."""
     items = _items(block, api, block["pubs"], _DeadKey())
-    items[5] = api.VerifyItem(key=p384, signature=ln["sig"],
-                              digest=ln["digest"])
-    with pytest.raises(NotImplementedError):
-        provider.verify_batch(items)
-    with pytest.raises(NotImplementedError):
-        provider.verify(p384, ln["sig"], ln["digest"])
-    with pytest.raises(NotImplementedError):
-        provider.verify_prepared_start(
-            np.zeros((4, 32), np.uint8), *(np.zeros((4, 32), np.uint8),) * 3,
-            np.ones(4, bool), np.zeros(4, np.int64), [p384], lambda i: b"")
+    calls = []
+    prep = native.batch_prep
+    monkeypatch.setattr(native, "batch_prep",
+                        lambda sigs: calls.append(len(sigs)) or prep(sigs))
+
+    def no_plain(*a):
+        raise AssertionError("the main path called host_prep_scalars")
+    monkeypatch.setattr(cuda, "host_prep_scalars", no_plain)
+    seen = {}
+    dispatch = provider._dispatch_comb_digest
+    monkeypatch.setattr(provider, "_dispatch_comb_digest", lambda *a: (
+        seen.update(zip(("key_idx", "r", "rpn", "w", "premask"), a[2:7]))
+        or dispatch(*a)))
+    got = provider.verify_batch(items)
+    np.testing.assert_array_equal(got, block["expected"])
+    assert calls == [len(items)]
+    bucket = provider._bucket(len(items))
+    key_map: dict = {}
+    want = dict(key_idx=np.zeros(bucket, np.int32),
+                premask=np.zeros(bucket, bool),
+                **{k: np.zeros((bucket, 32), np.uint8)
+                   for k in ("r", "rpn", "w")})
+    for i, it in enumerate(items):
+        pub = it.key.public_key()
+        rows = (host_prep_scalars(pub, it.signature)
+                if isinstance(pub, sw.ECDSAPublicKey) else None)
+        if rows is None:
+            continue
+        want["premask"][i] = True
+        for k, row in zip(("r", "rpn", "w"), rows):
+            want[k][i] = np.frombuffer(row, np.uint8)
+        kb = pub.x_bytes().tobytes() + pub.y_bytes().tobytes()
+        want["key_idx"][i] = key_map.setdefault(kb, len(key_map))
+    for k, v in want.items():
+        np.testing.assert_array_equal(seen[k], v, err_msg=k)
 
 
 def test_host_prep_scalars_gates(block):
