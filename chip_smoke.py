@@ -85,6 +85,26 @@ Phases, one JSON line each; any failure exits non-zero:
                    the expected bitmap and sw's (in the pool), and the
                    P-256 lanes launch exactly the kernels of the
                    P-256-only call.
+  warm_restart     the Q16 table's lifecycle across a restart, on the org
+                   block's key set (3 keys, K = 4), with a temporary
+                   WarmKeysDir under fabric_tpu_torch/_build/ (removed at
+                   the end): the cold leg in this process (the first
+                   verify_prepared builds Q8 and Q16, flush_warm_tables
+                   writes the Q16 file of 1,006,632,960 table bytes and the
+                   Q8 file, both passing their sha256 sidecars); then four
+                   legs, each in a spawned process (the 16-bit G table is
+                   process-global): "restart" (prewarm(wait_restore=True)
+                   restores the table from the file, then the first
+                   verify_prepared: no Q16 build, one disk load, one
+                   stage-A and one tree launch, the restored table's
+                   sha256 the cold leg's; restart_first_block_s and
+                   restore_s), "cold" (no warm dir: cold_first_block_s),
+                   "restore_window" (a verify_prepared while the restore
+                   runs, on whichever route it takes, then one after it),
+                   "corrupt" (one byte of the file flipped: the sidecar
+                   fails and the set is rebuilt, q16_builds 1). Every
+                   bitmap equals the cold leg's, the expected one and sw on
+                   the sample.
   kernel_vs_plain  both entries of the tree kernel against their plain
                    torch versions on the card at the main path's shape
                    (the block's 32,768-lane bucket, M = 32 and 64, windows
@@ -651,6 +671,195 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
             prov, blk, sw_bits, sample)
     emit(rec)
     return counts
+
+
+# -- the Q16 table lifecycle across a restart --
+
+# the org block's key set: 3 keys, K = 4 slots; its Q16 table's bytes
+WARM_K = 4
+Q16_TABLE_BYTES = 16 * WARM_K * 65536 * 3 * L * 4       # 1,006,632,960
+WARM_STATS = ("q16_builds", "q8_builds", "q16_disk_loads", "q8_disk_loads",
+              "q16_loading_skips", "table_build_s", "table_load_s")
+
+
+def table_sha256(t) -> str:
+    """sha256 of a table tensor's bytes (copied to the host)."""
+    return hashlib.sha256(t.cpu().numpy()).hexdigest()
+
+
+def _warm_child(leg, warm_dir, prepared):
+    """One leg of warm_restart in a fresh process (the 16-bit G table is
+    process-global, so a restart inside one process is none): construct
+    a provider (with `warm_dir` as its WarmKeysDir, or none), prewarm it
+    and verify the block's digest lanes. "restore_window" verifies once
+    while the restore is still running, then once after it. Returns the
+    bitmaps, launch counts, stats and seconds."""
+    import torch
+
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.bccsp.cuda import LAUNCH_COUNTERS
+
+    def verify():
+        for mod, attr in LAUNCH_COUNTERS.values():
+            setattr(mod, attr, 0)
+        t = time.perf_counter()
+        bits = np.asarray(prov.verify_prepared(**prepared), dtype=bool)
+        secs = time.perf_counter() - t
+        return bits, {k: getattr(mod, attr) for k, (mod, attr)
+                      in LAUNCH_COUNTERS.items()
+                      if getattr(mod, attr)}, secs
+
+    t0 = time.perf_counter()
+    cuda = {"WarmKeysDir": warm_dir} if warm_dir else {}
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": cuda})
+    prov.prewarm(wait_restore=leg != "restore_window")
+    prewarm_s = time.perf_counter() - t0
+    out = {"leg": leg, "prewarm_s": prewarm_s}
+    if leg == "restore_window":
+        skips = prov.stats["q16_loading_skips"]
+        out["bits"], out["launches"], out["window_verify_s"] = verify()
+        out["route"] = ("q8" if prov.stats["q16_loading_skips"] > skips
+                        else "q16")
+        prov.flush_warm_tables()
+        out["restore_done_s"] = time.perf_counter() - t0
+        out["after_bits"], out["after_launches"], _ = verify()
+    else:
+        out["bits"], out["launches"], out["verify_s"] = verify()
+        out["first_block_s"] = time.perf_counter() - t0
+    (cache_key, q16), = prov._q16_cache.items()
+    out["table_sha256"] = table_sha256(q16)
+    prov.flush_warm_tables()
+    out["stats"] = {k: prov.stats[k] for k in WARM_STATS}
+    out["device"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def run_warm_child(leg, warm_dir, prepared):
+    """_warm_child in a spawned process of its own; its result and the
+    process's wall seconds, start-up included."""
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(1) as pool:
+        out = pool.apply(_warm_child, (leg, warm_dir, prepared))
+        pool.close()
+        pool.join()
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x01]))
+
+
+def warm_restart(blk, sw_bits, sample, card) -> dict:
+    """The org block's key set across a restart, with a temporary
+    WarmKeysDir under the build directory (removed at the end): the
+    cold leg here (first verify_prepared, then flush_warm_tables: the
+    Q16 file of Q16_TABLE_BYTES and its sidecar), then each leg in a
+    spawned process: "restart" (prewarm(wait_restore=True) restores the
+    table: no Q16 build, one disk load, one stage-A and one tree launch,
+    the table's sha256 the cold leg's), "cold" (no warm dir: the first
+    block builds), "restore_window" (a batch while the restore runs,
+    whichever route it takes), "corrupt" (one byte of the file flipped:
+    rebuilt). Every bitmap equals the cold leg's, the expected one and sw
+    on the sample."""
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.common import torchenv
+    from fabric_tpu_torch.ops import comb
+
+    pr = blk["prepared"]
+    os.makedirs(torchenv.BUILD_DIR, exist_ok=True)
+    warm = tempfile.mkdtemp(prefix="warm_keys_", dir=torchenv.BUILD_DIR)
+    rec = {"phase": "warm_restart", "ok": True, "card": card,
+           "lanes": blk["n"], "keys": len(pr["keys"]), "K": WARM_K}
+    prov = factory.new_bccsp({"Default": "CUDA",
+                              "CUDA": {"WarmKeysDir": warm}})
+    try:
+        bits, counts, _, first_s = counted(
+            prov, "warm_restart cold", (TREE, SHA),
+            lambda: prov.verify_prepared(**pr))
+        check_bits("warm_restart cold", bits, blk, sw_bits, sample)
+        cold_bits = np.asarray(bits, dtype=bool)
+        check(prov.stats["q16_builds"] == 1,
+              f"warm_restart cold: {prov.stats['q16_builds']} Q16 builds")
+        t0 = time.perf_counter()
+        prov.flush_warm_tables()
+        flush_s = time.perf_counter() - t0
+        (cache_key, q16), = prov._q16_cache.items()
+        path = prov._table_path(cache_key)
+        on_disk = np.load(path, mmap_mode="r")
+        check(on_disk.dtype == np.int32
+              and on_disk.nbytes == Q16_TABLE_BYTES
+              and on_disk.shape == (Q16_TABLE_BYTES // (3 * L * 4), 3, L),
+              f"warm_restart: {path} holds {on_disk.dtype} "
+              f"{on_disk.shape}, not {Q16_TABLE_BYTES} bytes")
+        del on_disk
+        check(comb.verify_digest_sidecar(path) is True,
+              f"warm_restart: {path} fails its sidecar")
+        q8_path = prov._table_path(cache_key, "qtab8")
+        check(comb.verify_digest_sidecar(q8_path) is True,
+              f"warm_restart: {q8_path} missing or failing its sidecar")
+        cold_sha = table_sha256(q16)
+        rec["cold_leg"] = {
+            "table_build_s": prov.stats["table_build_s"],
+            "first_verify_prepared_s": first_s,
+            "launches": {k: v for k, v in counts.items() if v},
+            "flush_warm_tables_s": flush_s,
+            "q16_file_bytes": os.path.getsize(path),
+            "q16_table_bytes": Q16_TABLE_BYTES,
+            "q8_file_bytes": os.path.getsize(q8_path)}
+        del q16
+
+        legs = {}
+        for leg, leg_dir in (("restart", warm), ("cold", None),
+                             ("restore_window", warm), ("corrupt", warm)):
+            if leg == "corrupt":
+                flip_byte(path, os.path.getsize(path) // 2)
+                check(comb.verify_digest_sidecar(path) is False,
+                      "warm_restart: the flipped file passes its sidecar")
+            out = run_warm_child(leg, leg_dir, pr)
+            for k in ("bits", "after_bits"):
+                if k in out:
+                    check_bits(f"warm_restart {leg} ({k})", out[k], blk,
+                               sw_bits, sample)
+                    check(bool((out.pop(k) == cold_bits).all()),
+                          f"warm_restart {leg}: bitmap != the cold leg's")
+            legs[leg] = out
+        st = legs["restart"]["stats"]
+        check(st["q16_builds"] == 0 and st["q16_disk_loads"] == 1,
+              f"warm_restart restart: {st}")
+        check(legs["restart"]["launches"] == {SHA: 1, TREE: 1},
+              f"warm_restart restart launches {legs['restart']['launches']}")
+        for leg in ("restart", "restore_window"):
+            check(legs[leg]["table_sha256"] == cold_sha,
+                  f"warm_restart {leg}: the restored table's sha256 is not "
+                  "the cold leg's")
+        check(legs["cold"]["stats"]["q16_builds"] == 1,
+              f"warm_restart cold restart: {legs['cold']['stats']}")
+        check(legs["corrupt"]["stats"]["q16_builds"] == 1
+              and legs["corrupt"]["stats"]["q16_disk_loads"] == 0,
+              f"warm_restart corrupt: {legs['corrupt']['stats']}")
+        rec.update({
+            "restart_first_block_s": legs["restart"]["first_block_s"],
+            "cold_first_block_s": legs["cold"]["first_block_s"],
+            "restore_s": legs["restart"]["stats"]["table_load_s"],
+            "restore_window_route": legs["restore_window"]["route"],
+            "restore_window_verify_s":
+                legs["restore_window"]["window_verify_s"],
+            "corrupt_rebuilt": True, "legs": legs})
+    finally:
+        # no writer of the cold leg may recreate the directory
+        for t in prov._persist_threads:
+            t.join(120)
+        shutil.rmtree(warm, ignore_errors=True)
+    emit(rec)
+    return rec
 
 
 # -- lanes on the other NIST curves, mixed into the org block --
@@ -3130,6 +3339,7 @@ def drive(args, pool, nproc, card):
     provsha._q8_cache.update(prov8._q8_cache)
     csha = run_route("device_sha", provsha, prepared=False, fused=False,
                      batch_need=(DIGEST, TREE), **route)
+    warm_restart(blk, sw_bits, sample, card)
 
     tree32 = kernel_vs_plain(prov16, blk, 32, card, pool, nproc)
     tree64 = kernel_vs_plain(prov8, blk, 64, card, pool, nproc)

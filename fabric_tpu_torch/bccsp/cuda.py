@@ -77,6 +77,15 @@ Pair lists under `max(2, MinBatch // 4)`, and every call with the
 host path (`bls12_381.miller_products`, `check_products`): routing by
 size, as the reference does.
 
+The comb's per-key-set Q tables follow fabric_tpu's lifecycle
+(`_q16_cached`, `_q8_cached`): Q16 in a byte-bounded cache that pins hot
+tables and serves overflow sets on the 8-bit route, a set being built or
+restored by another thread riding the 8-bit route meanwhile, and with
+`WarmKeysDir` the key sets and table bytes persisted (sha256 sidecars)
+and restored by `prewarm`'s background thread. A device error in the
+persist or restore thread is raised by `flush_warm_tables` and by the
+set's next lookup.
+
 Device errors propagate: the port has no breaker and no sw fallback yet
 (the reference's pairing methods and `verify_aggregate` fall back to the
 host on any device error; here they raise), and no counterpart of
@@ -86,6 +95,8 @@ host on any device error; here they raise), and no counterpart of
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
 import logging
 import os
 import threading
@@ -96,7 +107,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from fabric_tpu_torch import native
+from fabric_tpu_torch import kernels, native
 from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
@@ -167,7 +178,8 @@ class CUDAProvider(api.BCCSP):
                  hash_on_host: bool = True,
                  fused_verify: bool | None = None,
                  max_blocks: int = 64, ed25519_enabled: bool = True,
-                 bls_pairing: bool | None = None):
+                 bls_pairing: bool | None = None,
+                 warm_keys_dir: str | None = None):
         self.device = torchenv.resolve_device(device)
         self._sw = swmod.SWProvider()
         self._min_batch = min_batch
@@ -195,19 +207,58 @@ class CUDAProvider(api.BCCSP):
         # the BLS12-381 aggregate kernels (CUDA.BLSPairing); None = on for
         # a CUDA device; off serves every aggregate on the staged host path
         self._bls_pairing = bls_pairing
+        # where key sets and their Q table bytes persist across restarts
+        # (CUDA.WarmKeysDir); None disables persistence
+        self._warm_keys_dir = warm_keys_dir
+        self._lock = threading.Lock()       # the Ed25519 B table
         self._ed_tab = None
+        # Every Q table structure below is guarded by _q16_lock (an RLock:
+        # helpers nest); the table builds, disk reads and copies run
+        # outside it. _warm_lock serializes the warm dir's file updates
+        # and never serializes a cache lookup.
+        self._q16_lock = threading.RLock()
+        self._warm_lock = threading.Lock()
         # per-key-set tables, least recently used first: Q16 bounded by
-        # bytes, Q8 (~1.97 MB per key slot) by count
-        self._lock = threading.Lock()
+        # bytes (numel * 4 of the resident tensors), Q8 (~1.97 MB per key
+        # slot) by count
         self._q16_cache: OrderedDict = OrderedDict()
         self._q16_bytes = 0
         self._q8_cache: OrderedDict = OrderedDict()
+        # cache_key -> Event: a Q8 load or build in flight; a concurrent
+        # miss for the same set waits for it
+        self._q8_loading: dict = {}
+        # adaptive residency (see _q16_cached): a lookup counter as the
+        # clock, per set its last use, denial, decayed request rate and
+        # last request
+        self._q16_batch_no = 0
+        self._q16_last_use: dict = {}
+        self._q16_denied: dict = {}
+        self._q16_heat: dict = {}
+        self._q16_last_req: dict = {}
+        # restored by prewarm from persisted sets and not yet asked for by
+        # a live batch: cold, the first eviction candidates
+        self._q16_prewarmed: set = set()
+        # sets whose Q16 table is being restored or built: a live miss
+        # for one rides the 8-bit route instead of waiting or building
+        self._q16_loading: set = set()
+        # device errors met by the persist and restore threads, by key
+        # set (None: the restore thread's G16 build); raised by
+        # flush_warm_tables and by the set's next lookup
+        self._table_errors: dict = {}
+        self._persist_threads: list = []
+        self._restore_thread = None
         self.stats = {"comb_batches": 0, "host_hashed_lanes": 0,
                       "host_hash_fallbacks": 0, "fused_batches": 0,
                       "fused_lanes": 0,
                       "q8_builds": 0, "q16_builds": 0,
-                      "q16_oversize_skips": 0, "nonp256_sw_lanes": 0,
-                      "table_build_s": 0.0, "tree_kernel_launches": 0,
+                      "q16_oversize_skips": 0, "q16_evictions": 0,
+                      "q16_adaptive_skips": 0, "q16_loading_skips": 0,
+                      "q16_cache_bytes": 0, "q16_resident_sets": 0,
+                      "q16_disk_loads": 0, "q8_disk_loads": 0,
+                      "warm_table_persist_failures": 0,
+                      "nonp256_sw_lanes": 0,
+                      "table_build_s": 0.0, "table_load_s": 0.0,
+                      "tree_kernel_launches": 0,
                       "sha_windows_launches": 0, "sha256_launches": 0,
                       "resident_launches": 0, "ladder_batches": 0,
                       "ladder_launches": 0, "ed25519_batches": 0,
@@ -804,8 +855,9 @@ class CUDAProvider(api.BCCSP):
 
     def _resolve_tables(self, key_map, key_idx):
         """Canonical slot order + the key set's tables: Q16 (with G16)
-        when it fits the byte budget, else Q8 with the 8-bit G table.
-        Returns (key_idx remapped, K, q_flat, g16 or None, q16?)."""
+        when it is resident or may be made resident (`_q16_cached`), else
+        Q8 with the 8-bit G table. Returns (key_idx remapped, K, q_flat,
+        g16 or None, q16?)."""
         order, key_idx = self._canonical_key_order(key_map, key_idx)
         K = 1
         while K < len(order):
@@ -821,7 +873,7 @@ class CUDAProvider(api.BCCSP):
                 if g16 is None:
                     g16 = self._timed(comb.g16_tables, self.device)
                 return key_idx, K, q16, g16, True
-        return key_idx, K, self._q8_cached(cache_key, qk), None, False
+        return key_idx, K, self._q8_cached(cache_key, K, qk), None, False
 
     def _timed(self, fn, *args):
         """Run a table build to completion on the card and add its
@@ -830,51 +882,606 @@ class CUDAProvider(api.BCCSP):
         out = fn(*args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.stats["table_build_s"] += time.perf_counter() - t0
+        self._bump("table_build_s", time.perf_counter() - t0)
         return out
 
-    def _q8_cached(self, cache_key, qk: np.ndarray) -> torch.Tensor:
-        with self._lock:
-            q8 = self._q8_cache.pop(cache_key, None)
-            if q8 is not None:
-                self._q8_cache[cache_key] = q8            # most recent
-                return q8
+    def _bump(self, stat: str, by=1) -> None:
+        with self._q16_lock:
+            self.stats[stat] += by
+
+    # -- the Q tables' lifecycle: fabric_tpu's _q16_cached, q8_cached and
+    #    warm-key persistence --
+
+    def _q16_est_bytes(self, K: int) -> int:
+        return comb.NWIN_G16 * K * comb.NENT_G16 * 3 * limb.L * 4
+
+    def _q8_est_bytes(self, K: int) -> int:
+        return comb.NWIN * K * comb.NENT * 3 * limb.L * 4
+
+    # a victim used within this many lookups is "hot": never evicted for
+    # a no-hotter newcomer, which is denied Q16 for _DENY_TTL lookups
+    # instead (a working set larger than the budget pins the resident
+    # tables and serves the overflow on the 8-bit route rather than
+    # rebuilding tables every few blocks). _HOT_WINDOW is also the
+    # half-life of the per-set request rate.
+    _HOT_WINDOW = 16
+    _DENY_TTL = 256
+    _HEAT_MAX_ENTRIES = 4096
+
+    def _q16_heat_bump(self, cache_key, now) -> float:
+        """The set's request rate, decayed with a half-life of
+        _HOT_WINDOW lookups, after this request. Denied sets accrue it
+        too, so a live working set can out-bid cooling residents."""
+        heat = self._q16_heat
+        last = self._q16_last_req.get(cache_key, now)
+        h = (heat.get(cache_key, 0.0)
+             * 0.5 ** ((now - last) / self._HOT_WINDOW) + 1.0)
+        heat[cache_key] = h
+        self._q16_last_req[cache_key] = now
+        if len(heat) > self._HEAT_MAX_ENTRIES:
+            # bound the bookkeeping of a node that sees many key sets
+            stale = [k for k, t in self._q16_last_req.items()
+                     if now - t > 4 * self._DENY_TTL
+                     and k not in self._q16_cache]
+            for k in stale:
+                heat.pop(k, None)
+                self._q16_last_req.pop(k, None)
+                self._q16_denied.pop(k, None)
+        return h
+
+    def _evict_q16(self, victim) -> None:
+        """Drop a resident Q16 table (under _q16_lock); a prewarmed set no
+        live batch asked for is stale and leaves the warm dir too."""
+        evicted = self._q16_cache.pop(victim)
+        self._q16_last_use.pop(victim, None)
+        self._q16_bytes -= evicted.numel() * 4
+        self.stats["q16_evictions"] += 1
+        self.stats["q16_cache_bytes"] = self._q16_bytes
+        self.stats["q16_resident_sets"] = len(self._q16_cache)
+        if victim in self._q16_prewarmed:
+            self._q16_prewarmed.discard(victim)
+            self._drop_warm_keys(victim)
+
+    def _q16_cached(self, cache_key, K: int, qk: np.ndarray,
+                    prewarm: bool = False):
+        """The key set's 16-bit Q table from a byte-bounded LRU; on a miss
+        the warm dir's persisted bytes, else a build. None keeps the set
+        on the 8-bit route: one table alone exceeds the budget, the set is
+        being restored or built by another thread, or the budget is full
+        of hotter tables in use (adaptive residency).
+
+        prewarm=True is a restore of a persisted set: it fills only free
+        budget, goes in cold (evictable by any live request) and is not
+        recorded as most recently used. The disk read and the build run
+        outside _q16_lock; a table raced in meanwhile is kept and ours
+        dropped, without counting its bytes twice."""
+        if not prewarm:
+            self._raise_table_error(cache_key)
+        with self._q16_lock:
+            self._q16_batch_no += 1
+            now = self._q16_batch_no
+            my_heat = (0.0 if prewarm
+                       else self._q16_heat_bump(cache_key, now))
+            q16 = self._q16_cache.pop(cache_key, None)
+            if q16 is not None:
+                self._q16_cache[cache_key] = q16          # most recent
+                if not prewarm:
+                    self._q16_last_use[cache_key] = now
+                    # a live batch claims a prewarmed table
+                    self._q16_prewarmed.discard(cache_key)
+                return q16
+            est = self._q16_est_bytes(K)
+            if est > self._table_cache_bytes:
+                self.stats["q16_oversize_skips"] += 1
+                logger.warning(
+                    "16-bit Q table for %d keys needs %.1f GB > "
+                    "TableCacheMB budget (%.1f GB); staying on the 8-bit "
+                    "Q path for this key set", K, est / 2**30,
+                    self._table_cache_bytes / 2**30)
+                return None
+            denied_at = self._q16_denied.get(cache_key)
+            if denied_at is not None and now - denied_at < self._DENY_TTL:
+                # a denied set hotter than the coldest resident re-earns an
+                # eviction attempt before its TTL runs out
+                coldest = min((self._q16_heat.get(k, 0.0)
+                               for k in self._q16_cache), default=0.0)
+                if my_heat <= coldest:
+                    self.stats["q16_adaptive_skips"] += 1
+                    return None
+            if not prewarm and cache_key in self._q16_loading:
+                # restored or built by another thread: ride the 8-bit
+                # route now, and evict nothing for a None
+                self.stats["q16_loading_skips"] += 1
+                return None
+            while (self._q16_cache
+                   and self._q16_bytes + est > self._table_cache_bytes):
+                if prewarm:
+                    # a restore fills free budget only
+                    return None
+                victim = next(iter(self._q16_cache))
+                if (victim not in self._q16_prewarmed
+                        and now - self._q16_last_use.get(victim, 0)
+                        < self._HOT_WINDOW
+                        and self._q16_heat.get(victim, 0.0) >= my_heat):
+                    # every evictable resident is hotter and in use:
+                    # deny this set the 16-bit route for a while
+                    self._q16_denied[cache_key] = now
+                    if len(self._q16_denied) > self._HEAT_MAX_ENTRIES:
+                        self._q16_denied = {
+                            k: t for k, t in self._q16_denied.items()
+                            if now - t < self._DENY_TTL}
+                    self.stats["q16_adaptive_skips"] += 1
+                    logger.warning(
+                        "q16 table budget (%.1f GB) is full of hot key "
+                        "sets; serving this %d-key set on the 8-bit path "
+                        "(q16_adaptive_skips counts these; raise "
+                        "TableCacheMB to fit the working set)",
+                        self._table_cache_bytes / 2**30, K)
+                    return None
+                self._evict_q16(victim)
+            # in flight: a concurrent live miss for this set rides the
+            # 8-bit route instead of building it again
+            self._q16_loading.add(cache_key)
+        try:
+            t0 = time.perf_counter()
+            preloaded = self._load_q16_table(cache_key, K)
+            if preloaded is not None:
+                q16 = self._table_to_device(preloaded)
+                self._bump("table_load_s", time.perf_counter() - t0)
+                self._bump("q16_disk_loads")
+            else:
+                if not prewarm:
+                    # recorded before the persist threads start: their
+                    # publish step deletes the bytes of unrecorded sets
+                    self._record_warm_keys(cache_key)
+                q16 = self._build_q16_table(cache_key, K, qk)
+                self._persist_q16_table(cache_key, q16)
+            with self._q16_lock:
+                raced = self._q16_cache.pop(cache_key, None)
+                if raced is not None:
+                    # another thread restored or built it meanwhile: keep
+                    # the resident table (already counted), drop ours
+                    self._q16_cache[cache_key] = raced
+                    if not prewarm:
+                        self._q16_last_use[cache_key] = now
+                        self._q16_prewarmed.discard(cache_key)
+                        self._q16_denied.pop(cache_key, None)
+                    return raced
+                self._q16_cache[cache_key] = q16
+                self._q16_bytes += q16.numel() * 4
+                if prewarm:
+                    self._q16_prewarmed.add(cache_key)
+                    self._q16_last_use[cache_key] = 0     # cold until used
+                else:
+                    self._q16_last_use[cache_key] = now
+                    self._q16_denied.pop(cache_key, None)
+                    # concurrent misses for different sets may both have
+                    # passed the eviction check: shed cold LRU tables
+                    # until the budget holds (hot ones stay)
+                    while (self._q16_bytes > self._table_cache_bytes
+                           and len(self._q16_cache) > 1):
+                        victim = next(iter(self._q16_cache))
+                        if victim == cache_key or (
+                                victim not in self._q16_prewarmed
+                                and now - self._q16_last_use.get(victim, 0)
+                                < self._HOT_WINDOW):
+                            break
+                        self._evict_q16(victim)
+                self.stats["q16_cache_bytes"] = self._q16_bytes
+                self.stats["q16_resident_sets"] = len(self._q16_cache)
+        finally:
+            with self._q16_lock:
+                self._q16_loading.discard(cache_key)
+        if not prewarm and preloaded is not None:
+            # a set restored from disk is live again: most recent in the
+            # warm file
+            self._record_warm_keys(cache_key)
+        return q16
+
+    def _build_q16_table(self, cache_key, K: int, qk: np.ndarray):
+        """Q8 (the resident one, else built), handed to persistence: it is
+        the route a restarted node serves on while this set's Q16 bytes
+        stream back; then Q16 from it on the device."""
+        q8 = self._q8_once(cache_key, lambda: self._build_q8_table(K, qk))
+        self._persist_q8_table(cache_key, q8)
+        q16 = self._timed(comb.build_q16_tables, q8, K)
+        self._bump("q16_builds")
+        return q16
+
+    def _build_q8_table(self, K: int, qk: np.ndarray) -> torch.Tensor:
         q = torch.from_numpy(qk).to(self.device)
         q8 = self._timed(comb.build_q_tables,
                          limb.be_bytes_to_limbs(q[:, :32]),
                          limb.be_bytes_to_limbs(q[:, 32:]))
-        with self._lock:
-            self.stats["q8_builds"] += 1
-            self._q8_cache[cache_key] = q8
-            while len(self._q8_cache) > Q8_CACHE_SETS:
-                self._q8_cache.popitem(last=False)
+        self._bump("q8_builds")
         return q8
 
-    def _q16_cached(self, cache_key, K: int, qk: np.ndarray):
-        """The key set's 16-bit Q table from a byte-bounded LRU, built on
-        a miss; None when one table alone exceeds the budget (that set
-        stays on the 8-bit path)."""
-        with self._lock:
-            q16 = self._q16_cache.pop(cache_key, None)
-            if q16 is not None:
-                self._q16_cache[cache_key] = q16          # most recent
-                return q16
-        est = comb.NWIN_G16 * K * comb.NENT_G16 * 3 * limb.L * 4
-        if est > self._table_cache_bytes:
-            self.stats["q16_oversize_skips"] += 1
+    def _q8_once(self, cache_key, make) -> torch.Tensor:
+        """The key set's 8-bit Q table from the count-bounded LRU, else
+        make()'s: one make at a time per set, a concurrent miss waiting
+        for it (a make that raises leaves the next waiter to try)."""
+        while True:
+            with self._q16_lock:
+                q8 = self._q8_cache.pop(cache_key, None)
+                if q8 is not None:
+                    self._q8_cache[cache_key] = q8        # most recent
+                    return q8
+                pending = self._q8_loading.get(cache_key)
+                if pending is None:
+                    mine = self._q8_loading[cache_key] = threading.Event()
+                    break
+            pending.wait()
+        try:
+            q8 = make()
+            with self._q16_lock:
+                self._q8_cache[cache_key] = q8
+                while len(self._q8_cache) > Q8_CACHE_SETS:
+                    self._q8_cache.popitem(last=False)
+        finally:
+            with self._q16_lock:
+                del self._q8_loading[cache_key]
+            mine.set()
+        return q8
+
+    def _q8_cached(self, cache_key, K: int, qk: np.ndarray) -> torch.Tensor:
+        """The 8-bit route's table: resident, else the warm dir's bytes,
+        else a build. With UseG16 false the Q8 file is the set's warm
+        state (recorded and persisted); with G16 on it is persisted for
+        recorded sets only, the restore window's route."""
+        self._raise_table_error(cache_key)
+
+        def load_or_build():
+            t0 = time.perf_counter()
+            pre = self._load_q8_table(cache_key, K)
+            if pre is not None:
+                q8 = self._table_to_device(pre)
+                self._bump("table_load_s", time.perf_counter() - t0)
+                self._bump("q8_disk_loads")
+                if not self._use_g16:
+                    self._record_warm_keys(cache_key)     # most recent
+                return q8
+            q8 = self._build_q8_table(K, qk)
+            if not self._use_g16:
+                # recorded first, or the publish step deletes the file
+                self._record_warm_keys(cache_key)
+                self._persist_q8_table(cache_key, q8)
+            elif [kb.hex() for kb in cache_key] in self._load_warm_keys():
+                self._persist_q8_table(cache_key, q8)
+            return q8
+        return self._q8_once(cache_key, load_or_build)
+
+    # -- device errors of the background threads --
+
+    def _store_table_error(self, cache_key, err: BaseException) -> None:
+        with self._q16_lock:
+            self._table_errors.setdefault(cache_key, err)
+
+    def _raise_table_error(self, cache_key) -> None:
+        """Raise, once, a device error a background thread met on this key
+        set (or on the restore thread's G16 build)."""
+        with self._q16_lock:
+            err = (self._table_errors.pop(cache_key, None)
+                   or self._table_errors.pop(None, None))
+        if err is not None:
+            raise err
+
+    def _first_table_error(self):
+        with self._q16_lock:
+            return next(iter(self._table_errors.values()), None)
+
+    # -- device <-> host copies of a table, off the serving stream --
+
+    def _table_to_host(self, table: torch.Tensor, ready) -> np.ndarray:
+        """The table's bytes on the host. On the card: a copy on a side
+        stream into pinned memory, after the `ready` event (recorded when
+        the table was built), the table kept alive for the copy even if it
+        is evicted meanwhile."""
+        if not table.is_cuda:
+            return table.contiguous().numpy()
+        side = torch.cuda.Stream(table.device)
+        host = torch.empty(table.shape, dtype=table.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            table.record_stream(side)
+            host.copy_(table, non_blocking=True)
+        side.synchronize()
+        return host.numpy()
+
+    def _table_to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Persisted bytes as a table on the provider's device. On the
+        card: pinned host memory, a copy on a side stream (serving kernels
+        on the default stream are not queued behind it), synchronized
+        before the table is returned and published."""
+        host = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return host
+        out = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        side = torch.cuda.Stream(self.device)
+        # the new block may be one the default stream's queued work frees
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        host = host.pin_memory()
+        with torch.cuda.stream(side):
+            out.copy_(host, non_blocking=True)
+        side.synchronize()
+        return out
+
+    # -- warm-key persistence (restart-to-first-block latency) --
+
+    _WARM_FILE = "warm_keysets.json"
+    _WARM_MAX_SETS = 8
+
+    def _table_path(self, cache_key, prefix: str = "qtab16") -> str:
+        h = hashlib.sha256(b"".join(cache_key)).hexdigest()[:32]
+        return os.path.join(self._warm_keys_dir, f"{prefix}_{h}.npy")
+
+    def _write_warm_keys(self, sets: list) -> None:
+        path = os.path.join(self._warm_keys_dir, self._WARM_FILE)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(sets, f)
+        os.replace(tmp, path)
+
+    def _drop_table_files(self, cache_key) -> None:
+        for prefix in ("qtab16", "qtab8"):
+            tab = self._table_path(cache_key, prefix)
+            if os.path.exists(tab):
+                os.remove(tab)
+            comb.drop_digest_sidecar(tab)
+
+    def _record_warm_keys(self, cache_key) -> None:
+        """Put the key set first in the warm file (hex keys in canonical
+        order, MRU first, at most _WARM_MAX_SETS), reclaiming the table
+        bytes of the sets it pushes off. Disk failures only log."""
+        if not self._warm_keys_dir:
+            return
+        try:
+            os.makedirs(self._warm_keys_dir, exist_ok=True)
+            with self._warm_lock:
+                sets = self._load_warm_keys()
+                entry = [kb.hex() for kb in cache_key]
+                if entry in sets:
+                    sets.remove(entry)
+                sets.insert(0, entry)
+                trimmed = sets[self._WARM_MAX_SETS:]
+                del sets[self._WARM_MAX_SETS:]
+                self._write_warm_keys(sets)
+                for old in trimmed:
+                    self._drop_table_files(
+                        tuple(bytes.fromhex(k) for k in old))
+        except OSError:
+            logger.exception("could not persist warm key set")
+
+    def _drop_warm_keys(self, cache_key) -> None:
+        """Remove a stale persisted key set (prewarmed, never used by a
+        live batch before its eviction) and its table bytes. Disk
+        failures only log."""
+        if not self._warm_keys_dir:
+            return
+        try:
+            with self._warm_lock:
+                sets = self._load_warm_keys()
+                entry = [kb.hex() for kb in cache_key]
+                if entry in sets:
+                    sets.remove(entry)
+                    self._write_warm_keys(sets)
+                self._drop_table_files(cache_key)
+        except OSError:
+            logger.exception("could not drop stale warm key set")
+
+    def _load_warm_keys(self) -> list:
+        if not self._warm_keys_dir:
+            return []
+        path = os.path.join(self._warm_keys_dir, self._WARM_FILE)
+        try:
+            with open(path) as f:
+                sets = json.load(f)
+        except FileNotFoundError:
+            return []
+        except (OSError, ValueError):
+            logger.exception("unreadable warm key sets; ignoring")
+            return []
+        if not isinstance(sets, list):
+            return []
+        return [s for s in sets if isinstance(s, list) and all(
+            isinstance(k, str) and len(k) == 128 for k in s)]
+
+    def _persist_table(self, cache_key, table: torch.Tensor,
+                       prefix: str) -> None:
+        """Write a built table's bytes (`np.save`, a sha256 sidecar, tmp +
+        rename) in a background thread: the serving path does not wait for
+        the copy or the write. A failed write is counted
+        (warm_table_persist_failures) and logged; a failed device copy is
+        stored and raised by flush_warm_tables and the set's next
+        lookup."""
+        if not self._warm_keys_dir:
+            return
+        ready = None
+        if table.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(table.device))
+
+        def work():
+            try:
+                arr = self._table_to_host(table, ready)
+            except Exception as e:      # re-raised on the serving path
+                self._store_table_error(cache_key, e)
+                return
+            try:
+                os.makedirs(self._warm_keys_dir, exist_ok=True)
+                path = self._table_path(cache_key, prefix)
+                tmp = f"{path}.tmp{threading.get_ident()}"
+                with open(tmp, "wb") as f:
+                    np.save(f, arr)
+                    f.flush()
+                    os.fsync(f.fileno())
+                digest = comb.file_sha256(tmp)
+                # published under the warm lock: a concurrent drop or trim
+                # either sees the file and deletes it, or has already
+                # removed the set, and then we delete our own write
+                with self._warm_lock:
+                    os.replace(tmp, path)
+                    if [kb.hex() for kb in cache_key] \
+                            not in self._load_warm_keys():
+                        os.remove(path)
+                        comb.drop_digest_sidecar(path)
+                    else:
+                        comb.write_digest_sidecar(path, digest)
+            except OSError:
+                self._bump("warm_table_persist_failures")
+                logger.exception("could not persist %s table bytes", prefix)
+
+        t = threading.Thread(target=work, daemon=True,
+                             name=f"{prefix}-table-persist")
+        with self._q16_lock:
+            self._persist_threads = [p for p in self._persist_threads
+                                     if p.is_alive()] + [t]
+        t.start()
+
+    def _persist_q16_table(self, cache_key, q16) -> None:
+        self._persist_table(cache_key, q16, "qtab16")
+
+    def _persist_q8_table(self, cache_key, q8) -> None:
+        self._persist_table(cache_key, q8, "qtab8")
+
+    def flush_warm_tables(self, timeout: float = 120.0) -> None:
+        """Join the table persist writers and the background restore
+        (shutdown, benchmarks, tests), `timeout` bounding the whole wait;
+        then raise a device error either met."""
+        deadline = time.monotonic() + timeout
+        if self._restore_thread is not None:
+            self._restore_thread.join(max(0.0, deadline - time.monotonic()))
+        with self._q16_lock:
+            threads = list(self._persist_threads)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        stuck = [t for t in threads if t.is_alive()]
+        if stuck:
             logger.warning(
-                "16-bit Q table for %d keys needs %.1f GB > TableCacheMB "
-                "budget (%.1f GB); staying on the 8-bit Q path for this "
-                "key set", K, est / 2**30, self._table_cache_bytes / 2**30)
+                "%d warm-table persist writer(s) still running after the "
+                "%.0fs flush deadline; leaving them detached", len(stuck),
+                timeout)
+        err = self._first_table_error()
+        if err is not None:
+            raise err
+
+    def _load_table(self, cache_key, want_bytes: int, prefix: str):
+        """A persisted table's array, or None (absent, failing its sidecar,
+        unreadable, or of another size or type: the caller rebuilds)."""
+        if not self._warm_keys_dir:
             return None
-        q8 = self._q8_cached(cache_key, qk)
-        q16 = self._timed(comb.build_q16_tables, q8, K)
-        with self._lock:
-            self.stats["q16_builds"] += 1
-            while self._q16_cache and \
-                    self._q16_bytes + est > self._table_cache_bytes:
-                _, old = self._q16_cache.popitem(last=False)
-                self._q16_bytes -= old.numel() * 4
-            self._q16_cache[cache_key] = q16
-            self._q16_bytes += est
-        return q16
+        path = self._table_path(cache_key, prefix)
+        try:
+            if comb.verify_digest_sidecar(path) is False:
+                logger.warning("persisted %s table %s fails its sha256 "
+                               "sidecar; rebuilding", prefix, path)
+                return None
+            arr = np.load(path)
+        except FileNotFoundError:
+            return None
+        except (OSError, ValueError, EOFError):
+            logger.exception("unreadable persisted %s table; rebuilding",
+                             prefix)
+            return None
+        if arr.dtype != np.int32 or arr.nbytes != want_bytes:
+            logger.warning("persisted %s table %s is %d bytes (%s), want "
+                           "%d; rebuilding", prefix, path, arr.nbytes,
+                           arr.dtype, want_bytes)
+            return None
+        return arr
+
+    def _load_q16_table(self, cache_key, K: int):
+        return self._load_table(cache_key, self._q16_est_bytes(K), "qtab16")
+
+    def _load_q8_table(self, cache_key, K: int):
+        return self._load_table(cache_key, self._q8_est_bytes(K), "qtab8")
+
+    def _warm_candidates(self) -> list:
+        """The persisted key sets with Q16 bytes on disk, MRU first, each
+        marked in flight (_q16_loading) until its restore ends."""
+        out = []
+        with self._q16_lock:
+            for entry in self._load_warm_keys():
+                cache_key = tuple(bytes.fromhex(k) for k in entry)
+                if os.path.exists(self._table_path(cache_key)):
+                    out.append(cache_key)
+                    self._q16_loading.add(cache_key)
+        return out
+
+    def _prewarm_tables(self, candidates=None) -> int:
+        """Restore the persisted key sets' Q16 tables, MRU first, until
+        the byte budget is full, from their bytes (a set whose file fails
+        its checks is rebuilt). A device error is stored for the set.
+        Returns the sets restored."""
+        if candidates is None:
+            candidates = self._warm_candidates()
+        warmed = 0
+        try:
+            for cache_key in candidates:
+                try:
+                    K = 1
+                    while K < len(cache_key):
+                        K *= 2
+                    qk = np.zeros((K, 64), dtype=np.uint8)
+                    for i, kb in enumerate(cache_key):
+                        qk[i] = np.frombuffer(kb, dtype=np.uint8)
+                    got = self._q16_cached(cache_key, K, qk, prewarm=True)
+                    if got is not None:
+                        warmed += 1
+                    else:
+                        with self._q16_lock:
+                            full = self._q16_bytes and (
+                                self._q16_est_bytes(K) + self._q16_bytes
+                                > self._table_cache_bytes)
+                        if full:
+                            # older sets stay on disk for live misses
+                            break
+                except Exception as e:      # re-raised on the serving path
+                    self._store_table_error(cache_key, e)
+                finally:
+                    with self._q16_lock:
+                        self._q16_loading.discard(cache_key)
+        finally:
+            with self._q16_lock:
+                self._q16_loading.difference_update(candidates)
+        if warmed:
+            logger.info("restored Q tables for %d persisted key set(s)",
+                        warmed)
+        return warmed
+
+    def prewarm(self, wait_restore: bool = False) -> None:
+        """Ready the provider before the node's first block: build or load
+        the native batch prep and, on the card, every kernel library; with
+        G16 on, start one background thread that builds the 16-bit G
+        table and then restores the warm dir's persisted key sets (see
+        _prewarm_tables). Until a set's restore lands, live batches for it
+        ride the 8-bit route. wait_restore=True joins the thread and
+        raises a device error it met. The reference's buckets,
+        key_counts, msg_nbs and bounded arguments choose the shapes to
+        compile ahead of time; the port's kernels take any shape, so it
+        has none of them."""
+        native.load()
+        if self.device.type == "cuda":
+            for name in kernels.build_all():
+                kernels.load(name)
+        if not self._use_g16:
+            return
+        candidates = self._warm_candidates()
+
+        def restore():
+            try:
+                comb.g16_tables(self.device)
+                self._prewarm_tables(candidates)
+            except Exception as e:          # re-raised on the serving path
+                self._store_table_error(None, e)
+            finally:
+                with self._q16_lock:
+                    self._q16_loading.difference_update(candidates)
+
+        self._restore_thread = threading.Thread(
+            target=restore, daemon=True, name="qtab-restore")
+        self._restore_thread.start()
+        if wait_restore:
+            self._restore_thread.join()
+            err = self._first_table_error()
+            if err is not None:
+                raise err

@@ -9,10 +9,14 @@ package's `TPU:` block (`TpuOpts`):
      "CUDA": {"Device": "cuda:0" | "cpu", "MinBatch": 16, "MaxKeys": 16,
               "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144,
               "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64,
-              "Ed25519": true, "BLSPairing": true}}
+              "Ed25519": true, "BLSPairing": true,
+              "WarmKeysDir": "/var/lib/peer/warmkeys"}}
 
 With no Device the provider runs on cuda:0 and raises where CUDA is
 absent; "cpu" runs the plain torch versions (the tests' choice).
+WarmKeysDir (unset: no persistence) is where the provider keeps the key
+sets it built Q tables for and those tables' bytes, which
+`CUDAProvider.prewarm()` restores in a restarted process.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ class CudaOpts:
     # the BLS12-381 aggregate kernels; None = on for the card, off on the
     # CPU; off serves every aggregate on the staged host path
     bls_pairing: Optional[bool] = None
+    # key sets and Q table bytes persist here across restarts; None = off
+    warm_keys_dir: Optional[str] = None
 
 
 @dataclass
@@ -74,6 +80,7 @@ class FactoryOpts:
                 ed25519=bool(c.get("Ed25519", True)),
                 bls_pairing=(bool(c["BLSPairing"])
                              if c.get("BLSPairing") is not None else None),
+                warm_keys_dir=c.get("WarmKeysDir") or None,
             ),
         )
 
@@ -96,5 +103,6 @@ def new_bccsp(opts) -> BCCSP:
                             fused_verify=c.fused_verify,
                             max_blocks=c.max_blocks,
                             ed25519_enabled=c.ed25519,
-                            bls_pairing=c.bls_pairing)
+                            bls_pairing=c.bls_pairing,
+                            warm_keys_dir=c.warm_keys_dir)
     raise ValueError(f"unknown BCCSP default {opts.default!r}")

@@ -88,6 +88,14 @@ def verify_digest_sidecar(path: str):
         return False
 
 
+def drop_digest_sidecar(path: str) -> None:
+    """Remove `path`'s sidecar, if it has one."""
+    try:
+        os.remove(path + ".sha256")
+    except OSError:
+        pass
+
+
 # ---------------------------------------------------------------------------
 # G-side tables
 # ---------------------------------------------------------------------------

@@ -292,6 +292,55 @@ def test_commit_path_one_stage_a_launch(dev):
         "sha256_launches": 0, "resident_launches": 0}
 
 
+def test_table_copies_round_trip_on_the_card(dev):
+    """The Q tables' persist and restore copies: device to pinned host
+    memory on a side stream after the build's event, and back on a side
+    stream; the bytes unchanged both ways."""
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+
+    prov = CUDAProvider(device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randint(-2**31, 2**31 - 1, (4096, 3, limb.L),
+                          dtype=torch.int32, device=dev, generator=g)
+    ready = torch.cuda.Event()
+    ready.record()
+    host = prov._table_to_host(table, ready)
+    assert host.dtype == np.int32 and np.array_equal(host,
+                                                     table.cpu().numpy())
+    back = prov._table_to_device(host.copy())
+    assert back.device == table.device and torch.equal(back, table)
+
+
+def test_warm_dir_restore_on_the_card(dev, tmp_path, monkeypatch):
+    """A Q16 table built on the card persists through the persist thread
+    and a fresh provider's prewarm restores it bit for bit, without a
+    build (the table builds stubbed to seeded tensors on the card)."""
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q8 = torch.randint(0, 1 << 13, (512, 3, limb.L), dtype=torch.int32,
+                       device=dev, generator=g)
+    q16 = torch.randint(0, 1 << 13, (2048, 3, limb.L), dtype=torch.int32,
+                        device=dev, generator=g)
+    monkeypatch.setattr(comb, "build_q_tables", lambda qx, qy: q8.clone())
+    monkeypatch.setattr(comb, "build_q16_tables", lambda t, K: q16.clone())
+    monkeypatch.setattr(comb, "g16_tables", lambda device: None)
+    monkeypatch.setattr(CUDAProvider, "_q16_est_bytes",
+                        lambda self, K: q16.numel() * 4)
+    key = (bytes(range(64)),)
+    qk = np.frombuffer(key[0], np.uint8).reshape(1, 64).copy()
+    warm = str(tmp_path / "warm")
+    p1 = CUDAProvider(device=dev, table_cache_bytes=1 << 20,
+                      warm_keys_dir=warm)
+    assert torch.equal(p1._q16_cached(key, 1, qk), q16)
+    p1.flush_warm_tables()
+    p2 = CUDAProvider(device=dev, table_cache_bytes=1 << 20,
+                      warm_keys_dir=warm)
+    p2.prewarm(wait_restore=True)
+    assert p2.stats["q16_disk_loads"] == 1 and p2.stats["q16_builds"] == 0
+    assert torch.equal(p2._q16_cached(key, 1, qk), q16)
+
+
 # -- the fused tier's kernels --
 
 EDGE_LENS = (0, 1, 55, 56, 63, 64, 119, 120, 503)
