@@ -8,12 +8,16 @@ Phases, one JSON line each; any failure exits non-zero:
 
   device           the card (and nvidia-smi's name and power limit);
                    no CUDA device -> exit 2, nothing printed
-  build            the host's native batch prep (csrc/batchprep.cpp, g++,
-                   timed apart: native_build_s), then every kernel under
-                   fabric_tpu_torch/csrc, one nvcc per
-                   source, started together; ptxas registers, stack and
-                   spills per kernel (stage A's and the resident kernel's
-                   must have no stack and no spills); the SASS mix
+  build            the host's native batch prep (csrc/batchprep.cpp, g++:
+                   native_build_s), then every kernel under
+                   fabric_tpu_torch/csrc, one nvcc per source, started
+                   together, all through the build seam into one recorder
+                   (each library's seconds from its own nvcc's start and
+                   whether the compiler wrote it, which must be so exactly
+                   for the libraries not built before: `libraries`);
+                   ptxas registers, stack and spills per kernel (stage
+                   A's and the resident kernel's must have no stack and
+                   no spills); the SASS mix
   field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
                    (csrc/field_selftest.cu) against Python ints: mul, add,
                    sub and the 13-bit conversion on edge operands (0, 1,
@@ -85,6 +89,32 @@ Phases, one JSON line each; any failure exits non-zero:
                    the expected bitmap and sw's (in the pool), and the
                    P-256 lanes launch exactly the kernels of the
                    P-256-only call.
+  telemetry        the provider's telemetry on a fresh q16 provider over
+                   the org block (the q16 provider's tables handed over):
+                   (a) one build event a library its calls load
+                   (batchprep, ptree, sha_windows), each a hit, with the
+                   build phase's per-library seconds beside them; (b) one
+                   commit-path call and one verify_batch under the
+                   profiler, the busy ms the provider's CUDA events booked
+                   for the same call between the profiler's kernel sum
+                   (x 0.95) and the call's wall (x 1.05); (c) one
+                   device_memory() row named as nvidia-smi names the card,
+                   its limit within 2% of nvidia-smi's memory.total, in
+                   use at least the Q16 table's 1,006,632,960 bytes, the
+                   peak at least that; (d) health() "device" and
+                   hbm_substate(headroom_frac=1.0) naming d0; (e) one
+                   tpu.verify span a dispatch (two a commit-path call),
+                   one tpu.dispatch a dispatcher call, chrome_trace() valid
+                   JSON holding them; (f) three bounded torch trace
+                   captures (0.5 s, keep=2) each around commit-path calls
+                   leave two directories, the newest naming the tree
+                   kernel, and a capture during a capture is refused; (g)
+                   one devicecost tick and one provider-stats tick render
+                   the memory, busy-ratio, compile and launch gauges; (h)
+                   the commit path's steady median with tracing on, with
+                   it off, and with it off and the busy events stubbed
+                   out, in turns, 20 calls each: on within 5% or 0.10 ms
+                   of each of the others.
   warm_restart     the Q16 table's lifecycle across a restart, on the org
                    block's key set (3 keys, K = 4), with a temporary
                    WarmKeysDir under fabric_tpu_torch/_build/ (removed at
@@ -224,7 +254,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    valid 1,023-key span (in the pool meanwhile). Per
                    width: steady seconds, host staging seconds, the card's
                    busy ms by entry and idle share from one profiled call,
-                   and sw_s_per_call_one_core.
+                   and sw_s_per_call_one_core; the steady call's busy ms
+                   from the provider's CUDA events (events_busy_ms).
   bls_vs_plain     the Miller entry on the span's 1,024 lanes (edge lanes
                    (G1, G2), (-G1, G2), (2 G1, G2), (G1, 2 G2) in them, the
                    last 4 masked off), the reduce on the same lanes and the
@@ -238,6 +269,10 @@ Phases, one JSON line each; any failure exits non-zero:
                    path's shape (1,024 lanes, one final-exp lane): CUDA
                    events against bounds from the functions' least Fp
                    products (576 IMAD each) and the products executed.
+  telemetry_builds every path's provider booked one build event a library
+                   it loaded, each a hit: ed25519_verify (q16),
+                   fused_resident (q8), ladder, bn254_pairing and g2_msm,
+                   bls12_381_pairing beside the P-256 libraries.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -249,6 +284,7 @@ import hashlib
 import json
 import multiprocessing as mp
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -515,11 +551,11 @@ def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
 
 def profile_call(fn, pad_s: float = 0.05) -> dict:
     """One call under torch.profiler: its wall time, the summed time of
-    the device's kernels and copies (the card's busy share of the call)
-    and the device activities that took most. The window stays open
-    `pad_s` seconds before the call and after its work has finished: the
-    profiler has dropped kernels near a window's edges (see
-    `device_ms`)."""
+    the device's kernels and copies (the card's busy share of the call),
+    of its kernels alone, and the device activities that took most. The
+    window stays open `pad_s` seconds before the call and after its work
+    has finished: the profiler has dropped kernels near a window's edges
+    (see `device_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -543,6 +579,8 @@ def profile_call(fn, pad_s: float = 0.05) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "kernel_ms": sum(v for k, v in by_name.items()
+                             if not k.startswith(("Memcpy", "Memset"))),
             "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
             "device_activities": len(by_name), "kernels": len(kernels),
             "kernel_names": sorted({k[:70] for k in kernels}),
@@ -671,6 +709,224 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
             prov, blk, sw_bits, sample)
     emit(rec)
     return counts
+
+
+# -- the provider's telemetry --
+
+# the libraries each provider's paths load, once each (a first load books
+# one build event in the provider's device_cost)
+Q16_LIBS = ("batchprep", "ptree", "sha_windows")
+TRACE_CAPTURES = 3              # bounded captures, 2 kept
+OVERHEAD_CALLS = 20             # commit-path calls per tracing mode
+
+
+def check_build_events(label, prov, need) -> dict:
+    """The provider's build events: one per library it loaded, each a hit
+    (the build phase built them all) with its seconds; `need` among them.
+    Returns {kind: seconds}."""
+    evs = prov.device_cost.events
+    kinds = [e["kind"] for e in evs]
+    check(len(kinds) == len(set(kinds)),
+          f"{label}: a library booked twice: {kinds}")
+    check(set(need) <= set(kinds), f"{label}: build events {kinds}, "
+          f"missing {sorted(set(need) - set(kinds))}")
+    for e in evs:
+        check(e["cache_hit"] and e["error"] is None
+              and e["seconds"] >= 0, f"{label}: build event {e}")
+    return {e["kind"]: e["seconds"] for e in evs}
+
+
+def events_vs_profiler(label, prov, fn) -> dict:
+    """One call under the profiler and the provider's busy seconds (CUDA
+    events) booked by the same call: the events' window holds every
+    kernel of the call and lies inside its wall, so kernel_ms x 0.95 <=
+    events_busy_ms <= wall_ms x 1.05."""
+    busy = prov.device_cost.busy
+    before = busy.totals().get(0, 0.0)
+    prof = profile_call(fn)
+    ev_ms = (busy.totals().get(0, 0.0) - before) * 1e3
+    check(prof["kernel_ms"] * 0.95 <= ev_ms <= prof["wall_ms"] * 1.05,
+          f"{label}: events busy {ev_ms:.4f} ms, profiler kernels "
+          f"{prof['kernel_ms']:.4f} ms, wall {prof['wall_ms']:.4f} ms")
+    return {"events_busy_ms": ev_ms, "profiler_kernel_ms": prof["kernel_ms"],
+            "profiler_device_busy_ms": prof["device_busy_ms"],
+            "wall_ms": prof["wall_ms"], "kernels": prof["kernels"]}
+
+
+def telemetry(blk, prov16, sw_bits, sample, card, libs) -> None:
+    """The provider's telemetry on the card, on a fresh q16 provider over
+    the org block (prov16's tables handed over, so nothing is rebuilt):
+    (a) one build event a library its paths load, each a hit; (b) busy
+    time from CUDA events against the profiler on the commit path and on
+    verify_batch; (c) device_memory's row; (d) health; (e) the spans;
+    (f) bounded torch trace captures; (g) the gauges; (h) the commit
+    path's steady median with tracing on, off, and off with the busy
+    events stubbed out, in turns."""
+    import threading
+
+    import torch
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.common import devicecost, metrics, profiling
+    from fabric_tpu_torch.common import tracing
+
+    pr = blk["prepared"]
+    prov = factory.new_bccsp({"Default": "CUDA"})
+    with prov16._q16_lock:
+        prov._q16_cache.update(prov16._q16_cache)
+        prov._q16_bytes = prov16._q16_bytes
+        prov._q8_cache.update(prov16._q8_cache)
+    tracing.reset(enabled=True)
+    calls = {"verify_prepared": 0, "verify_batch": 0}
+
+    def prepared():
+        calls["verify_prepared"] += 1
+        return prov.verify_prepared(**pr)
+
+    def batch():
+        calls["verify_batch"] += 1
+        return prov.verify_batch(blk["items"])
+
+    # (a) the fresh provider's first calls book one event a library
+    check_bits("telemetry verify_prepared", prepared(), blk, sw_bits, sample)
+    check_bits("telemetry verify_batch", batch(), blk, sw_bits, sample)
+    build_s = check_build_events("telemetry", prov, Q16_LIBS)
+    check(sorted(build_s) == sorted(Q16_LIBS),
+          f"telemetry: build events {sorted(build_s)}")
+    compile_stats = {k: v for k, v in prov.stats.items()
+                     if k.startswith("compile_")}
+    check(compile_stats["compile_total"] == len(Q16_LIBS)
+          and compile_stats["compile_cache_hits"] == len(Q16_LIBS)
+          and compile_stats["compile_failures"] == 0,
+          f"telemetry: compile stats {compile_stats}")
+    # (b) busy from events against the profiler, tables warm
+    busy = {"commit_path": events_vs_profiler("commit path", prov, prepared),
+            "verify_batch": events_vs_profiler("verify_batch", prov, batch)}
+    ratios = prov.device_cost.busy.ratios()
+    # (c) memory, with the org block's Q16 set resident
+    rows = devicecost.device_memory()
+    check(len(rows) == 1, f"device_memory: {len(rows)} rows")
+    row = rows[0]
+    total = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) << 20
+    check(row["kind"] == card.split(",")[0].strip(),
+          f"device_memory kind {row['kind']!r}, nvidia-smi {card!r}")
+    check(abs(row["bytes_limit"] - total) <= 0.02 * total,
+          f"bytes_limit {row['bytes_limit']} against {total}")
+    check(row["bytes_in_use"] >= Q16_TABLE_BYTES,
+          f"bytes_in_use {row['bytes_in_use']} < the Q16 table's "
+          f"{Q16_TABLE_BYTES}")
+    peak = devicecost.peak_memory_bytes()
+    check(peak >= row["bytes_in_use"], f"peak {peak} < in use")
+    # (d) health
+    health = prov.health()
+    check(health == "device", f"health() {health!r}")
+    low = devicecost.hbm_substate(headroom_frac=1.0)
+    check(low is not None and low.startswith("hbm_low:d0:"),
+          f"hbm_substate(1.0) {low!r}")
+    # (e) spans: a tpu.verify a dispatch (two a commit-path call: the
+    # enqueue and the wait), a tpu.dispatch a dispatcher call
+    snap = tracing.snapshot()
+    n_verify = sum(1 for e in snap if e[1] == "tpu.verify")
+    n_dispatch = sum(1 for e in snap if e[1] == "tpu.dispatch")
+    want_verify = 2 * calls["verify_prepared"] + calls["verify_batch"]
+    want_dispatch = calls["verify_prepared"] + calls["verify_batch"]
+    check(n_verify == want_verify and n_dispatch == want_dispatch,
+          f"spans: {n_verify} tpu.verify (want {want_verify}), "
+          f"{n_dispatch} tpu.dispatch (want {want_dispatch})")
+    check(not any(e[9] for e in snap), "spans: an error span")
+    doc = json.loads(json.dumps(tracing.chrome_trace()))
+    names = {e["name"] for e in doc["traceEvents"]}
+    check({"tpu.verify", "tpu.dispatch", "tpu.compile"} <= names,
+          f"chrome_trace names {sorted(names)}")
+    # (f) bounded trace captures around commit-path calls, one refused
+    parent = os.path.join(ROOT, "fabric_tpu_torch", "_build",
+                          f"telemetry_traces_{os.getpid()}")
+    shutil.rmtree(parent, ignore_errors=True)
+    refused, tree_named, captures = False, False, 0
+    try:
+        while captures < TRACE_CAPTURES or (not tree_named
+                                            and captures < 2 * TRACE_CAPTURES):
+            got = {}
+            t = threading.Thread(target=lambda: got.setdefault(
+                "dir", profiling.capture_torch_trace_bounded(
+                    0.5, parent_dir=parent, keep=2)))
+            t.start()
+            while not profiling._trace_lock.locked() and t.is_alive():
+                time.sleep(0.005)
+            if not refused:
+                try:
+                    profiling.capture_torch_trace_bounded(
+                        0.01, parent_dir=parent, keep=2)
+                except profiling.ProfilerBusyError:
+                    refused = True
+            time.sleep(0.1)
+            for _ in range(3):
+                prepared()
+                time.sleep(0.05)
+            t.join()
+            captures += 1
+            with open(os.path.join(got["dir"], "trace.json")) as f:
+                tree_named = "ptree_windows_kernel" in f.read()
+        kept = sorted(os.listdir(parent))
+    finally:
+        shutil.rmtree(parent, ignore_errors=True)
+    check(refused, "a capture during a capture was not refused")
+    check(len(kept) == 2, f"trace captures kept {kept}")
+    check(tree_named, f"no capture of {captures} named the tree kernel")
+    # (g) gauges: one tick of each publisher
+    reg = metrics.PrometheusProvider()
+    profiling.devicecost_tick(reg, prov)()
+    profiling.provider_stats_tick(reg, prov)()
+    text = reg.render()
+    for want in ('bccsp_device_mem_used_bytes{device="0"} ',
+                 'bccsp_device_busy_ratio{device="0"} ',
+                 "bccsp_compile_total ", "bccsp_tree_kernel_launches "):
+        check(any(ln.startswith(want) for ln in text.splitlines()),
+              f"gauges: no {want.strip()!r}")
+    gauges = {ln.split(" ")[0]: float(ln.split(" ")[1])
+              for ln in text.splitlines() if ln.startswith(
+                  ("bccsp_device_", "bccsp_compile_"))}
+    # (h) the commit path in turns: everything on; spans off (the busy
+    # events still recorded); and bare, spans off and the provider's
+    # timing events stubbed out, so neither feed runs
+    arms = ("on", "spans_off", "bare")
+    times: dict = {a: [] for a in arms}
+    try:
+        for i in range(OVERHEAD_CALLS):
+            for arm in arms[i % 3:] + arms[:i % 3]:
+                tracing.set_enabled(arm == "on")
+                if arm == "bare":
+                    prov._mark = lambda: None
+                t0 = time.perf_counter()
+                prov.verify_prepared(**pr)
+                times[arm].append(time.perf_counter() - t0)
+                prov.__dict__.pop("_mark", None)
+    finally:
+        tracing.set_enabled(True)
+        prov.__dict__.pop("_mark", None)
+    med = {a: statistics.median(t) * 1e3 for a, t in times.items()}
+    on_ms, off_ms, bare_ms = med["on"], med["spans_off"], med["bare"]
+    check(abs(on_ms - off_ms) <= max(0.05 * off_ms, 0.10),
+          f"tracing on {on_ms:.4f} ms against off {off_ms:.4f} ms")
+    check(abs(on_ms - bare_ms) <= max(0.05 * bare_ms, 0.10),
+          f"spans and events on {on_ms:.4f} ms against neither "
+          f"{bare_ms:.4f} ms")
+    emit({"phase": "telemetry", "ok": True, "card": card,
+          "build_libraries": libs, "build_events_s": build_s,
+          "compile_stats": compile_stats,
+          "busy": busy, "busy_ratios": ratios,
+          "memory": row, "peak_memory_bytes": peak, "health": health,
+          "spans": {"tpu.verify": n_verify, "tpu.dispatch": n_dispatch,
+                    "calls": calls},
+          "stage_device_ready_d0": tracing.stage_quantiles().get(
+              "device.ready.d0"),
+          "trace_captures": captures, "gauges": gauges,
+          "tracing_on_median_ms": on_ms, "tracing_off_median_ms": off_ms,
+          "spans_and_events_off_median_ms": bare_ms,
+          "commit_path_all_ms": {a: [x * 1e3 for x in t]
+                                 for a, t in times.items()}})
 
 
 # -- the Q16 table lifecycle across a restart --
@@ -2770,7 +3026,9 @@ def bls_aggregate_path(span, prov, card, pool, nproc):
     profiler (the card's busy ms by entry, the idle share; profiled again,
     a few times at most, while a window misses an entry's kernel, and
     listed under "profile_not_measured" when none kept them) and the sw
-    provider's seconds a call on one core."""
+    provider's seconds a call on one core. The steady call's busy ms also
+    from the provider's CUDA events (events_busy_ms), the profiler's
+    reading beside it."""
     from fabric_tpu_torch.ops import bls12_381 as blsagg
     from fabric_tpu_torch.ops import bls12_381_kernel as blsk
     from fabric_tpu_torch.ops import bls12_381_ref as b
@@ -2813,10 +3071,17 @@ def bls_aggregate_path(span, prov, card, pool, nproc):
             row[f"{case}_s"] = secs
         pts, ck, msgs, sig, _ = cases["valid"]
         ks = [keys[(p, c)] for p, c in zip(pts, ck)]
+        busy0 = prov.device_cost.busy.totals().get(0, 0.0)
         t0 = time.perf_counter()
         check(prov.verify_aggregate(ks, msgs, sig) is True,
               f"bls k={k}: steady call")
         row["steady_s"] = time.perf_counter() - t0
+        # the card's busy ms of that call from the provider's CUDA events
+        row["events_busy_ms"] = (prov.device_cost.busy.totals().get(0, 0.0)
+                                 - busy0) * 1e3
+        check(0 < row["events_busy_ms"] <= row["steady_s"] * 1e3 * 1.05,
+              f"bls k={k}: events busy {row['events_busy_ms']} ms in a "
+              f"{row['steady_s']} s call")
         t0 = time.perf_counter()
         pairs = blsagg.stage_pairs(pts, msgs, b.g1_from_bytes(sig))
         blsk.stage_pairs(pairs, pad_to=bucket)
@@ -3339,6 +3604,7 @@ def drive(args, pool, nproc, card):
     provsha._q8_cache.update(prov8._q8_cache)
     csha = run_route("device_sha", provsha, prepared=False, fused=False,
                      batch_need=(DIGEST, TREE), **route)
+    telemetry(blk, prov16, sw_bits, sample, card, args.build_libs)
     warm_restart(blk, sw_bits, sample, card)
 
     tree32 = kernel_vs_plain(prov16, blk, 32, card, pool, nproc)
@@ -3379,6 +3645,15 @@ def drive(args, pool, nproc, card):
     provb = factory.new_bccsp({"Default": "CUDA"})
     cb, cbw = bls_aggregate_path(span, provb, card, pool, nproc)
     bvp = bls_vs_plain(span, provb, card, pool)
+    # every path's provider booked one build event a library it loaded
+    emit({"phase": "telemetry_builds", "ok": True, "providers": {
+        label: check_build_events(label, p, need) for label, p, need in (
+            ("q16", prov16, Q16_LIBS + ("ed25519_verify",)),
+            ("q8", prov8, Q16_LIBS + ("fused_resident",)),
+            ("device_sha", provsha, Q16_LIBS),
+            ("ladder", provl, ("batchprep", "ladder")),
+            ("pairing", provp, ("bn254_pairing", "g2_msm")),
+            ("bls", provb, ("bls12_381_pairing",)))}})
     # launches a call on the 1,023-key span: log2(bucket) reduce levels
     per_call = dict(zip(BLS_KERNELS, (
         1, cbw[max(BLS_WIDTHS)]["bucket"].bit_length() - 1, 1)))
@@ -3487,7 +3762,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from fabric_tpu_torch import kernels, native
-    from fabric_tpu_torch.common import torchenv
+    from fabric_tpu_torch.common import devicecost, torchenv
     from fabric_tpu_torch.ops import comb
 
     # the 8-bit G table and the Ed25519 B table persist inside the
@@ -3502,15 +3777,34 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # the batch prep, then every kernel library, through the build seam
+    # into one recorder: each library's event holds its seconds and
+    # whether the compiler wrote it, which is so exactly for the
+    # libraries this checkout had not built
+    fresh = {k: not os.path.exists(kernels.library_path(k))
+             for k in kernels.KERNELS}
+    fresh["batchprep"] = not os.path.exists(native.library_path())
+    rec = devicecost.CompileRecorder()
     t0 = time.perf_counter()
-    native.load()
-    args.native_build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    kernels.build_all()
+    with devicecost.recording(rec):
+        native.load()
+        built = kernels.build_all()
     build_s = time.perf_counter() - t0
+    args.build_libs = {e["kind"]: {"seconds": e["seconds"],
+                                   "cold": e["cold"]} for e in rec.events}
+    args.native_build_s = args.build_libs["batchprep"]["seconds"]
+    check(sorted(args.build_libs) == sorted(fresh)
+          and all(args.build_libs[k]["cold"] == fresh[k] for k in fresh)
+          and all(built[k] == args.build_libs[k] for k in kernels.KERNELS),
+          f"build: events {args.build_libs}, build_all {built}, "
+          f"not yet built {fresh}")
+    check(rec.stats["compile_cold_total"] == sum(fresh.values())
+          and rec.stats["compile_failures"] == 0,
+          f"build: compile stats {rec.stats}")
     ptxas = {k: kernels.ptxas_summary(k) for k in kernels.KERNELS}
     emit({"phase": "build", "ok": True, "seconds": build_s,
-          "native_build_s": args.native_build_s, "ptxas": ptxas,
+          "native_build_s": args.native_build_s,
+          "libraries": args.build_libs, "ptxas": ptxas,
           "sass": {k: kernels.sass_mix(k) for k in (
               "ptree", "sha_windows", "fused_resident", "ladder",
               "ed25519_verify", "bn254_pairing", "g2_msm",

@@ -12,6 +12,9 @@ block's work per call (every lane is parsed, gated and prepared on its
 own) while signing stays cheap; every verdict must be True. After one
 warm-up call per block (table builds, library builds), `--reps` calls
 are timed on the host's clock, each ending in the verdicts' copy back.
+On the org block it then times `--commit-reps` calls of the commit path,
+`verify_prepared` over the block's operands as `native.batch_prep` and
+the digests stage them (the tables warm).
 Running it on two checkouts in turns (for example a parent commit
 unpacked with `git archive` into the git-ignored `chip_tree/`) compares
 their host stages on one card. Prints one JSON line; needs a CUDA card.
@@ -23,11 +26,27 @@ import argparse
 import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+
+def _prepared(items, keys: int) -> dict:
+    """`verify_prepared`'s operands for a block made by `_block`."""
+    from fabric_tpu_torch import native
+
+    sigs = [it.signature for it in items]
+    der_ok, r, rpn, w = native.batch_prep(sigs)
+    digests = np.frombuffer(b"".join(hashlib.sha256(it.message).digest()
+                                     for it in items), np.uint8)
+    return dict(digests=digests.reshape(len(items), 32), r=r, rpn=rpn, w=w,
+                der_ok=der_ok,
+                key_idx=np.arange(len(items), dtype=np.int64) % keys,
+                keys=[it.key for it in items[:keys]],
+                get_sig=sigs.__getitem__)
 
 
 def _block(keys: int, lanes: int, seed: int):
@@ -54,6 +73,7 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--txs", type=int, default=10240)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--commit-reps", type=int, default=40)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -88,6 +108,19 @@ def main() -> int:
                      "comb_batches": prov.stats["comb_batches"],
                      "fused_batches": prov.stats["fused_batches"],
                      "ladder_batches": prov.stats["ladder_batches"]}
+        if name != "org":
+            continue
+        pr = _prepared(items, keys)
+        commit = []
+        for _ in range(args.commit_reps):
+            t0 = time.perf_counter()
+            got = prov.verify_prepared(**pr)
+            commit.append(time.perf_counter() - t0)
+            if not all(got):
+                raise RuntimeError("org commit path: a valid lane was "
+                                   "rejected")
+        out[name]["verify_prepared_s"] = commit
+        out[name]["verify_prepared_median_s"] = statistics.median(commit)
     print(json.dumps(out), flush=True)
     return 0
 

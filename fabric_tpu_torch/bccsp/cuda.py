@@ -90,6 +90,15 @@ Device errors propagate: the port has no breaker and no sw fallback yet
 (the reference's pairing methods and `verify_aggregate` fall back to the
 host on any device error; here they raise), and no counterpart of
 `_try_fused`'s demotion to host hashing.
+
+Telemetry, under the reference's names (common/devicecost.py,
+common/tracing.py): each device dispatch runs in a `tpu.verify` span
+(`_dispatch_span`), the dispatchers in `tpu.dispatch`, `tpu.ed25519` and
+`tpu.bls_pairing` spans; the first load of each kernel library books one
+build event in `device_cost` (the `compile_*` stats); CUDA events around
+each dispatch's copies and launches feed `device_cost.busy` and the
+`device.ready.d<k>` stage, read after the wait the caller already makes;
+`health()` and `device_stats` are the reference's single-chip answers.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
-from fabric_tpu_torch.common import torchenv
+from fabric_tpu_torch.common import devicecost, torchenv, tracing
 from fabric_tpu_torch.ops import bls12_381 as blsagg
 from fabric_tpu_torch.ops import bls12_381_kernel as blsk
 from fabric_tpu_torch.ops import bn254, comb, ed25519, fused_verify, limb
@@ -168,6 +177,30 @@ def _pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+class _DispatchSpan:
+    """`CUDAProvider._dispatch_span`'s context: the recorder set, a
+    `tpu.verify` span, and `mark_steady` when the block succeeds. A class,
+    not a generator: it runs twice a commit-path call."""
+
+    __slots__ = ("_rec", "_seam", "_span")
+
+    def __init__(self, rec: devicecost.CompileRecorder):
+        self._rec = rec
+
+    def __enter__(self) -> None:
+        self._seam = devicecost.recording(self._rec)
+        self._seam.__enter__()
+        self._span = tracing.span("tpu.verify")
+        self._span.__enter__()
+
+    def __exit__(self, et, ev, tb) -> bool:
+        self._span.__exit__(et, ev, tb)
+        self._seam.__exit__(et, ev, tb)
+        if et is None:
+            self._rec.mark_steady()
+        return False
 
 
 class CUDAProvider(api.BCCSP):
@@ -270,6 +303,13 @@ class CUDAProvider(api.BCCSP):
                       "bls_sw_lanes": 0, "bls_miller_launches": 0,
                       "bls_reduce_launches": 0,
                       "bls_final_exp_launches": 0}
+        # the build seam's bookkeeper: the compile_* stats, build events
+        # and the card's busy time
+        self._devicecost = devicecost.CompileRecorder(stats=self.stats)
+        # the busy events' free list (None on the CPU: nothing is timed);
+        # a pair goes back once read, so a dispatch makes no new event
+        self._events = [] if self.device.type == "cuda" else None
+        self._ready_stage = f"device.ready.d{self.device.index or 0}"
 
     def _fused_enabled(self) -> bool:
         """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
@@ -308,6 +348,74 @@ class CUDAProvider(api.BCCSP):
 
     def verify(self, key, signature, digest, opts=None):
         return self._sw.verify(key, signature, digest, opts)
+
+    # -- telemetry surface --
+
+    def health(self) -> str:
+        """The provider's state for /healthz: "device", with the
+        HBM-headroom sub-state appended ("device;hbm_low:d<k>:<free>%free")
+        when the card's free memory drops under FTPU_HBM_HEADROOM_FRAC.
+        The port has no breaker (device errors propagate), so the state
+        is never the reference's "degraded" or "probing"; and no mesh, so
+        there is no "degraded_mesh" part."""
+        sub = self._hbm_substate()
+        return "device" if sub is None else f"device;{sub}"
+
+    def _hbm_substate(self):
+        """devicecost.hbm_substate(), or None when the probe itself
+        fails: a failing probe is not a health failure."""
+        try:
+            return devicecost.hbm_substate()
+        except Exception:           # noqa: BLE001
+            return None
+
+    @property
+    def device_stats(self) -> dict:
+        """Per-device health rows, published as the device-labeled
+        `bccsp_device_{state,trips,quarantines,readmits}` gauges: empty
+        lists, the reference's single-chip answer."""
+        return {"state": [], "trips": [], "quarantines": [],
+                "readmits": []}
+
+    @property
+    def device_cost(self) -> devicecost.CompileRecorder:
+        """The build/busy recorder, read by
+        profiling.publish_devicecost_stats."""
+        return self._devicecost
+
+    def _dispatch_span(self) -> "_DispatchSpan":
+        """One device dispatch: a `tpu.verify` span, the provider's
+        recorder for the library loads inside it, and the steady mark
+        after the first dispatch that succeeds. The reference's
+        mesh-rebuild gate is left out: the port has no mesh."""
+        return _DispatchSpan(self._devicecost)
+
+    def _mark(self):
+        """A timing event recorded now on the device's current stream,
+        from the free list when it holds one; None on the CPU, where
+        nothing is timed."""
+        if self._events is None:
+            return None
+        try:
+            ev = self._events.pop()
+        except IndexError:
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _note_busy(self, start, end) -> None:
+        """Book the card's time between two `_mark` events as busy time
+        (DeviceBusy's single-chip contract: the whole-batch device stage,
+        its copies and host-paced gaps included, so not kernel occupancy)
+        and as the `device.ready.d<k>` stage. Called after the caller's
+        wait for the results has passed `end`, so it adds no
+        synchronisation."""
+        if start is None:
+            return
+        s = start.elapsed_time(end) / 1e3
+        self._devicecost.busy.note(self.device.index or 0, s)
+        tracing.observe_stage(self._ready_stage, s)
+        self._events += (start, end)
 
     # -- the item path --
 
@@ -381,9 +489,10 @@ class CUDAProvider(api.BCCSP):
                 sw_lanes.append(i)
             else:
                 device[i] = True
-        ok, r8, rpn8, w8 = native.batch_prep(
-            [it.signature if device[i] else b""
-             for i, it in enumerate(items)])
+        with devicecost.recording(self._devicecost):
+            ok, r8, rpn8, w8 = native.batch_prep(
+                [it.signature if device[i] else b""
+                 for i, it in enumerate(items)])
         premask = np.zeros(bucket, dtype=bool)
         premask[:n] = ok
         r_b = np.zeros((bucket, 32), dtype=np.uint8)
@@ -436,33 +545,40 @@ class CUDAProvider(api.BCCSP):
         self.stats["host_hashed_lanes"] += hashed
         result = [False] * n
         if key_map:
-            ladder = len(key_map) > self._max_keys
-            if nb is None:
-                dispatch = (self._dispatch_ladder if ladder
-                            else self._dispatch_comb_digest)
-                out = dispatch(bucket, key_map, key_idx, r_b, rpn_b, w_b,
-                               premask, digests)
-            else:
-                blocks, nblocks = sha256.pack_messages(msgs, nb)
-                # digest lanes skip the device hash: no live block
-                nblocks[has_digest] = 0
-                if ladder:
-                    out = self._dispatch_ladder(
-                        bucket, key_map, key_idx, r_b, rpn_b, w_b, premask,
-                        digests, (blocks, nblocks, has_digest))
-                else:
-                    dispatch = (self._dispatch_fused_verify if fused
-                                else self._dispatch_device_sha)
-                    out = dispatch(bucket, key_map, key_idx, blocks, nblocks,
-                                   r_b, rpn_b, w_b, premask, digests,
-                                   has_digest)
-            result = out()[:n].tolist()
+            with self._dispatch_span():
+                result = self._dispatch_p256(
+                    bucket, key_map, key_idx, r_b, rpn_b, w_b, premask,
+                    digests, has_digest, msgs, nb, fused)()[:n].tolist()
         if sw_lanes:
             self.stats["nonp256_sw_lanes"] += len(sw_lanes)
             for i, v in zip(sw_lanes, self._sw.verify_batch(
                     [items[i] for i in sw_lanes])):
                 result[i] = v
         return result
+
+    def _dispatch_p256(self, bucket, key_map, key_idx, r_b, rpn_b, w_b,
+                       premask, digests, has_digest, msgs, nb, fused):
+        """The staged batch's dispatcher: the ladder over more than
+        `MaxKeys` keys, else the comb-digest pipeline when every live
+        lane is a digest lane (nb None), else the fused tier or the
+        device-SHA route. Returns the dispatcher's thunk."""
+        ladder = len(key_map) > self._max_keys
+        if nb is None:
+            dispatch = (self._dispatch_ladder if ladder
+                        else self._dispatch_comb_digest)
+            return dispatch(bucket, key_map, key_idx, r_b, rpn_b, w_b,
+                            premask, digests)
+        blocks, nblocks = sha256.pack_messages(msgs, nb)
+        # digest lanes skip the device hash: no live block
+        nblocks[has_digest] = 0
+        if ladder:
+            return self._dispatch_ladder(
+                bucket, key_map, key_idx, r_b, rpn_b, w_b, premask,
+                digests, (blocks, nblocks, has_digest))
+        dispatch = (self._dispatch_fused_verify if fused
+                    else self._dispatch_device_sha)
+        return dispatch(bucket, key_map, key_idx, blocks, nblocks, r_b,
+                        rpn_b, w_b, premask, digests, has_digest)
 
     # -- the prepared-block path --
 
@@ -527,8 +643,11 @@ class CUDAProvider(api.BCCSP):
             dispatch = (self._dispatch_ladder
                         if len(key_map) > self._max_keys
                         else self._dispatch_comb_digest)
-            thunk = dispatch(bucket, key_map, lane_slot, pad(r), pad(rpn),
-                             pad(w), premask, dg)
+            # one tpu.verify span for the enqueue, one for the wait, as
+            # the reference's prepared path
+            with self._dispatch_span():
+                thunk = dispatch(bucket, key_map, lane_slot, pad(r),
+                                 pad(rpn), pad(w), premask, dg)
         # the sw lanes run while the card works
         sw_lanes = np.flatnonzero(key_sw[lane_key]).tolist()
         sw_out = self._verify_prepared_sw(sw_lanes, digests, key_idx, keys,
@@ -536,7 +655,10 @@ class CUDAProvider(api.BCCSP):
         self.stats["nonp256_sw_lanes"] += len(sw_lanes)
 
         def resolve():
-            result = [False] * n if thunk is None else thunk()[:n].tolist()
+            result = [False] * n
+            if thunk is not None:
+                with self._dispatch_span():
+                    result = thunk()[:n].tolist()
             for i, v in zip(sw_lanes, sw_out):
                 result[i] = v
             return result
@@ -583,6 +705,7 @@ class CUDAProvider(api.BCCSP):
                 return None
         return nb
 
+    @tracing.traced("tpu.dispatch")
     def _dispatch_comb_digest(self, bucket, key_map, key_idx, r8, rpn8, w8,
                               premask, digests):
         """Enqueue the comb-digest pipeline for a staged batch, per
@@ -597,6 +720,7 @@ class CUDAProvider(api.BCCSP):
                 c(words), c(key_idx), q_flat, c(r8), c(rpn8), c(w8),
                 c(premask), g16=g16, q16=q16)))
 
+    @tracing.traced("tpu.dispatch")
     def _dispatch_device_sha(self, bucket, key_map, key_idx, blocks,
                              nblocks, r8, rpn8, w8, premask, digests,
                              has_digest):
@@ -619,6 +743,7 @@ class CUDAProvider(api.BCCSP):
                 g16=g16, q16=q16)
         return self._chunked(bucket, run)
 
+    @tracing.traced("tpu.dispatch")
     def _dispatch_fused_verify(self, bucket, key_map, key_idx, blocks,
                                nblocks, r8, rpn8, w8, premask, digests,
                                has_digest):
@@ -645,6 +770,7 @@ class CUDAProvider(api.BCCSP):
                 *args, g16=g16, q16=q16)
         return self._chunked(bucket, run)
 
+    @tracing.traced("tpu.dispatch")
     def _dispatch_ladder(self, bucket, key_map, key_idx, r8, rpn8, w8,
                          premask, digests, message=None):
         """The Shamir ladder for a batch over more than `MaxKeys` keys
@@ -680,8 +806,10 @@ class CUDAProvider(api.BCCSP):
         if len(items) < self._min_batch or not self._ed25519:
             self.stats["ed25519_sw_lanes"] += len(items)
             return self._sw.verify_batch(items)
-        return self._dispatch_ed25519(items)
+        with self._dispatch_span():
+            return self._dispatch_ed25519(items)
 
+    @tracing.traced("tpu.ed25519")
     def _dispatch_ed25519(self, items) -> list[bool]:
         """Host prep (the gates and the SHA-512 challenge of
         `ed25519_host.prep_verify`, the policy the sw path shares), the
@@ -730,6 +858,13 @@ class CUDAProvider(api.BCCSP):
         bucket = _pow2(n)
         if nterms != 2 and bucket != n:
             return self._sw.pairing_check_batch(products)
+        with self._dispatch_span():
+            return self._dispatch_pairing(products, nterms, n, bucket)
+
+    @tracing.traced("tpu.bls_pairing")
+    def _dispatch_pairing(self, products, nterms, n, bucket) -> list[bool]:
+        """The BN254 pairing dispatch: pad to the bucket, stage, one
+        Miller and one final-exp launch a chunk."""
         # pad with a trivially-true product: infinity is not representable
         # affine, so a VALID identity product e(P, Q) * e(P, -Q) from lane
         # 0's first term
@@ -738,12 +873,15 @@ class CUDAProvider(api.BCCSP):
         staged = bn254.stage_pairing_products(
             list(products) + [pad] * (bucket - n))
         outs = []
+        start = self._mark()
         with self._count_launches():
             for lo in range(0, bucket, self._chunk):
                 hi = lo + self._chunk
                 outs.append(bn254.pairing_product_is_one(
                     *bn254.to_device(staged, self.device, lo, hi)))
+        end = self._mark()
         out = torch.cat(outs).cpu().numpy()
+        self._note_busy(start, end)
         self.stats["pairing_batches"] += 1
         self.stats["pairing_pairs"] += n * nterms
         return out[:n].tolist()
@@ -762,20 +900,25 @@ class CUDAProvider(api.BCCSP):
             list(lanes) + [[(0, None)] * nterms] * (bucket - n))
         kw = kw.view(np.int32)
         outs = []
-        with self._count_launches():
-            for lo in range(0, bucket, self._chunk):
-                hi = lo + self._chunk
-                outs.append(bn254.g2_msm(
-                    *bn254.to_device([kw, *q_flat], self.device, lo, hi)))
+        with self._dispatch_span():
+            start = self._mark()
+            with self._count_launches():
+                for lo in range(0, bucket, self._chunk):
+                    hi = lo + self._chunk
+                    outs.append(bn254.g2_msm(*bn254.to_device(
+                        [kw, *q_flat], self.device, lo, hi)))
+            end = self._mark()
+            out = tuple(tuple(torch.cat([o[i][j] for o in outs]).cpu()
+                              for j in range(2)) for i in range(3))
+            self._note_busy(start, end)
         self.stats["g2_msm_batches"] += 1
-        out = tuple(tuple(torch.cat([o[i][j] for o in outs]).cpu()
-                          for j in range(2)) for i in range(3))
         return bn254.read_g2_msm(out)[:n]
 
     def bls_verify_batch(self, pk_tw, msgs, sig_points) -> list[bool]:
         """Issuer-credential BLS verify: e(sig, G2) e(H(m), -pk) == 1 per
         lane. None entries of `sig_points` (malformed) are False without
-        touching the card."""
+        touching the card. The card's work is pairing_check_batch's
+        dispatch, in its tpu.verify span."""
         idx = [i for i, s in enumerate(sig_points) if s is not None]
         out = [False] * len(msgs)
         if idx:
@@ -815,20 +958,26 @@ class CUDAProvider(api.BCCSP):
         if (not self._bls_pairing_enabled()
                 or len(pairs) < max(2, self._min_batch // 4)):
             return blsagg.check_products(blsagg.miller_products(pairs))
-        return self._dispatch_bls_pairing(pairs)
+        with self._dispatch_span():
+            return self._dispatch_bls_pairing(pairs)
 
+    @tracing.traced("tpu.bls_pairing")
     def _dispatch_bls_pairing(self, pairs) -> bool:
         """Pad the pairs to a power-of-two bucket (masked filler lanes
         contribute Fp12 one), stage them, and run one Miller, log2(bucket)
         reduce and one final-exp launch; one verdict comes back."""
         n = len(pairs)
-        staged = blsk.to_device(blsk.stage_pairs(pairs, pad_to=_pow2(n)),
-                                self.device)
+        staged = blsk.stage_pairs(pairs, pad_to=_pow2(n))
+        start = self._mark()
+        staged = blsk.to_device(staged, self.device)
         with self._count_launches():
             out = blsk.pairs_product_is_one(*staged)
+        end = self._mark()
+        ok = bool(out.cpu()[0])
+        self._note_busy(start, end)
         self.stats["pairing_batches"] += 1
         self.stats["pairing_pairs"] += n
-        return bool(out.cpu()[0])
+        return ok
 
     @contextlib.contextmanager
     def _count_launches(self):
@@ -843,15 +992,23 @@ class CUDAProvider(api.BCCSP):
     def _chunked(self, bucket, run):
         """Call run(c) for each `chunk` of the bucket, c(a) putting a
         chunk of host array `a` on the card; count the kernels launched
-        and return a thunk that waits for the (bucket,) numpy verdicts."""
+        and return a thunk that waits for the (bucket,) numpy verdicts and
+        books the card's time from the first copy to the last launch."""
         outs = []
+        start = self._mark()
         with self._count_launches():
             for lo in range(0, bucket, self._chunk):
                 def c(a, lo=lo):
                     return torch.from_numpy(np.ascontiguousarray(
                         a[lo:lo + self._chunk])).to(self.device)
                 outs.append(run(c))
-        return lambda: torch.cat(outs).cpu().numpy()
+        end = self._mark()
+
+        def wait():
+            out = torch.cat(outs).cpu().numpy()
+            self._note_busy(start, end)
+            return out
+        return wait
 
     def _resolve_tables(self, key_map, key_idx):
         """Canonical slot order + the key set's tables: Q16 (with G16)
@@ -1459,10 +1616,10 @@ class CUDAProvider(api.BCCSP):
         key_counts, msg_nbs and bounded arguments choose the shapes to
         compile ahead of time; the port's kernels take any shape, so it
         has none of them."""
-        native.load()
-        if self.device.type == "cuda":
-            for name in kernels.build_all():
-                kernels.load(name)
+        with devicecost.recording(self._devicecost):
+            native.load()
+            if self.device.type == "cuda":
+                kernels.build_all()
         if not self._use_g16:
             return
         candidates = self._warm_candidates()

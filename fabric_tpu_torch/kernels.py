@@ -11,7 +11,12 @@ that report beside the library as <name>.ptxas.log, which
 `ptxas_summary` reads per kernel.
 
 Nothing here runs at import: `load` builds on first use, and
-`build_all` (used by chip_smoke.py) starts one nvcc per source at once.
+`build_all` (a provider's prewarm, chip_smoke.py) builds and loads every
+library, one nvcc per source, all at once. Both pass each library through
+the port's build seam (the reference's `TPUProvider._jit`): the first
+load of a library under a provider's recorder is booked there as one
+build event (common/devicecost.py `build_seam`), cold when nvcc wrote
+the library, a hit when it was reused.
 `check_args` and `launch` are the wrappers' shared argument checks and
 ctypes call.
 `sass_mix` counts a built library's SASS instructions by opcode
@@ -20,6 +25,7 @@ ctypes call.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -28,7 +34,7 @@ import shutil
 import subprocess
 import threading
 
-from fabric_tpu_torch.common import torchenv
+from fabric_tpu_torch.common import devicecost, torchenv
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -162,6 +168,11 @@ def sources(name: str) -> list[str]:
     return out
 
 
+def library_path(name: str) -> str:
+    """Where kernel `name`'s current library is (or will be) built."""
+    return _paths(name)[1]
+
+
 def _paths(name: str) -> tuple[str, str, str]:
     srcs = sources(name)
     src = srcs[0]
@@ -184,7 +195,9 @@ def _start(name: str):
     if os.path.exists(lib):
         return None, None, lib, log
     os.makedirs(torchenv.BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.tmp{os.getpid()}"
+    # one name per thread: a load and build_all may build one library
+    # side by side
+    tmp = f"{lib}.tmp{os.getpid()}.{threading.get_ident()}"
     proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -210,10 +223,37 @@ def build(name: str) -> str:
 
 
 def build_all() -> dict:
-    """Compile every kernel, one nvcc per source, all started together.
-    Returns {name: library path}."""
-    started = {name: _start(name) for name in KERNELS}
-    return {name: _finish(name, *st) for name, st in started.items()}
+    """Build and load every kernel, one nvcc per source, all at once:
+    each library passes the build seam in a thread of its own, under the
+    caller's context, so the caller's recorder books it (build_all sets
+    one of its own when the caller has none). Returns {name: {"seconds",
+    "cold"}} from each library's build event in that recorder; raises
+    the first failed build's error once every build has ended."""
+    rec = devicecost.current() or devicecost.CompileRecorder()
+    errors: dict = {}
+
+    def one(name):
+        try:
+            load(name, parallel=True)
+        except Exception as e:          # raised below, after the joins
+            errors[name] = e
+
+    with devicecost.recording(rec):
+        # a copy of the context for each thread: threads do not inherit
+        # the recorder
+        threads = [threading.Thread(target=contextvars.copy_context().run,
+                                    args=(one, name)) for name in KERNELS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise next(iter(errors.values()))
+    booked = {e["kind"]: e for e in rec.events
+              if e["kind"] in KERNELS and e["error"] is None}
+    return {name: {"seconds": booked[name]["seconds"],
+                   "cold": booked[name]["cold"]}
+            for name in KERNELS if name in booked}
 
 
 _PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties "
@@ -282,12 +322,21 @@ def sass_mix(name: str, top: int = 12) -> dict:
             for f, c in mix.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The bound library for kernel `name`, built on first use."""
+def load(name: str, parallel: bool = False) -> ctypes.CDLL:
+    """The bound library for kernel `name`, built on first use; its first
+    load under a provider's recorder books one build event there.
+    parallel=True runs nvcc outside the module's lock (`build_all`, one
+    thread a library)."""
+    return devicecost.build_seam(name, lambda: _load(name, parallel),
+                                 lambda: library_path(name))
+
+
+def _load(name: str, parallel: bool) -> ctypes.CDLL:
+    path = build(name) if parallel else None
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(path or build(name))
             for fn, (argtypes, restype) in KERNELS[name][1].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype

@@ -11,7 +11,8 @@ else g++) into fabric_tpu_torch/_build/ (git-ignored), the library named
 by the sha256 of the source, so an edited source rebuilds and an
 unchanged one is reused; then it is loaded with ctypes. There is no
 fallback: a failed build or load raises RuntimeError with the compiler's
-output.
+output. The first load under a provider's recorder is booked there as
+one "batchprep" build event (common/devicecost.py `build_seam`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import threading
 
 import numpy as np
 
-from fabric_tpu_torch.common import torchenv
+from fabric_tpu_torch.common import devicecost, torchenv
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "batchprep.cpp")
@@ -76,6 +77,10 @@ def build() -> str:
 
 def load() -> ctypes.CDLL:
     """The bound library, built on first use."""
+    return devicecost.build_seam("batchprep", _load, library_path)
+
+
+def _load() -> ctypes.CDLL:
     with _lock:
         path = library_path()
         lib = _loaded.get(path)

@@ -292,6 +292,53 @@ def test_commit_path_one_stage_a_launch(dev):
         "sha256_launches": 0, "resident_launches": 0}
 
 
+def test_telemetry_on_the_card(dev):
+    """The provider's telemetry on the commit path: verify_prepared on
+    256 lanes adds busy seconds (CUDA events) above 0 and at most the
+    call's wall, books one build event per library it loads, records its
+    spans; device_memory() gives the card's one row and health() reads
+    "device"."""
+    import time
+
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.common import devicecost, tracing
+
+    rng = np.random.default_rng(13)
+    csp = sw.SWProvider()
+    privs = [sw.ECDSAPrivateKey(int(rng.integers(1, 1 << 62)))
+             for _ in range(3)]
+    pubs = [k.public_key() for k in privs]
+    n = 256
+    key_idx = np.arange(n) % 3
+    digests = np.stack([np.frombuffer(hashlib.sha256(rng.bytes(64)).digest(),
+                                      np.uint8) for _ in range(n)])
+    sigs = [csp.sign(privs[key_idx[i]], bytes(digests[i])) for i in range(n)]
+    digests[5, 0] ^= 1
+    der_ok, r8, rpn8, w8 = native.batch_prep(sigs)
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "UseG16": False, "Chunk": 128}})
+    tracing.reset()
+    t0 = time.perf_counter()
+    got = prov.verify_prepared(digests, r8, rpn8, w8, der_ok, key_idx, pubs,
+                               sigs.__getitem__)
+    wall = time.perf_counter() - t0
+    assert got == [i != 5 for i in range(n)]
+    busy = prov.device_cost.busy.totals()
+    assert set(busy) == {0} and 0 < busy[0] <= wall
+    assert sorted(e["kind"] for e in prov.device_cost.events) == [
+        "ptree", "sha_windows"]
+    assert prov.stats["compile_total"] == 2 and prov.device_cost.steady
+    assert [e[1] for e in tracing.snapshot()
+            if e[1].startswith("tpu.")][-3:] == [
+        "tpu.dispatch", "tpu.verify", "tpu.verify"]
+    rows = devicecost.device_memory()
+    assert len(rows) == torch.cuda.device_count()
+    assert rows[0]["kind"] == torch.cuda.get_device_name(0)
+    assert 0 < rows[0]["bytes_in_use"] <= rows[0]["peak_bytes_in_use"] \
+        <= rows[0]["bytes_limit"]
+    assert prov.health() == "device"
+
+
 def test_table_copies_round_trip_on_the_card(dev):
     """The Q tables' persist and restore copies: device to pinned host
     memory on a side stream after the build's event, and back on a side
