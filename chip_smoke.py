@@ -17,7 +17,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    for the libraries not built before: `libraries`);
                    ptxas registers, stack and spills per kernel (stage
                    A's and the resident kernel's must have no stack and
-                   no spills); the SASS mix
+                   no spills, the BLS12-381 Miller and final-exp entries
+                   no spills and a stack under 1 KB); the SASS mix
   field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
                    (csrc/field_selftest.cu) against Python ints: mul, add,
                    sub and the 13-bit conversion on edge operands (0, 1,
@@ -42,7 +43,17 @@ Phases, one JSON line each; any failure exits non-zero:
                    and the 13-bit layout's round trip on 0, 1, p - 1, p,
                    p + 1, 2p - 1 and random operands below 2p) and its
                    M-type tower (csrc/bls12_381_tower.cuh, the same cases)
-                   against Python ints and the plain tower; words equal
+                   against Python ints and the plain tower; its
+                   cooperative layer (csrc/pairing_coop.cuh, a warp a
+                   case: Fp12 squaring, the sparse line product, the
+                   cyclotomic squaring of a value past the easy part, the
+                   product, inverse and Frobenius, beside the serial
+                   formulas, and the binary Euclid Fp inverse on 0, 1,
+                   p - 1 and random values) against the plain tower and
+                   ints, with clock cycles (bls12_381_coop_cycles: Fermat's
+                   inverse and the binary one on one thread, the warp's
+                   Fp12 product and cyclotomic squaring, one thread's
+                   f2_mul and f2_add); words equal
   block            a block made from --seed: --txs transactions x (2
                    endorsements + 1 creator) P-256 signatures over 3 org
                    keys, 256-byte messages, ~1% bad lanes of five kinds
@@ -113,7 +124,7 @@ Phases, one JSON line each; any failure exits non-zero:
                    the memory, busy-ratio, compile and launch gauges; (h)
                    the commit path's steady median with tracing on, with
                    it off, and with it off and the busy events stubbed
-                   out, in turns, 20 calls each: on within 5% or 0.10 ms
+                   out, in turns, 60 calls each: on within 5% or 0.10 ms
                    of each of the others.
   warm_restart     the Q16 table's lifecycle across a restart, on the org
                    block's key set (3 keys, K = 4), with a temporary
@@ -266,9 +277,14 @@ Phases, one JSON line each; any failure exits non-zero:
                    bls12_381_ref.final_exponentiation_chain, Miller lanes
                    0, 1 and the edges against bls12_381_ref.miller_loop up
                    to an Fp2 * w^(3k) monomial. Then each entry at the
-                   path's shape (1,024 lanes, one final-exp lane): CUDA
+                   path's shape (1,024 lanes, one final-exp lane; the
+                   Miller entry also at 4 lanes, k = 3's bucket): CUDA
                    events against bounds from the functions' least Fp
-                   products (576 IMAD each) and the products executed.
+                   products (576 IMAD each) and the products executed,
+                   and beside them the products one thread of a lane's
+                   warp runs in series (chain_products) and the measured
+                   us per chained product; each line with the entry's
+                   ptxas registers, stack and spills.
   telemetry_builds every path's provider booked one build event a library
                    it loaded, each a hit: ed25519_verify (q16),
                    fused_resident (q8), ladder, bn254_pairing and g2_msm,
@@ -717,7 +733,7 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
 # one build event in the provider's device_cost)
 Q16_LIBS = ("batchprep", "ptree", "sha_windows")
 TRACE_CAPTURES = 3              # bounded captures, 2 kept
-OVERHEAD_CALLS = 20             # commit-path calls per tracing mode
+OVERHEAD_CALLS = 60             # commit-path calls per tracing mode
 
 
 def check_build_events(label, prov, need) -> dict:
@@ -2842,12 +2858,12 @@ BLS_FE_INPUTS = 4               # single-lane final-exp inputs vs plain
 # a 381-bit product on 12 words: 12 x 12 partial products, a low and a
 # high IMAD each, and a Montgomery reduction of the same size
 BLS_MUL_IMAD = 2 * 2 * 12 * 12
-# 1/f as executed (four Fp6 products, the Fp6 inverse's 12 Fp2 products,
-# the Fp2 inverse's 4 products and Fermat's 380 squarings and 228
-# products) and at its least (see F12_INV_MIN, Fermat at its 380
-# squarings)
-BLS_F12_INV_FP = 4 * 27 + 12 * 3 + 4 + 380 + 228
+# 1/f at its least (see F12_INV_MIN, Fermat at its 380 squarings); what
+# the redesigned entries execute, and the products one thread of a lane's
+# warp runs in series (`chain_products`), the schedules count
+# (ops/bls12_381_kernel.py miller_products, final_exp_products)
 BLS_F12_INV_MIN = 2 * 12 + (6 * 3 + 3 * 2) + 4 + 380 + 2 * 18
+BLS_SMALL_LANES = 4             # the Miller entry timed at k = 3's bucket too
 
 
 def _bls_sign_span_chunk(jobs):
@@ -3227,28 +3243,44 @@ def bls_vs_plain(span, prov, card, pool):
     check(all(miller_ref), "BLS Miller lanes != bls12_381_ref.miller_loop "
           f"up to a w^(3k) monomial at {[look[i] for i, v in enumerate(miller_ref) if not v]}")
 
-    # times at the path's shape: the 1,023-key span, one call
+    # times at the path's shape: the 1,023-key span, one call; the Miller
+    # entry also at k = 3's bucket, where the chain sets its time
     ms = cuda_ms(lambda: blsk.miller_loop_batch(sp[0], sp[1], Qs,
                                                 mask=sp[6]), 3)
+    chain, executed = blsk.miller_products(b.X_BLS)
     res["miller"].update(lanes_timed=B, **bn_reading(
-        ms, B * miller_products_min(b.X_BLS, 0),
-        B * miller_products(b.X_BLS, 0), B * (6 + 12) * blsk.L * 4 + B,
-        BLS_MUL_IMAD))
+        ms, B * miller_products_min(b.X_BLS, 0), B * executed,
+        B * (6 + 12) * blsk.L * 4 + B, BLS_MUL_IMAD))
+    n4 = BLS_SMALL_LANES
+    s4 = [t[:n4].contiguous() for t in sp]
+    ms4 = cuda_ms(lambda: blsk.miller_loop_batch(
+        s4[0], s4[1], ((s4[2], s4[3]), (s4[4], s4[5])), mask=s4[6]), 10)
+    b4, by4 = bn_bound(n4 * miller_products_min(b.X_BLS, 0),
+                       n4 * (6 + 12) * blsk.L * 4 + n4, BLS_MUL_IMAD)
+    res["miller"].update(
+        chain_products=chain, us_per_chained_product=ms * 1e3 / chain,
+        small_lanes=n4, small_ms=ms4, small_bound_ms=b4, small_bound_by=by4,
+        small_us_per_chained_product=ms4 * 1e3 / chain)
     ms = cuda_ms(lambda: blsk.product_reduce(f_s), 3)
     res["reduce"].update(lanes_timed=B, **bn_reading(
         ms, (B - 1) * F12_MUL_MIN, (B - 1) * F12_MUL_FP,
         (B + 1) * 12 * blsk.L * 4, BLS_MUL_IMAD))
     one_lane = r_s.contiguous()
-    ms = cuda_ms(lambda: blsk._final_exp_kernel(one_lane, prog), 3)
+    ms = cuda_ms(lambda: blsk._final_exp_kernel(one_lane, prog), 10)
+    chain, executed = blsk.final_exp_products(prog)
     res["final_exp"].update(lanes_timed=1, **bn_reading(
-        ms, final_exp_products_min(prog, 1, BLS_F12_INV_MIN),
-        final_exp_products(prog, 1, BLS_F12_INV_FP),
-        2 * 12 * blsk.L * 4 + 1 + prog.size * 4, BLS_MUL_IMAD))
+        ms, final_exp_products_min(prog, 1, BLS_F12_INV_MIN), executed,
+        2 * 12 * blsk.L * 4 + 1 + prog.size * 4, BLS_MUL_IMAD),
+        chain_products=chain, us_per_chained_product=ms * 1e3 / chain,
+        cyclotomic_row=blsk.cyclotomic_row(prog))
+    kernel = {"miller": "bls_miller_kernel", "reduce": "bls_reduce_kernel",
+              "final_exp": "bls_final_exp_kernel"}
     for entry, r in res.items():
         r["ms_from"] = "cuda_events"
         emit({"phase": "bls_vs_plain", "entry": entry, "ok": True,
               "card": card, "edge_lanes": [k for k, _ in edges],
-              "masked_lanes": 4, **r})
+              "masked_lanes": 4,
+              "ptxas": ptxas_of("bls12_381_pairing", kernel[entry]), **r})
     return res
 
 
@@ -3304,6 +3336,58 @@ def bls_tower_int_misses(case, row) -> list[str]:
             "add_line_point": (affine(60), add),
             "dbl_point": (affine(78), dbl), "add_point": (affine(84), add)}
     return [k for k, (g, w) in want.items() if g != w]
+
+
+def bls_coop_cases(rng, n: int):
+    """Cooperative self-test cases (42 plain values: x, y in Fp12, a
+    line's A, B, C, and c in the cyclotomic subgroup, the easy part of a
+    random value): x's first coefficient 0, 1 and p - 1 in the first three
+    (the binary Euclid inverse's edges), random after."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+
+    def fp():
+        return int.from_bytes(rng.bytes(48), "big") % b.P
+
+    def f12():
+        return tuple(tuple((fp(), fp()) for _ in range(3))
+                     for _ in range(2))
+
+    def flat(el):
+        return [x for half in el for f2 in half for x in f2]
+    cases = []
+    for i in range(n):
+        m = f12()
+        m = b.f12_mul(b.f12_conj(m), b.f12_inv(m))
+        c = b.f12_mul(b._frob2(m), m)
+        x = flat(f12())
+        x[0] = (0, 1, b.P - 1)[i] if i < 3 else x[0]
+        cases.append(x + flat(f12()) + flat(f12())[:6] + flat(c))
+    return cases
+
+
+def bls_coop_int_misses(vals, row) -> list[str]:
+    """The cooperative self-test's 110 outputs against the int tower: the
+    names of the outputs that differ."""
+    from fabric_tpu_torch.ops import bls12_381_ref as b
+
+    def f12(v, o):
+        return (tuple(tuple(v[o + 2 * j:o + 2 * j + 2]) for j in range(3)),
+                tuple(tuple(v[o + 6 + 2 * j:o + 8 + 2 * j])
+                      for j in range(3)))
+    x, y, c = f12(vals, 0), f12(vals, 12), f12(vals, 30)
+    A, B, C = (tuple(vals[24 + 2 * i:26 + 2 * i]) for i in range(3))
+    line = ((C, B, b.F2_ZERO), (b.F2_ZERO, A, b.F2_ZERO))
+    want = {"f12_sqr": (0, b.f12_mul(x, x)), "coop_sqr": (12, b.f12_mul(x, x)),
+            "f12_mul_line": (24, b.f12_mul(x, line)),
+            "coop_mul_line": (36, b.f12_mul(x, line)),
+            "f12_sqr_cyclotomic": (48, b.f12_mul(c, c)),
+            "coop_cyc": (60, b.f12_mul(c, c)),
+            "coop_mul": (72, b.f12_mul(x, y)),
+            "coop_inv": (84, b.f12_inv(x)), "coop_frob": (96, b.f12_frob(x))}
+    miss = [k for k, (o, w) in want.items() if f12(row, o) != w]
+    inv = pow(vals[0] % b.P, b.P - 2, b.P)
+    return miss + (["fp_inv"] if row[108] != inv or row[109] != inv
+                   else [])
 
 
 def bn_tower_cases(rng, n: int):
@@ -3523,13 +3607,34 @@ def field_vs_ints(card, seed: int) -> None:
     misses = [bls_tower_int_misses(case, limb.words_to_ints(row, 12))
               for case, row in zip(lt_cases, got_lt.numpy())]
     check(not any(misses), f"BLS12-381 tower != Python ints: {misses}")
+    # the cooperative layer (csrc/pairing_coop.cuh, a warp a case) and
+    # the serial formulas it distributes; the clock cycles of the two Fp
+    # inverses on one thread
+    co_cases = bls_coop_cases(rng, 8)
+    cw = words12(v for vals in co_cases for v in vals).reshape(
+        len(co_cases), -1)
+    got_co = blsk.coop_selftest(cw.cuda()).cpu()
+    want_co = blsk.coop_selftest_plain(cw)
+    nw = 12 * blsk.COOP_OUT
+    bad_co = int((got_co[:, :nw] != want_co[:, :nw]).any(dim=1).sum())
+    check(bad_co == 0, f"BLS12-381 cooperative layer != the plain tower on "
+          f"{bad_co} cases")
+    misses = [bls_coop_int_misses(case, limb.words_to_ints(row[:nw], 12))
+              for case, row in zip(co_cases, got_co.numpy())]
+    check(not any(misses), f"BLS12-381 cooperative layer != Python ints: "
+          f"{misses}")
+    cycles = np.median(got_co[:, nw:].numpy(), axis=0)
     emit({"phase": "field_vs_ints", "ok": True, "card": card,
           "op_cases": len(pairs), "add_cases": len(adds),
           "modn_cases": len(cases), "dbl_cases": len(dbl),
           "f25_cases": len(f_pairs), "ed_cases": len(e_cases),
           "bn254_fp_cases": len(b_pairs), "bn254_tower_cases": len(t_cases),
           "bls12_381_fp_cases": len(l_pairs),
-          "bls12_381_tower_cases": len(lt_cases), "mismatches": 0})
+          "bls12_381_tower_cases": len(lt_cases),
+          "bls12_381_coop_cases": len(co_cases),
+          "bls12_381_coop_cycles": dict(zip(blsk.COOP_CYCLE_NAMES,
+                                            map(int, cycles))),
+          "mismatches": 0})
 
 
 def sw_sample(blk, pool, nproc, label):
@@ -3817,6 +3922,14 @@ def main() -> int:
             check(rep.get("stack") == 0 and rep.get("spill_stores") == 0
                   and rep.get("spill_loads") == 0,
                   f"ptxas: {fn} has a stack or spills: {rep}")
+
+    # the redesigned BLS12-381 Miller and final-exp entries keep a lane's
+    # state in shared memory: no spills, a stack frame under 1 KB
+    for fn in ("bls_miller_kernel", "bls_final_exp_kernel"):
+        rep = ptxas_of("bls12_381_pairing", fn)
+        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
+              and rep.get("stack", 1 << 20) < 1024,
+              f"ptxas: {fn} spills or has a stack of 1 KB or more: {rep}")
 
     nproc = os.cpu_count() or 1
     with mp.get_context("spawn").Pool(nproc) as pool:

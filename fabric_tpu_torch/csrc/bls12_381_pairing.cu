@@ -16,12 +16,13 @@
 //     i < half, f[i] = f[i] * f[i + half] (one level of the halving
 //     product; the wrapper launches log2(B) levels).
 //   bls_final_exp_launch: f (12, B, 30), consts, the program (rows, 4)
-//     int32 and its row count, gt (12, B, 30), ok (B,) bool, B. The
-//     provider runs it on one lane: the product of every pair.
+//     int32, its row count and the row from which its squarings are
+//     cyclotomic, gt (12, B, 30), ok (B,) bool, B. The provider runs it
+//     on one lane: the product of every pair.
 //
-// Beside them, on no path, the self-tests of the core and the tower
-// (ops/bls12_381_kernel.py fp_selftest, tower_selftest; chip_smoke.py
-// field_vs_ints):
+// Beside them, on no path, the self-tests of the core, the tower and the
+// cooperative layer (ops/bls12_381_kernel.py fp_selftest, tower_selftest,
+// coop_selftest; chip_smoke.py field_vs_ints):
 //   bls_fp_selftest_launch: a, b (n, 12) 32-bit little-endian words of
 //     plain values below 2p, consts -> out (n, 72) uint32: a mod p,
 //     a + b, a - b, a * b, a^-1 and a through the 13-bit layout
@@ -29,31 +30,39 @@
 //   bls_tower_selftest_launch: cases (n, 432) words of 36 plain values,
 //     consts -> out (n, 1080) uint32: the 90 canonical values of
 //     tower_selftest (bls12_381_tower.cuh).
+//   bls_coop_selftest_launch: cases (n, 504) words of 42 plain values,
+//     consts -> out (n, 1326) uint32: coop_selftest_group's 110 canonical
+//     values and 6 clock counts (bls12_381_pairing.cuh), a warp a case.
 //
 // What bounds them on this card: 32-bit integer multiply-adds. A field
 // product is 12 x 12 partial products (a low and a high IMAD each) and a
-// Montgomery reduction of the same size: 576 IMAD. The Miller loop over
-// |x| = 0xd201000000010000 is 63 steps of f^2 (81 products), a doubling
-// with its tangent line (52) and f * line (81), 5 of them an addition
-// with its chord line (58) and f * line (81): 14,177 products a lane. A
-// level of the reduce is one Fp12 product a lane (81). The final
-// exponentiation is 1/f (four Fp6 products, the adjoint, 380 squarings
-// and 228 products of Fermat's inverse in Fp), then the program's Fp12
-// products and Frobenius maps (15 each). Operands and results are ~2 KB a
-// lane, so bytes do not bound them (chip_smoke.py bls_vs_plain:
-// bn_reading at BLS_MUL_IMAD).
+// Montgomery reduction of the same size: 576 IMAD. A Miller lane over
+// |x| = 0xd201000000010000 is 63 doubling steps (f^2 by the complex
+// method: 12 Fp2 products; the tangent step: 16; f^2 times the sparse
+// line: 13) and 5 addition steps (19 and 13): 8,247 Fp products as
+// executed (ops/bls12_381_kernel.py miller_products). A level of the
+// reduce is one Fp12 product a lane (81). The final exponentiation is 1/f
+// (the adjoint in Fp6 products, a binary Euclid inverse in Fp), then the
+// program's rows: a cyclotomic squaring 27 Fp products, a product 54, a
+// Frobenius 18. Operands and results are ~2 KB a lane, so bytes do not
+// bound them (chip_smoke.py bls_vs_plain: bn_reading at BLS_MUL_IMAD).
 //
-// The design, a simple first kernel, is bn254_pairing.cu's: one thread per
-// lane, the field on 12 x 32-bit words (bls12_381_field.cuh: CIOS, lazy
-// reduction below 2p), the tower's products, Frobenius, inversions and
-// twist steps as calls over operands in local memory
-// (bls12_381_tower.cuh), the constants in shared memory; the Miller loop
-// branches on its bits and the final exponentiation interprets the
-// program's rows, both the same for every lane. 32-thread blocks: a call
-// holds a few hundred to a few thousand lanes, so small blocks spread them
-// over more SMs. Later speed work (ROADMAP queue 2): sparse line products,
-// cyclotomic squarings, PTX carry chains, a one-launch reduce, several
-// threads a lane for the final exponentiation.
+// The design. The reduce is a simple first kernel, bn254_pairing.cu's:
+// one thread a lane, the field on 12 x 32-bit words
+// (bls12_381_field.cuh: CIOS, lazy reduction below 2p), the tower's
+// products as calls over operands in local memory (bls12_381_tower.cuh).
+// The Miller and final-exp entries run a lane over a warp, one lane a
+// block, on pairing_coop.cuh: the lane's Fp12 values in shared memory,
+// each operation's Fp2 products as rounds of one Fp product a thread
+// (three a product), its additions in short rounds of one formula each,
+// rounds separated by __syncwarp(); the Miller loop branches on its bits
+// and the final exponentiation interprets the program's rows, both the
+// same for every lane. Its chain: 337 Fp products in series a Miller
+// lane, 404 a final exponentiation (the schedules' counts,
+// miller_products and final_exp_products), against 14,177 and 29,181
+// for one thread a lane. The constants sit in shared memory. Later speed
+// work (ROADMAP queue 2): PTX carry chains, a one-launch reduce on the
+// cooperative product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,19 +73,22 @@ namespace {
 
 using namespace bls381;
 
-constexpr int THREADS = 32;
+constexpr int THREADS = 32;   // the serial entries: one thread a lane
+constexpr int GROUP = 32;     // the cooperative entries: a warp a lane
 
-__global__ void __launch_bounds__(THREADS)
+// a lane a block of one warp
+__global__ void __launch_bounds__(GROUP)
 bls_miller_kernel(const int* __restrict__ pts,
                   const uint8_t* __restrict__ mask,
                   const uint32_t* __restrict__ consts, int* __restrict__ out,
                   int B, uint32_t bits_lo, uint32_t bits_hi, int nbits) {
   __shared__ BlsConsts k;
+  __shared__ coop::MillerState<BlsTower> st;
   consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  miller_lane(pts, mask, B, lane, bits_lo, bits_hi, nbits, k, out);
+  const coop::Group g{static_cast<int>(threadIdx.x), GROUP, false};
+  coop::miller_group<BlsTower>(g, st, pts, mask, B, blockIdx.x, bits_lo,
+                               bits_hi, nbits, k, out);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -90,17 +102,18 @@ bls_reduce_kernel(int* __restrict__ f, const uint32_t* __restrict__ consts,
   reduce_lane(f, B, i, half, k);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GROUP)
 bls_final_exp_kernel(const int* __restrict__ f,
                      const uint32_t* __restrict__ consts,
-                     const int* __restrict__ prog, int nrows,
+                     const int* __restrict__ prog, int nrows, int cyc_from,
                      int* __restrict__ gt, uint8_t* __restrict__ ok, int B) {
   __shared__ BlsConsts k;
+  __shared__ coop::FinalExpState<BlsTower> st;
   consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  final_exp_lane(f, B, lane, prog, nrows, k, gt, ok);
+  const coop::Group g{static_cast<int>(threadIdx.x), GROUP, false};
+  coop::final_exp_group<BlsTower>(g, st, f, B, blockIdx.x, prog, nrows,
+                                  cyc_from, k, gt, ok);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -129,6 +142,19 @@ bls_tower_selftest_kernel(const uint32_t* __restrict__ cases,
     tower_selftest(cases + NW * TOWER_IN * i, k, out + NW * TOWER_OUT * i);
 }
 
+__global__ void __launch_bounds__(GROUP)
+bls_coop_selftest_kernel(const uint32_t* __restrict__ cases,
+                         const uint32_t* __restrict__ consts,
+                         uint32_t* __restrict__ out) {
+  __shared__ BlsConsts k;
+  __shared__ CoopState st;
+  consts_load(k, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const coop::Group g{static_cast<int>(threadIdx.x), GROUP, false};
+  coop_selftest_group(g, st, cases + NW * COOP_IN * blockIdx.x, k,
+                      out + (NW * COOP_OUT + COOP_CYCLES) * blockIdx.x);
+}
+
 int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -140,8 +166,7 @@ extern "C" int bls_miller_launch(const void* pts, const void* mask,
                                  int bits_lo, int bits_hi, int nbits,
                                  void* stream) {
   if (B <= 0) return 0;
-  bls_miller_kernel<<<blocks(B), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  bls_miller_kernel<<<B, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pts), static_cast<const uint8_t*>(mask),
       static_cast<const uint32_t*>(consts), static_cast<int*>(out), B,
       static_cast<uint32_t>(bits_lo), static_cast<uint32_t>(bits_hi), nbits);
@@ -158,13 +183,12 @@ extern "C" int bls_reduce_launch(void* f, const void* consts, int B,
 }
 
 extern "C" int bls_final_exp_launch(const void* f, const void* consts,
-                                    const void* prog, int nrows, void* gt,
-                                    void* ok, int B, void* stream) {
+                                    const void* prog, int nrows, int cyc_from,
+                                    void* gt, void* ok, int B, void* stream) {
   if (B <= 0) return 0;
-  bls_final_exp_kernel<<<blocks(B), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  bls_final_exp_kernel<<<B, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(f), static_cast<const uint32_t*>(consts),
-      static_cast<const int*>(prog), nrows, static_cast<int*>(gt),
+      static_cast<const int*>(prog), nrows, cyc_from, static_cast<int*>(gt),
       static_cast<uint8_t*>(ok), B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -188,6 +212,17 @@ extern "C" int bls_tower_selftest_launch(const void* cases,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(cases),
       static_cast<const uint32_t*>(consts), n, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bls_coop_selftest_launch(const void* cases,
+                                        const void* consts, int n, void* out,
+                                        void* stream) {
+  if (n <= 0) return 0;
+  bls_coop_selftest_kernel<<<n, GROUP, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cases),
+      static_cast<const uint32_t*>(consts), static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -114,8 +114,8 @@ KERNELS = {
         "bls_miller_launch": ([_VOIDP] * 4 + [_INT] * 4 + [_VOIDP], _INT),
         # f (in place), consts, B, half, stream
         "bls_reduce_launch": ([_VOIDP] * 2 + [_INT] * 2 + [_VOIDP], _INT),
-        # f, consts, prog, nrows, gt, ok, B, stream
-        "bls_final_exp_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2
+        # f, consts, prog, nrows, cyc_from, gt, ok, B, stream
+        "bls_final_exp_launch": ([_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] * 2
                                  + [_INT, _VOIDP], _INT),
         # a, b, consts, n, out, stream: the 381-bit core
         "bls_fp_selftest_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2,
@@ -123,6 +123,9 @@ KERNELS = {
         # cases, consts, n, out, stream: the BLS12-381 tower
         "bls_tower_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2,
                                       _INT),
+        # cases, consts, n, out, stream: the cooperative layer
+        "bls_coop_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2,
+                                     _INT),
         "bls12_381_pairing_error_string": ([_INT], ctypes.c_char_p),
     }),
     "g2_msm": ("g2_msm.cu", {

@@ -22,20 +22,24 @@ exactly:
     Fp12 one), the reduce, the final exponentiation and the identity test.
 
 The card entries, hand-written CUDA kernels (csrc/bls12_381_pairing.cu on
-the 32-bit core csrc/bls12_381_field.cuh and the tower
-csrc/bls12_381_tower.cuh):
+the 32-bit core csrc/bls12_381_field.cuh, the tower
+csrc/bls12_381_tower.cuh and, for the Miller and final-exp entries, the
+cooperative layer csrc/pairing_coop.cuh: a lane's Fp12 values in shared
+memory, each operation's independent Fp2 products spread over the
+lane's threads in rounds):
 
     miller_loop_batch(xP, yP, Q, loop, mask)
         CPU tensors: the plain version (then the mask, when given); CUDA
-        tensors: the Miller entry, one launch (`miller_launches`), which
-        writes one on masked lanes;
+        tensors: the Miller entry, one launch (`miller_launches`), a warp
+        a lane, which writes one on masked lanes;
     product_reduce(f)
         CPU: the plain version; CUDA: the reduce entry, one launch a level,
         log2(B) a call (`reduce_launches`);
     final_exp_batch(f, program)
         CPU: the plain version; CUDA: the final-exp entry, one launch
-        (`final_exp_launches`), one thread a lane: the provider gives it
-        one lane, the product of every pair;
+        (`final_exp_launches`), a warp a lane: the provider gives it one
+        lane, the product of every pair; both square cyclotomically from
+        `cyclotomic_row(program)` on;
     pairs_product_is_one(xP, yP, qx0, qx1, qy0, qy1, mask, loop)
         the three in a row: one Miller, log2(B) reduce and one final-exp
         launch, and the verdict the final-exp entry writes.
@@ -84,6 +88,9 @@ f2_mul = _T.f2_mul
 f6_mul = _T.f6_mul
 f12_mul = _T.f12_mul
 f12_sqr = _T.f12_sqr
+f12_sqr_complex = _T.f12_sqr_complex
+f12_sqr_cyclotomic = _T.f12_sqr_cyclotomic
+f12_mul_line = _T.f12_mul_line
 f12_conj = _T.f12_conj
 f12_frob = _T.f12_frob
 f12_inv = _T.f12_inv
@@ -128,8 +135,8 @@ def miller_loop_batch(xP, yP, Q, loop: int = ref.X_BLS, mask=None):
     """f_{loop,Q}(P) per lane, and Fp12 one on lanes whose `mask` (B,)
     bool is False (None: every lane live): the plain version on CPU
     tensors, csrc/bls12_381_pairing.cu's Miller entry on CUDA tensors
-    (one launch). Returns the Fp12 value as nested tuples of (B, L)
-    tensors."""
+    (one launch, a warp a lane). Returns the Fp12 value as nested tuples
+    of (B, L) tensors."""
     global miller_launches
     flat = [xP, yP, Q[0][0], Q[0][1], Q[1][0], Q[1][1]]
     B = xP.shape[0]
@@ -242,14 +249,31 @@ def final_exp_program(u: int = ref.X_BLS) -> np.ndarray:
 
 _FINAL_EXP_PROGRAM = final_exp_program()
 
+# the easy part's last row: m = m^(p^2) * m
+EASY_LAST = (tower.OP_MUL, 2, 6, 2)
+
+
+def cyclotomic_row(program) -> int:
+    """The row from which the program's squarings square elements of the
+    cyclotomic subgroup: the one after the easy part's `mul(2, 6, 2)`
+    (every later squaring squares m or a value made from it; f and 1/f in
+    registers 0 and 1 are overwritten before they are squared). A program
+    without that row gets none (its length)."""
+    rows = [tuple(r) for r in np.asarray(program).tolist()]
+    return rows.index(EASY_LAST) + 1 if EASY_LAST in rows else len(rows)
+
 
 def final_exp_plain(f, program=_FINAL_EXP_PROGRAM):
-    return _T.run_final_exp(f, program)
+    """The register machine in plain torch, every squaring from
+    `cyclotomic_row(program)` on a cyclotomic squaring, as the card's
+    entry runs it."""
+    return _T.run_final_exp(f, program, cyc_from=cyclotomic_row(program))
 
 
 def _final_exp_kernel(flat, program):
     """The final-exp entry on (12, B, L) lanes -> (GT (12, B, L), is-one
-    (B,))."""
+    (B,)): a warp a lane, squarings from cyclotomic_row(program) on
+    cyclotomic."""
     global final_exp_launches
     dev = flat.device
     B = flat.shape[1]
@@ -258,15 +282,16 @@ def _final_exp_kernel(flat, program):
     gt = torch.empty((12, B, L), dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     kernels.launch(dev, _LIB, "bls_final_exp_launch", flat.contiguous(),
-                   kernel_consts(dev), prog, int(prog.shape[0]), gt, ok, B)
+                   kernel_consts(dev), prog, int(prog.shape[0]),
+                   cyclotomic_row(program), gt, ok, B)
     final_exp_launches += 1
     return gt, ok
 
 
 def final_exp_batch(f, program: np.ndarray | None = None):
     """The final exponentiation (by default the HHT chain, = fast^3):
-    CPU tensors run the plain register machine (tower.run_final_exp),
-    CUDA tensors the final-exp entry, one thread a lane."""
+    CPU tensors run the plain register machine (final_exp_plain), CUDA
+    tensors the final-exp entry, a warp a lane."""
     if program is None:
         program = _FINAL_EXP_PROGRAM
     flat = tower.flat_from_f12(f)
@@ -496,3 +521,130 @@ def tower_selftest(cases):
     tensors bls12_381_pairing.cu's entry."""
     return _selftest("bls_tower_selftest_launch", tower_selftest_plain,
                      NW * TOWER_OUT, cases)
+
+
+# the cooperative layer's self-test case: x, y (Fp12, 12 values each), a
+# line's A, B, C (6) and c (Fp12, 12: cyclotomic) = 42 values; outputs,
+# canonical: x^2 by the serial f12_sqr and by the group, x * line by
+# f12_mul_line and by the group, c^2 by f12_sqr_cyclotomic and by the
+# group, the group's x * y, 1/x and x^p, and the inverse of x's first
+# coefficient by the binary Euclid algorithm and by Fermat; then
+# COOP_CYCLES words of the card's clock cycles (0 on the CPU): those two
+# inverses on one thread, the group's Fp12 product and cyclotomic squaring,
+# and one thread's f2_mul and f2_add
+COOP_IN = 42
+COOP_OUT = 9 * 12 + 2
+COOP_CYCLES = 6
+COOP_CYCLE_NAMES = ("fermat_inverse", "binary_euclid_inverse", "coop_mul",
+                    "coop_cyc", "f2_mul", "f2_add")
+
+
+def _coop_cases_plain(vals):
+    """The cooperative self-test's outputs by the plain torch tower (CPU):
+    vals (n, 42) plain ints -> (n, COOP_OUT) canonical plain ints."""
+    n = len(vals)
+    cols = [torch.as_tensor(np.stack([F.to_mont(v[k]) for v in vals]))
+            for k in range(COOP_IN)]
+    x = tower.f12_from_flat(cols[0:12])
+    y = tower.f12_from_flat(cols[12:24])
+    A, B, C = (cols[24], cols[25]), (cols[26], cols[27]), (cols[28], cols[29])
+    c = tower.f12_from_flat(cols[30:42])
+    sq = tower.flat_from_f12(f12_sqr_complex(x))
+    ln = tower.flat_from_f12(f12_mul_line(x, A, B, C))
+    cy = tower.flat_from_f12(f12_sqr_cyclotomic(c))
+    outs = [*sq, *sq, *ln, *ln, *cy, *cy,
+            *tower.flat_from_f12(f12_mul(x, y)),
+            *tower.flat_from_f12(f12_inv(x)),
+            *tower.flat_from_f12(f12_frob(x))]
+    rows = [[F.from_limbs(o[i].numpy()) for o in outs] for i in range(n)]
+    for r, v in zip(rows, vals):
+        a = v[0] % ref.P
+        r += [pow(a, ref.P - 2, ref.P)] * 2
+    return rows
+
+
+def coop_selftest_plain(cases):
+    """The plain tower on the cases of coop_selftest: cases (n, 504) int32
+    words (42 plain values a case) -> (n, 12 * COOP_OUT + COOP_CYCLES)
+    int64 canonical words, the cycle words 0."""
+    vals = [limb.words_to_ints(r, NW) for r in cases.tolist()]
+    rows = [limb.ints_to_words(r, NW) + [0] * COOP_CYCLES
+            for r in _coop_cases_plain(vals)]
+    return torch.tensor(rows, dtype=torch.int64).reshape(
+        -1, NW * COOP_OUT + COOP_CYCLES)
+
+
+def coop_selftest(cases):
+    """csrc/pairing_coop.cuh and the serial formulas it distributes on the
+    cases of coop_selftest_plain (cases (n, 504) int32 words): CPU tensors
+    run the plain tower, CUDA tensors bls12_381_pairing.cu's entry, a
+    warp a case. The last COOP_CYCLES words of a row are the card's clock
+    cycles (COOP_CYCLE_NAMES; 0 on the CPU)."""
+    return _selftest("bls_coop_selftest_launch", coop_selftest_plain,
+                     NW * COOP_OUT + COOP_CYCLES, cases)
+
+
+# ---------------------------------------------------------------------------
+# The cooperative entries' critical paths (csrc/pairing_coop.cuh)
+# ---------------------------------------------------------------------------
+
+# Each round as its jobs' Fp products: an Fp2 product is three jobs of one
+# Fp product (csrc/pairing_coop.cuh products), a domain conversion on load
+# or store one, a sum, term or coefficient none. Thread t of a group of n
+# runs jobs t, t + n, ..., so a round costs the thread with the most
+# products that many in series (`chain`), and all of its jobs' products
+# are executed (`executed`).
+def _parts(n_f2: int, others: int = 0) -> tuple:
+    return (1,) * (3 * n_f2) + (0,) * others
+
+
+MILLER_LOAD, MILLER_STORE = (1,) * 6, (1,) * 12
+MILLER_DBL_ROUNDS = (_parts(12 + 7), _parts(6, 6), _parts(13 + 3))
+MILLER_ADD_ROUNDS = (_parts(7), _parts(6), _parts(13 + 6))
+FE_LOAD, FE_STORE = (1,) * 12, (1,) * 12
+# 1/f: a0^2 and a1^2, N's six products, the adjoint's three, the Fp2
+# norm's inverse on one thread (2 squarings, 2 products, and 2 products
+# by R^2 beside the binary Euclid algorithm, which holds no product), 1/N,
+# a / N
+FE_INV_ROUNDS = (_parts(12), _parts(6), _parts(3), (6,), _parts(3),
+                 _parts(12))
+FE_ROW_ROUNDS = {"cyc": _parts(9), "mul": _parts(18), "frob": _parts(6),
+                 "conj": ()}
+GROUP = 32
+
+
+def _cost(rounds, group: int) -> tuple[int, int]:
+    """(chain, executed) Fp products of `rounds` on a group of `group`."""
+    chain = sum(max(sum(r[t::group]) for t in range(min(group, len(r))))
+                for r in rounds if r)
+    return chain, sum(sum(r) for r in rounds)
+
+
+def miller_products(loop: int = ref.X_BLS, group: int = GROUP
+                    ) -> tuple[int, int]:
+    """(chain, executed) Fp products of a Miller lane on the Miller
+    entry's group: the chain is the products one thread runs in series
+    (the load, each doubling step's three product rounds, each set bit's
+    addition step's three, the store)."""
+    bits = bin(loop)[3:]
+    dbl, add = _cost(MILLER_DBL_ROUNDS, group), _cost(MILLER_ADD_ROUNDS,
+                                                      group)
+    ends = _cost((MILLER_LOAD, MILLER_STORE), group)
+    n1 = bits.count("1")
+    return tuple(ends[i] + len(bits) * dbl[i] + n1 * add[i]
+                 for i in range(2))
+
+
+def final_exp_products(program=_FINAL_EXP_PROGRAM, group: int = GROUP
+                       ) -> tuple[int, int]:
+    """(chain, executed) Fp products of a final-exp lane on the entry's
+    group: the load and store, 1/f's rounds and each row's product round,
+    a squaring from cyclotomic_row(program) on a cyclotomic one."""
+    cyc_from = cyclotomic_row(program)
+    rounds = [FE_LOAD, FE_STORE, *FE_INV_ROUNDS]
+    for row, (op, _, a, b) in enumerate(np.asarray(program).tolist()):
+        rounds.append(FE_ROW_ROUNDS[
+            "conj" if op == tower.OP_CONJ else "frob"
+            if op == tower.OP_FROB else "cyc"
+            if a == b and row >= cyc_from else "mul"])
+    return _cost(rounds, group)

@@ -315,6 +315,105 @@ class Tower:
     def f12_sqr(self, a):
         return self.f12_mul(a, a)
 
+    # -- the card's Fp12 formulas (csrc/bls12_381_tower.cuh, distributed
+    # over a warp by csrc/pairing_coop.cuh): the same field values as
+    # f12_mul, in fewer products --
+
+    def _f6_karatsuba(self, pairs):
+        """Karatsuba Fp6 products of every (a, b) pair: a0b0, a1b1, a2b2,
+        (a1 + a2)(b1 + b2), (a0 + a1)(b0 + b1), (a0 + a2)(b0 + b2), all
+        6n in one `_f2_muls`."""
+        add, sub, xi = self.f2_add, self.f2_sub, self.f2_mul_xi
+        prods = self._f2_muls([
+            (x, y) for a, b in pairs for x, y in (
+                (a[0], b[0]), (a[1], b[1]), (a[2], b[2]),
+                (add(a[1], a[2]), add(b[1], b[2])),
+                (add(a[0], a[1]), add(b[0], b[1])),
+                (add(a[0], a[2]), add(b[0], b[2])))])
+        out = []
+        for i in range(len(pairs)):
+            p = prods[6 * i:6 * i + 6]
+            out.append((add(p[0], xi(sub(p[3], add(p[1], p[2])))),
+                        add(sub(p[4], add(p[0], p[1])), xi(p[2])),
+                        add(sub(p[5], add(p[0], p[2])), p[1])))
+        return out
+
+    def f12_sqr_complex(self, a):
+        """a^2 by the complex method over Karatsuba Fp6 (12 Fp2
+        products): t = a0 a1, u = (a0 + a1)(a0 + v a1); (u - t - v t,
+        2t)."""
+        a0, a1 = a
+        t, u = self._f6_karatsuba([
+            (a0, a1), (self.f6_add(a0, a1),
+                       self.f6_add(a0, self.f6_mul_v(a1)))])
+        return (self.f6_sub(u, self.f6_add(t, self.f6_mul_v(t))),
+                self.f6_add(t, t))
+
+    def _sparse_terms(self, g, x, y):
+        """The 5 products of Fp6 g times (x + y v): g0 x, g1 y,
+        (g0 + g1)(x + y), g2 y, g2 x."""
+        add = self.f2_add
+        return [(g[0], x), (g[1], y), (add(g[0], g[1]), add(x, y)),
+                (g[2], y), (g[2], x)]
+
+    def _sparse_value(self, q):
+        """g (x + y v) from `_sparse_terms`' products."""
+        add, sub = self.f2_add, self.f2_sub
+        return (add(q[0], self.f2_mul_xi(q[3])),
+                sub(q[2], add(q[0], q[1])), add(q[1], q[4]))
+
+    def f12_mul_line(self, f, A, B, C):
+        """f times the sparse line `line_to_f12(A, B, C)` in 13 Fp2
+        products: M-type l = (C + B v) + (A v) w, D-type l = A + (B + C v)
+        w; Karatsuba over the two halves, r0 = f0 l0 + v f1 l1, r1 =
+        (f0 + f1)(l0 + l1) - f0 l0 - f1 l1."""
+        f0, f1 = f
+        g = self.f6_add(f0, f1)
+        add = self.f2_add
+        if self.mtwist:                  # f0 (C + B v), f1 (A v)
+            terms = (self._sparse_terms(f0, C, B)
+                     + [(f1[0], A), (f1[1], A), (f1[2], A)]
+                     + self._sparse_terms(g, C, add(A, B)))
+        else:                            # f0 A, f1 (B + C v)
+            terms = ([(f0[0], A), (f0[1], A), (f0[2], A)]
+                     + self._sparse_terms(f1, B, C)
+                     + self._sparse_terms(g, add(A, B), C))
+        q = self._f2_muls(terms)
+        if self.mtwist:
+            t0 = self._sparse_value(q[0:5])
+            t1 = (self.f2_mul_xi(q[7]), q[5], q[6])
+        else:
+            t0 = (q[0], q[1], q[2])
+            t1 = self._sparse_value(q[3:8])
+        t2 = self._sparse_value(q[8:13])
+        return (self.f6_add(t0, self.f6_mul_v(t1)),
+                self.f6_sub(t2, self.f6_add(t0, t1)))
+
+    def f12_sqr_cyclotomic(self, f):
+        """The Granger-Scott squaring of an element of the cyclotomic
+        subgroup (anything past the final exponentiation's easy part),
+        9 Fp2 squarings over Fp4 = Fp2[w^3]: the pairs (g0, g3), (g1, g4),
+        (g2, g5) of f = sum g_i w^i are slots (0, 4), (3, 2), (1, 5) of
+        (d0, d1); pair (a, b) squares to (a^2 + xi b^2, (a + b)^2 - a^2 -
+        b^2), and each slot becomes 3 such a coefficient -+ 2 itself. It
+        equals f12_mul(f, f) only inside that subgroup."""
+        add, sub, xi = self.f2_add, self.f2_sub, self.f2_mul_xi
+        z = [f[0][0], f[0][1], f[0][2], f[1][0], f[1][1], f[1][2]]
+        pairs = ((0, 4), (3, 2), (1, 5))
+        s = self._f2_muls([(x, x) for a, b in pairs
+                           for x in (z[a], z[b], add(z[a], z[b]))])
+        lo = [add(s[3 * k], xi(s[3 * k + 1])) for k in range(3)]
+        hi = [sub(s[3 * k + 2], add(s[3 * k], s[3 * k + 1]))
+              for k in range(3)]
+
+        def three(c, zi, plus):          # 3c + 2zi or 3c - 2zi
+            d = add(c, zi) if plus else sub(c, zi)
+            return add(add(d, d), c)
+        out = [three(lo[0], z[0], False), three(lo[1], z[1], False),
+               three(lo[2], z[2], False), three(xi(hi[2]), z[3], True),
+               three(hi[0], z[4], True), three(hi[1], z[5], True)]
+        return (tuple(out[:3]), tuple(out[3:]))
+
     def f12_conj(self, f):
         """x -> x^(p^6): negate the w half. Inverse inside the cyclotomic
         subgroup (post easy part)."""
@@ -512,15 +611,20 @@ class Tower:
         return (c[0] == one).all(dim=-1) & (c[1:] == 0).all(dim=-1).all(
             dim=0)
 
-    def run_final_exp(self, f, program):
+    def run_final_exp(self, f, program, cyc_from=None):
         """Seed the register file with (f, 1/f) and zeros, then run the
         curve's final-exp program (registers 0/1 are inputs; the result
-        lands in register 0) row by row."""
+        lands in register 0) row by row. With `cyc_from`, a `mul(d, a,
+        a)` at that row or later runs as f12_sqr_cyclotomic (its operand
+        lies in the cyclotomic subgroup from there on: the same value)."""
         z = torch.zeros_like(f[0][0][0])
         zero = ((z, z),) * 3
         regs = [f, self.f12_inv(f)] + [(zero, zero)] * (NREG - 2)
-        for op, dst, a, b in np.asarray(program).tolist():
-            if op == OP_MUL:
+        for row, (op, dst, a, b) in enumerate(np.asarray(program).tolist()):
+            if op == OP_MUL and a == b and cyc_from is not None \
+                    and row >= cyc_from:
+                regs[dst] = self.f12_sqr_cyclotomic(regs[a])
+            elif op == OP_MUL:
                 regs[dst] = self.f12_mul(regs[a], regs[b])
             elif op == OP_CONJ:
                 regs[dst] = self.f12_conj(regs[a])

@@ -46,5 +46,11 @@ inline unsigned int __funnelshift_r(unsigned int lo, unsigned int hi,
   return static_cast<unsigned int>(v >> (n & 31));
 }
 
+// one host thread runs a whole group's rounds (csrc/pairing_coop.cuh), so
+// a warp's barrier has nothing to wait for, and no clock is read
+inline void __syncwarp(unsigned int = 0xFFFFFFFFu) {}
+
+inline long long clock64() { return 0; }
+
 using std::max;
 using std::min;

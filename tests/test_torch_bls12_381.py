@@ -38,6 +38,7 @@ import jax.numpy as jnp
 from fabric_tpu.bccsp import bccsp as japi
 from fabric_tpu.bccsp import sw as jsw
 from fabric_tpu.ops import bls12_381_kernel as jdev
+from fabric_tpu.ops import bn254 as jbn
 
 from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import factory, sw
@@ -45,6 +46,9 @@ from fabric_tpu_torch.bccsp.cuda import CUDAProvider
 from fabric_tpu_torch.ops import bls12_381 as blsagg
 from fabric_tpu_torch.ops import bls12_381_kernel as dev
 from fabric_tpu_torch.ops import bls12_381_ref as ref
+from fabric_tpu_torch.ops import bn254 as bn
+from fabric_tpu_torch.ops import bn254_ref as bnref
+from fabric_tpu_torch.ops import tower
 
 B = 2
 P = ref.P
@@ -217,15 +221,116 @@ def _chain_u(f, u):
 
 
 def test_small_u_program_matches_host_chain():
-    """The plain register machine on the program for u = 0b1101 against
-    the host emulation of the same chain; at the real u the emulation is
-    the pinned reference chain."""
+    """The plain register machine on the program for u = 0b1101, its
+    squarings cyclotomic from the easy part on (as the card's entry runs
+    them), against the host emulation of the same chain and against the
+    JAX package's register machine: run_final_exp's rows (f12_mul,
+    f12_conj, f12_frob of fabric_tpu's tower) run eagerly from (f, 1/f),
+    since its lax.scan takes minutes to compile on the CPU, 1/f from the
+    int reference; at the real u the emulation is the pinned reference
+    chain."""
     U = 0b1101
+    prog = dev.final_exp_program(U)
     x = tuple(tuple((_fp(1), _fp(1)) for _ in range(3)) for _ in range(2))
     f = dev.f12_from_device(T(x))[0]
-    got = dev.final_exp_batch(T(x), program=dev.final_exp_program(U))
+    got = dev.final_exp_batch(T(x), program=prog)
     assert dev.f12_from_device(got)[0] == _chain_u(f, U)
     assert _chain_u(f, ref.X_BLS) == ref.final_exponentiation_chain(f)
+    jt = jdev._T
+    z = jnp.zeros_like(J(x)[0][0][0])
+    regs = ([J(x), J(_f12_lanes_of([ref.f12_inv(f)]))]
+            + [(((z, z),) * 3, ((z, z),) * 3)] * 6)
+    for op, dst, a, b in prog.tolist():
+        regs[dst] = (jt.f12_mul(regs[a], regs[b]) if op == 0 else
+                     jt.f12_conj(regs[a]) if op == 1 else
+                     jt.f12_frob(regs[a]))
+    np.testing.assert_array_equal(_canon(dev, got), _canon(dev, regs[0]))
+
+
+# -- the card's Fp12 formulas in plain torch (ops/tower.py), both curves --
+
+CURVES = {"bls12_381": (jdev, dev, ref), "bn254": (jbn, bn, bnref)}
+
+
+@pytest.fixture(scope="module")
+def jit_bn254():
+    F = jbn.F
+    for name in ("mul", "add", "sub", "canonical"):
+        setattr(F, name, jax.jit(getattr(type(F), name).__get__(F)))
+    yield
+    for name in ("mul", "add", "sub", "canonical"):
+        delattr(F, name)
+
+
+def _easy_part(r, f):
+    """f^((p^6 - 1)(p^2 + 1)) on ints: into the cyclotomic subgroup."""
+    m = r.f12_mul(r.f12_conj(f), r.f12_inv(f))
+    return r.f12_mul(r.f12_frob(r.f12_frob(m)), m)
+
+
+def _f12_lanes(curve, n=B, cyclotomic=False, rng=RNG):
+    """n seeded Fp12 values of `curve` as nested (n, L) limb arrays (made
+    cyclotomic by the easy part on ints when asked)."""
+    _, mod, r = CURVES[curve]
+    lanes = []
+    for _ in range(n):
+        el = tuple(tuple(tuple(int.from_bytes(rng.bytes(48), "big") % r.P
+                               for _ in range(2)) for _ in range(3))
+                   for _ in range(2))
+        lanes.append(_easy_part(r, el) if cyclotomic else el)
+    flat = [np.stack([mod.F.to_mont(lane[h][j][c]) for lane in lanes])
+            for h in range(2) for j in range(3) for c in range(2)]
+    return tower.f12_from_flat(flat)
+
+
+def _f12_lanes_of(vals):
+    """Int Fp12 values as nested (n, L) BLS12-381 limb arrays."""
+    flat = [np.stack([dev.F.to_mont(v[h][j][c]) for v in vals])
+            for h in range(2) for j in range(3) for c in range(2)]
+    return tower.f12_from_flat(flat)
+
+
+def _canon(mod, f):
+    """Canonical limbs of an Fp12 value of either tower."""
+    return mod.F.canonical(tower.flat_from_f12(
+        jax.tree_util.tree_map(lambda a: torch.as_tensor(np.array(a)),
+                               f))).numpy()
+
+
+@pytest.mark.parametrize("curve", sorted(CURVES))
+@pytest.mark.parametrize("formula", ["f12_sqr_complex", "f12_mul_line",
+                                     "f12_sqr_cyclotomic"])
+def test_card_formula_matches_jax_dense_product(curve, formula, jit_bn254):
+    """The complex squaring, the sparse line product (M-type on
+    BLS12-381, D-type on BN254) and the cyclotomic squaring (on values
+    past the easy part) against the JAX tower's dense f12_mul of the same
+    operands: equal limbs after `canonical`."""
+    jm, tm, _ = CURVES[curve]
+    x = _f12_lanes(curve, cyclotomic=formula == "f12_sqr_cyclotomic")
+    if formula == "f12_mul_line":
+        line = _f12_lanes(curve)[0]                  # A, B, C
+        want = jm._T.f12_mul(J(x), jm._T.line_to_f12(*J(line)))
+        got = tm._T.f12_mul_line(T(x), *T(line))
+    else:
+        want = jm._T.f12_mul(J(x), J(x))
+        got = getattr(tm._T, formula)(T(x))
+    np.testing.assert_array_equal(_canon(tm, got), _canon(tm, want))
+
+
+def test_cyclotomic_lowering_starts_after_the_easy_part():
+    """The lowering's first row follows the easy part's mul(2, 6, 2), no
+    squaring comes before it, and a value outside the cyclotomic subgroup
+    (what the card's final-exp check feeds before the easy part) does not
+    square to its square by Granger-Scott."""
+    for u in (ref.X_BLS, 0b1101):
+        prog = dev.final_exp_program(u)
+        row = dev.cyclotomic_row(prog)
+        assert row == 5 and tuple(prog[row - 1]) == dev.EASY_LAST
+        assert not any(op == 0 and a == b
+                       for op, _, a, b in prog[:row].tolist())
+    x = T(_f12_lanes("bls12_381"))
+    assert (_canon(dev, dev.f12_sqr_cyclotomic(x))
+            != _canon(dev, dev.f12_mul(x, x))).any()
 
 
 @pytest.mark.slow

@@ -1,25 +1,33 @@
-"""The BLS12-381 kernels' field core, tower and lane bodies, built by the
-host C++ compiler.
+"""The BLS12-381 kernels' field core, tower, cooperative layer and lane
+bodies, built by the host C++ compiler.
 
 fabric_tpu_torch/csrc/bls12_381_field.cuh (Montgomery arithmetic mod
 BLS12-381's p on 12 x 32-bit words), bls12_381_tower.cuh (Fp2/Fp6/Fp12,
-Frobenius, inversions, the RCB15 twist steps and their M-type lines) and
-bls12_381_pairing.cuh (the Miller, reduce and final-exp lane bodies) are
-portable C++ behind CUDA's execution-space keywords, so the host compiler
-builds them here behind the stand-in tests/cuda_host/cuda_runtime.h, as
-tests/test_torch_bn254_field_host.py does for BN254. Held to Python ints
-and to the plain torch versions (ops/bls12_381_kernel.py): the field ops
-on edge operands (0, 1, p - 1, p, p + 1, 2p - 1) and seeded random ones
-below 2p, and the 13-bit layout's round trip; Fp2 mul/sqr/inv, Fp12 mul,
-Frobenius and inverse, the twist doubling and addition with their lines
-(points also held to the int group law); the Miller lane at a truncated
-loop against the plain version and, over the full |x|, against
+Frobenius, inversions, the RCB15 twist steps and their M-type lines, and
+the formulas the cooperative layer distributes: the complex squaring, the
+sparse line product, the cyclotomic squaring), pairing_coop.cuh (a lane
+over a group of threads) and bls12_381_pairing.cuh (the reduce lane and
+the cooperative self-test) are portable C++ behind CUDA's execution-space
+keywords, so the host compiler builds them here behind the stand-in
+tests/cuda_host/cuda_runtime.h, as tests/test_torch_bn254_field_host.py
+does for BN254. The host runs a group's rounds on one thread, each round's jobs
+first to last and last to first (`rev`): both orders must give the plain
+values, which a round reading another job's output of the same round
+would not. Held to Python ints and to the plain torch versions
+(ops/bls12_381_kernel.py): the field ops on edge operands (0, 1, p - 1, p,
+p + 1, 2p - 1) and seeded random ones below 2p, and the 13-bit layout's
+round trip; Fp2 mul/sqr/inv, Fp12 mul, Frobenius and inverse, the twist
+doubling and addition with their lines (points also held to the int
+group law); the serial formulas and the group's Fp12 squaring, sparse
+line product, cyclotomic squaring, product, inverse and Frobenius, and
+the binary Euclid inverse on the edge operands; the Miller body at a
+truncated loop against the plain version and, over the full |x|, against
 bls12_381_ref.miller_loop up to an Fp2 * w^(3k) monomial; the reduce lane
-against the plain halving product; the final-exp lane on the FULL
-program against bls12_381_ref.final_exponentiation_chain, with its
-identity verdict on a product that is one. Tolerance: exact words and
-limbs. The nvcc build is held to the same on the card
-(tests/test_torch_cuda.py, chip_smoke.py field_vs_ints and bls_vs_plain).
+against the plain halving product; the final-exp body on the FULL program
+against bls12_381_ref.final_exponentiation_chain, with its identity
+verdict on a product that is one. Tolerance: exact words and limbs. The
+nvcc build is held to the same on the card (tests/test_torch_cuda.py,
+chip_smoke.py field_vs_ints and bls_vs_plain).
 """
 
 import ctypes
@@ -52,7 +60,7 @@ using namespace bls381;
 
 static BlsConsts consts_of(const uint32_t* w) {
   BlsConsts k;
-  memcpy(&k, w, sizeof(k));
+  memcpy(&k, w, 4 * CONST_WORDS);
   return k;
 }
 
@@ -71,12 +79,27 @@ extern "C" void h_tower(const uint32_t* cases, const uint32_t* c, int n,
     tower_selftest(cases + NW * TOWER_IN * i, k, out + NW * TOWER_OUT * i);
 }
 
+// the cooperative bodies: one host thread runs each round's jobs, first
+// to last or (rev) last to first
 extern "C" void h_miller(const int* pts, const uint8_t* mask,
                          const uint32_t* c, int* out, int B, int lo, int hi,
-                         int nbits) {
+                         int nbits, int rev) {
   const BlsConsts k = consts_of(c);
+  static coop::MillerState<BlsTower> st;
+  const coop::Group g{0, 1, rev != 0};
   for (int i = 0; i < B; ++i)
-    miller_lane(pts, mask, B, i, (uint32_t)lo, (uint32_t)hi, nbits, k, out);
+    coop::miller_group<BlsTower>(g, st, pts, mask, B, i, (uint32_t)lo,
+                                 (uint32_t)hi, nbits, k, out);
+}
+
+extern "C" void h_coop(const uint32_t* cases, const uint32_t* c, int n,
+                       uint32_t* out, int rev) {
+  const BlsConsts k = consts_of(c);
+  static CoopState st;
+  const coop::Group g{0, 1, rev != 0};
+  for (int i = 0; i < n; ++i)
+    coop_selftest_group(g, st, cases + NW * COOP_IN * i, k,
+                        out + (NW * COOP_OUT + COOP_CYCLES) * i);
 }
 
 extern "C" void h_reduce(int* f, const uint32_t* c, int B) {
@@ -86,10 +109,14 @@ extern "C" void h_reduce(int* f, const uint32_t* c, int B) {
 }
 
 extern "C" void h_final_exp(const int* f, const uint32_t* c, const int* prog,
-                            int nrows, int* gt, uint8_t* ok, int B) {
+                            int nrows, int cyc_from, int* gt, uint8_t* ok,
+                            int B, int rev) {
   const BlsConsts k = consts_of(c);
+  static coop::FinalExpState<BlsTower> st;
+  const coop::Group g{0, 1, rev != 0};
   for (int i = 0; i < B; ++i)
-    final_exp_lane(f, B, i, prog, nrows, k, gt, ok);
+    coop::final_exp_group<BlsTower>(g, st, f, B, i, prog, nrows, cyc_from, k,
+                                    gt, ok);
 }
 """
 
@@ -222,7 +249,7 @@ def _pairs(seed, n):
     return out
 
 
-def _run_miller(core, staged, loop):
+def _run_miller(core, staged, loop, rev=0):
     pts = np.ascontiguousarray(np.stack(staged[:6]))
     mask = np.ascontiguousarray(staged[6].astype(np.uint8))
     B = pts.shape[1]
@@ -230,13 +257,17 @@ def _run_miller(core, staged, loop):
     bits = bin(loop)[3:]
     rest = int(bits, 2)
     _call(core.h_miller, pts, mask, CONSTS, out, B, rest & 0xFFFFFFFF,
-          rest >> 32, len(bits))
+          rest >> 32, len(bits), rev)
     return out
 
 
 def test_miller_lane_matches_plain_and_mask(core):
+    _check_miller_lane(core, 0)
+
+
+def _check_miller_lane(core, rev):
     staged = dev.stage_pairs(_pairs(382, 3))          # 4 lanes, 1 masked
-    out = _run_miller(core, staged, SMALL_LOOP)
+    out = _run_miller(core, staged, SMALL_LOOP, rev)
     st = dev.to_device(staged, "cpu")
     plain = dev.miller_loop_batch(st[0], st[1], ((st[2], st[3]),
                                                  (st[4], st[5])),
@@ -256,8 +287,12 @@ def _is_monomial_3k(el) -> bool:
 
 
 def test_full_miller_lane_matches_ref_up_to_monomial(core):
+    _check_full_miller(core, 0)
+
+
+def _check_full_miller(core, rev):
     pairs = _pairs(383, 2)
-    out = _run_miller(core, dev.stage_pairs(pairs), ref.X_BLS)
+    out = _run_miller(core, dev.stage_pairs(pairs), ref.X_BLS, rev)
     got = dev.f12_from_device(tower.f12_from_flat(torch.as_tensor(out)))
     for i, (p, q) in enumerate(pairs):
         ratio = ref.f12_mul(got[i], ref.f12_inv(ref.miller_loop(q, p)))
@@ -277,9 +312,23 @@ def test_reduce_lane_matches_plain(core):
 
 
 def test_final_exp_lane_full_program_matches_chain(core):
-    """The full HHT program on two lanes: a random Fp12 (GT value equal to
-    final_exponentiation_chain exactly) and a pairing product that is one
-    (e(sig, -G2) e(H(m), pk): verdict true)."""
+    """The full HHT program on two lanes, through the cooperative body
+    with its squarings cyclotomic from the easy part on: a random Fp12
+    (GT value equal to final_exponentiation_chain exactly) and a pairing
+    product that is one (e(sig, -G2) e(H(m), pk): verdict true)."""
+    _check_final_exp(core, 0)
+
+
+@pytest.mark.parametrize("body", ["miller", "full_miller", "final_exp"])
+def test_coop_bodies_in_reverse_job_order(core, body):
+    """The three tests above with every round's jobs run last to first:
+    the same values, so no job of a round reads what another job of it
+    writes."""
+    {"miller": _check_miller_lane, "full_miller": _check_full_miller,
+     "final_exp": _check_final_exp}[body](core, 1)
+
+
+def _check_final_exp(core, rev):
     rng = random.Random(385)
     sk, pk = ref.bls_keygen(b"host lane")
     sig = ref.bls_sign(sk, b"m")
@@ -295,8 +344,72 @@ def test_final_exp_lane_full_program_matches_chain(core):
     gt = np.zeros((12, 2, dev.L), np.int32)
     ok = np.zeros(2, np.uint8)
     _call(core.h_final_exp, np.ascontiguousarray(f), CONSTS,
-          np.ascontiguousarray(prog), len(prog), gt, ok, 2)
+          np.ascontiguousarray(prog), len(prog), dev.cyclotomic_row(prog),
+          gt, ok, 2, rev)
     got = dev.f12_from_device(tower.f12_from_flat(torch.as_tensor(gt)))
     assert got[0] == ref.final_exponentiation_chain(rnd)
     assert got[1] == ref.F12_ONE
     assert ok.tolist() == [0, 1]
+
+
+def _cyclotomic(f):
+    """f^((p^6 - 1)(p^2 + 1)): the easy part, into the cyclotomic
+    subgroup."""
+    m = ref.f12_mul(ref.f12_conj(f), ref.f12_inv(f))
+    return ref.f12_mul(ref._frob2(m), m)
+
+
+def _flat(el):
+    return [x for half in el for f2 in half for x in f2]
+
+
+def _coop_cases(seed):
+    """Cooperative self-test cases: x's first coefficient runs over the
+    edge operands (0 too: its inverse is 0), the rest seeded random."""
+    rng = random.Random(seed)
+    cases = []
+    for e in EDGES:
+        x = [e % P] + [rng.randrange(P) for _ in range(11)]
+        y = [rng.randrange(P) for _ in range(12)]
+        line = [rng.randrange(P) for _ in range(6)]
+        c = _cyclotomic(_f12([rng.randrange(P) for _ in range(12)], 0))
+        cases.append(x + y + line + _flat(c))
+    return cases
+
+
+@pytest.fixture(scope="module")
+def coop_cases():
+    """The cases, their words and the plain tower's rows (shared by both
+    orders)."""
+    cases = _coop_cases(386)
+    cw = np.stack([_words(c).reshape(-1) for c in cases])
+    return cases, cw, dev.coop_selftest_plain(
+        torch.from_numpy(cw.view(np.int32))).numpy()
+
+
+@pytest.mark.parametrize("rev", [0, 1])
+def test_coop_formulas_match_plain_and_ints(core, coop_cases, rev):
+    """The serial formulas (f12_sqr, f12_mul_line, f12_sqr_cyclotomic) and
+    the group's squaring, sparse line product, cyclotomic squaring,
+    product, inverse and Frobenius against the plain tower and the int
+    tower's dense product, inverse and Frobenius; the binary Euclid
+    inverse of x's first coefficient against Fermat's and pow(a, p - 2)
+    on the edge operands."""
+    cases, cw, want = coop_cases
+    out = np.zeros((len(cases), NW * dev.COOP_OUT + dev.COOP_CYCLES),
+                   np.uint32)
+    _call(core.h_coop, cw, CONSTS, len(cases), out, rev)
+    np.testing.assert_array_equal(out.astype(np.int64), want)
+    for row, vals in zip(out, cases):
+        v = _ints(row[:NW * dev.COOP_OUT])
+        x, y, c = _f12(vals, 0), _f12(vals, 12), _f12(vals, 30)
+        A, B, C = (tuple(vals[24 + 2 * i:26 + 2 * i]) for i in range(3))
+        line = ((C, B, ref.F2_ZERO), (ref.F2_ZERO, A, ref.F2_ZERO))
+        x2, xl, c2 = (ref.f12_mul(x, x), ref.f12_mul(x, line),
+                      ref.f12_mul(c, c))
+        for off, want_el in ((0, x2), (12, x2), (24, xl), (36, xl),
+                             (48, c2), (60, c2), (72, ref.f12_mul(x, y)),
+                             (84, ref.f12_inv(x)), (96, ref.f12_frob(x))):
+            assert _f12(v, off) == want_el, off
+        a = vals[0] % P
+        assert v[108] == v[109] == pow(a, P - 2, P)

@@ -883,6 +883,42 @@ def test_bls12_381_core_and_tower_match_ints(dev):
     assert torch.equal(got, blsk.tower_selftest_plain(cases))
 
 
+def test_bls12_381_coop_layer_matches_plain(dev):
+    """csrc/pairing_coop.cuh (a warp a case) and the serial formulas it
+    distributes: Fp12 squaring, the sparse line product, the cyclotomic
+    squaring (on a value past the easy part), the product, inverse and
+    Frobenius, and the binary Euclid inverse on 0, 1 and p - 1, against
+    the plain tower and Python ints."""
+    import random
+
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    lref = blsk.ref
+    P = lref.P
+    rng = random.Random(98)
+
+    def f12():
+        return tuple(tuple((rng.randrange(P), rng.randrange(P))
+                           for _ in range(3)) for _ in range(2))
+
+    def flat(el):
+        return [x for half in el for f2 in half for x in f2]
+    vals = []
+    for e in (0, 1, P - 1, rng.randrange(P)):
+        m = f12()
+        m = lref.f12_mul(lref.f12_conj(m), lref.f12_inv(m))
+        c = lref.f12_mul(lref._frob2(m), m)
+        vals.append([e] + flat(f12())[1:] + flat(f12())
+                    + flat(f12())[:6] + flat(c))
+    cases = torch.as_tensor(np.array(
+        [[(v >> (32 * i)) & 0xFFFFFFFF for v in row for i in range(12)]
+         for row in vals], dtype=np.uint32).view(np.int32))
+    got = blsk.coop_selftest(cases.to(dev)).cpu()
+    want = blsk.coop_selftest_plain(cases)
+    n = 12 * blsk.COOP_OUT
+    assert torch.equal(got[:, :n], want[:, :n])
+    assert bool((got[:, n:] > 0).all())            # both inverses' cycles
+
+
 def test_bls12_381_entries_match_plain(dev):
     """The Miller entry at a truncated loop (a masked lane among them),
     the reduce and the final-exp entry on a short program against their
