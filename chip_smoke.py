@@ -18,7 +18,9 @@ Phases, one JSON line each; any failure exits non-zero:
                    ptxas registers, stack and spills per kernel (stage
                    A's and the resident kernel's must have no stack and
                    no spills, the BLS12-381 Miller and final-exp entries
-                   no spills and a stack under 1 KB); the SASS mix
+                   no spills and a stack under 1 KB, the BN254 ones no
+                   spills in either layout and, 8 threads a lane, a
+                   stack under 1 KB); the SASS mix
   field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
                    (csrc/field_selftest.cu) against Python ints: mul, add,
                    sub and the 13-bit conversion on edge operands (0, 1,
@@ -33,12 +35,15 @@ Phases, one JSON line each; any failure exits non-zero:
                    p + 1, 2^255 - 1, 2^256 - 1 and random operands, and
                    ed_add/ed_dbl on B, the identity, a small-order point
                    and random points; BN254's core (csrc/bn254_field.cuh:
-                   mul, add, sub, inverse on 0, 1, p - 1, p, p + 1 and
-                   random operands below 2p) against Python ints, and its
-                   tower (csrc/bn254_tower.cuh: Fp2 mul/sqr/inv, Fp12 mul,
-                   Frobenius and inverse, the twist doubling and addition
-                   with their lines) against the plain tower and the
-                   bn254_ref ints; BLS12-381's 381-bit core
+                   mul, add, sub, Fermat's and the binary Euclid inverse
+                   on 0, 1, p - 1, p, p + 1 and random operands below 2p)
+                   against Python ints, its tower (csrc/bn254_tower.cuh:
+                   Fp2 mul/sqr/inv, Fp12 mul, Frobenius and inverse, the
+                   twist doubling and addition with their lines) against
+                   the plain tower and the bn254_ref ints, and the
+                   cooperative layer on it (its D-type line; the cases
+                   and clock counts as BLS12-381's below:
+                   bn254_coop_cycles); BLS12-381's 381-bit core
                    (csrc/bls12_381_field.cuh on 12 words: the same ops
                    and the 13-bit layout's round trip on 0, 1, p - 1, p,
                    p + 1, 2p - 1 and random operands below 2p) and its
@@ -230,7 +235,10 @@ Phases, one JSON line each; any failure exits non-zero:
                    samples of >= 256 lanes holding every bad lane (the sw
                    pairings run in the pool meanwhile), MSM points equal
                    bn254_ref.g2_msm on a sample and every subgroup lane
-                   psi(T~); one steady call of each under torch.profiler.
+                   psi(T~); one steady call of each under torch.profiler;
+                   the Miller and final-exp launches by layout
+                   (layout_launches: the block's bucket one thread a
+                   lane, bls_verify_batch's 1,024 lanes 8), each > 0.
   pairing_vs_plain the Miller entry (8,192 term lanes), the final-exp
                    entry (4,096 two-term products) and the MSM entry
                    (4,096 lanes) against their plain torch versions on the
@@ -242,13 +250,20 @@ Phases, one JSON line each; any failure exits non-zero:
                    of G2, all terms zero. Canonical values equal, verdicts
                    equal and the expected bitmap; the edges also held to
                    Python ints (Miller values through the final
-                   exponentiation, GT values, MSM points). Then each entry
-                   at the block's bucket: CUDA events against a bound from
-                   the least Fp products of each function (live lanes,
-                   cheapest published formulas: miller_products_min,
-                   final_exp_products_min, msm_products) and, beside it,
-                   one from the products the kernels execute
-                   (executed_bound_ms).
+                   exponentiation, GT values, MSM points); the Miller and
+                   final-exp entries in each layout (bn254.LAYOUTS). Then
+                   each layout at the width where bn254.layout picks it
+                   (the block's bucket, 32,768 Miller and 16,384
+                   final-exp lanes; bls_verify_batch's, 2,048 and 1,024)
+                   and the MSM at the bucket: CUDA events against a bound
+                   from the least Fp products of each function (live
+                   lanes, cheapest published formulas:
+                   miller_products_min, final_exp_products_min,
+                   msm_products) and, beside it, one from the products
+                   the kernels execute (executed_bound_ms; the layout's
+                   schedule, bn254.miller_products, final_exp_products),
+                   with the products one thread of a lane runs in series
+                   (chain_products) and the us per chained product.
   bls_span         one orderer identity's span of 1,023 BLS12-381 block
                    signatures from --seed (fabric_tpu/orderer/
                    blockwriter.py _self_verify's shape), signed in the
@@ -2318,22 +2333,17 @@ PAIRING_BAD_KINDS = ("sigma2_off", "q_other", "g2_swapped", "neg_sigma1")
 BLS_BAD_KINDS = ("wrong_msg", "sig_off", "none")
 PAIRING_LANES = 4096            # lanes held to the plain versions
 PAIRING_SAMPLE = 256            # lanes held to the sw provider, at least
-# Fp products of the pairing kernels as executed, counted from
-# csrc/bn254_tower.cuh and bn254_pairing.cuh: an Fp2 product is 3, an Fp12
-# product 3 Fp6 products of 9 Fp2 products (f^2 and f * line too); the
-# tangent step 16 Fp2 products and 2 Fp2-by-Fp scalings, the chord step 18
-# and 2, the doubling 9, the mixed addition 14, the Frobenius 5 Fp2
-# products; 1/f is four Fp6 products, the Fp6 inverse's 12 Fp2 products,
-# the Fp2 inverse's 4 products and Fermat's 253 squarings and 109
-# products. The MSM runs 254 doublings on every lane, pad lanes included.
-# These give `executed_bound_ms`, the reading "products executed".
+# Fp products as executed: the BN254 Miller and final-exp entries' from
+# their schedule (ops/bn254.py miller_products, final_exp_products: the
+# layout's rounds on csrc/pairing_coop.cuh, chain and executed); the MSM's
+# from csrc/bn254_tower.cuh: the doubling 7 Fp2 products and 2 complex
+# squarings (25 Fp products), the mixed addition 14 Fp2 products, 254
+# doublings on every lane, pad lanes included; the BLS12-381 reduce's
+# dense Fp12 product 81. These give `executed_bound_ms`, the reading
+# "products executed".
 F12_MUL_FP = 81
-DBL_LINE_FP = 16 * 3 + 4
-ADD_LINE_FP = 18 * 3 + 4
-G2_DBL_FP = 9 * 3
+G2_DBL_FP = 7 * 3 + 2 * 2
 G2_ADD_FP = 14 * 3
-FROB_FP = 5 * 3
-F12_INV_FP = 4 * 27 + 12 * 3 + 4 + 253 + 109
 # The functions' minimum, which `bound_ms` counts: the reference's
 # algorithms (the 6t+2 loop, its final-exponentiation chain, double-and-add
 # over the scalars' bits) at the cheapest published formulas, an Fp2
@@ -2368,31 +2378,12 @@ EASY_ROWS = 5                   # the program's easy part: no squaring
 BN_MUL_IMAD = 2 * 2 * 8 * 8
 
 
-def miller_products(loop: int, corrections: int = 2) -> int:
-    """Fp products one Miller lane executes (csrc/bn254_pairing.cuh,
-    bls12_381_pairing.cuh): per step f^2, the tangent step and f * line;
-    per set bit, and after the loop once per correction step (BN254's two,
-    none for BLS12-381), the chord step and f * line."""
-    bits = bin(loop)[3:]
-    return (len(bits) * (2 * F12_MUL_FP + DBL_LINE_FP)
-            + (bits.count("1") + corrections) * (ADD_LINE_FP + F12_MUL_FP))
-
-
 def miller_products_min(loop: int, corrections: int = 2) -> int:
     """The least Fp products of one Miller value (see F12_MUL_MIN)."""
     bits = bin(loop)[3:]
     return (DBL_LINE_MIN + (len(bits) - 1) * (F12_SQR_MIN + DBL_LINE_MIN
                                               + SPARSE_MIN)
             + (bits.count("1") + corrections) * (ADD_LINE_MIN + SPARSE_MIN))
-
-
-def final_exp_products(program, nterms: int, inv: int = F12_INV_FP) -> int:
-    """Fp products one final-exp lane executes: the terms' product, 1/f
-    (`inv` products), the program's Fp12 products and Frobenius maps."""
-    ops = np.asarray(program)[:, 0]
-    return ((nterms - 1) * F12_MUL_FP + inv
-            + int((ops == 0).sum()) * F12_MUL_FP
-            + int((ops == 2).sum()) * FROB_FP)
 
 
 def final_exp_products_min(program, nterms: int,
@@ -2619,6 +2610,10 @@ def pairing_path(iblk, prov, card, pool, nproc):
                                                    iblk["msgs"],
                                                    iblk["sigs"]))}
     out = {}
+    # the pairing entries' launches by layout over the path's calls
+    from fabric_tpu_torch.ops import bn254
+    for k in bn254.layout_launches:
+        bn254.layout_launches[k] = 0
     for name, (need, fn) in calls.items():
         out[name], counts[name], delta, secs = counted(prov, name, need, fn)
         rec[f"{name}_s"] = secs
@@ -2664,11 +2659,17 @@ def pairing_path(iblk, prov, card, pool, nproc):
           "bls_verify_batch != sw on the sample")
     check([msm[i] for i in msm_sample] == ref_msm,
           "g2_msm_batch != bn254_ref.g2_msm on the sample")
+    layouts = {f"{e}_{g}": v for (e, g), v in bn254.layout_launches.items()}
+    for e in ("miller", "final_exp"):
+        for g in bn254.LAYOUTS:
+            check(layouts[f"{e}_{g}"] > 0,
+                  f"the {e} entry's {g}-thread layout never launched")
     rec.update(sample_vs_sw=len(ps_sample), bls_sample_vs_sw=len(bls_sample),
                msm_sample_vs_ref=len(msm_sample),
-               pairings_per_s=n / rec["pairing_check_batch_s"])
+               pairings_per_s=n / rec["pairing_check_batch_s"],
+               layout_launches=layouts)
     emit(rec)
-    return counts
+    return counts, layouts
 
 
 def pairing_edges():
@@ -2734,19 +2735,23 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     mst = (torch.cat(xPs), torch.cat(yPs), cat_pt(Qs), cat_pt(Q1s),
            cat_pt(nQ2s))
     res = {}
-    f_k = tower.flat_from_f12(bn254.miller_loop_batch(*mst))
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     f_p = F.canonical(tower.flat_from_f12(bn254.miller_loop_plain(*mst)))
     e1.record()
     torch.cuda.synchronize()
-    err = int((f_k - f_p).abs().max())
-    check(err == 0, "Miller entry != plain at lanes "
-          f"{torch.nonzero((f_k != f_p).any(0).any(-1))[:10].tolist()}")
-    res["miller"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
-                         lanes_vs_plain=2 * PAIRING_LANES)
+    plain_ms = e0.elapsed_time(e1)
+    # each layout the launcher picks for an entry, held to the plain
+    # version at full length (res keys (entry, threads a lane))
+    for g in bn254.LAYOUTS:
+        f_k = tower.flat_from_f12(bn254.miller_loop_batch(*mst, group=g))
+        err = int((f_k - f_p).abs().max())
+        check(err == 0, f"Miller entry ({g} threads a lane) != plain at "
+              "lanes "
+              f"{torch.nonzero((f_k != f_p).any(0).any(-1))[:10].tolist()}")
+        res["miller", g] = dict(max_abs_err=err, plain_ms=plain_ms,
+                                lanes_vs_plain=2 * PAIRING_LANES)
     prog = bn254._FINAL_EXP_PROGRAM
-    gt_k, ok_k = bn254._final_exp_kernel(f_k, 2, PAIRING_LANES, prog)
     e0.record()
     prod = bn254.f12_mul(tower.f12_from_flat(f_p[:, :PAIRING_LANES]),
                          tower.f12_from_flat(f_p[:, PAIRING_LANES:]))
@@ -2755,14 +2760,18 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     e1.record()
     gt_p = F.canonical(tower.flat_from_f12(gt_p))
     torch.cuda.synchronize()
-    err = int((gt_k - gt_p).abs().max())
-    check(err == 0, "final-exp entry != plain")
-    check(torch.equal(ok_k, ok_p), "final-exp verdicts != plain")
-    check(bool((ok_k.cpu().numpy() == want_ok).all()),
-          "final-exp verdicts != expected at "
-          f"{np.nonzero(ok_k.cpu().numpy() != want_ok)[0][:10].tolist()}")
-    res["final_exp"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
-                            lanes_vs_plain=PAIRING_LANES)
+    plain_ms = e0.elapsed_time(e1)
+    for g in bn254.LAYOUTS:
+        gt_k, ok_k = bn254._final_exp_kernel(f_k, 2, PAIRING_LANES, prog,
+                                             group=g)
+        err = int((gt_k - gt_p).abs().max())
+        check(err == 0, f"final-exp entry ({g} threads a lane) != plain")
+        check(torch.equal(ok_k, ok_p), "final-exp verdicts != plain")
+        check(bool((ok_k.cpu().numpy() == want_ok).all()),
+              "final-exp verdicts != expected at "
+              f"{np.nonzero(ok_k.cpu().numpy() != want_ok)[0][:10].tolist()}")
+        res["final_exp", g] = dict(max_abs_err=err, plain_ms=plain_ms,
+                                   lanes_vs_plain=PAIRING_LANES)
     # the edge lanes against Python ints: each term's Miller value through
     # the final exponentiation, and each product's GT
     f_e = bn254.f12_from_device(tower.f12_from_flat(
@@ -2799,31 +2808,53 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
           and got_edges[5] == b.g2_frobenius_fast((b.G2_X, b.G2_Y)),
           "MSM edges: T + (-T) or the zero lane not at infinity, or G2 "
           "outside the subgroup")
-    res["msm"] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
-                      lanes_vs_plain=PAIRING_LANES)
+    res["msm", 1] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+                         lanes_vs_plain=PAIRING_LANES)
     gt_ints = [v for part in gt_ints.get() for v in part]
     check(all(gt_ints), f"pairing edges != Python ints: "
           f"{[j for j, v in enumerate(gt_ints) if not v]}")
 
-    # times at the block's bucket
+    # times: each layout at the width where the launcher picks it, the
+    # block's bucket (16,384 products: 32,768 Miller lanes) or
+    # bls_verify_batch's (BLS_LANES products), with the products one
+    # thread of a lane's group runs in series (chain_products)
     bucket = 1
     while bucket < PS_LANES:
         bucket *= 2
-    reps = max(1, bucket // PAIRING_LANES)     # 2 x bucket Miller lanes
-    big = tuple(torch.cat([x] * reps) if isinstance(x, torch.Tensor)
-                else tuple(tuple(torch.cat([c] * reps) for c in xy)
-                           for xy in x) for x in mst)
-    B2 = big[0].shape[0]
-    ms = cuda_ms(lambda: bn254.miller_loop_batch(*big), 3)
-    f_big = tower.flat_from_f12(bn254.miller_loop_batch(*big))
-    res["miller"].update(lanes_timed=B2, **bn_reading(
-        ms, B2 * miller_products_min(b.ATE_LOOP),
-        B2 * miller_products(b.ATE_LOOP), B2 * (14 + 12) * L * 4))
-    Bf = B2 // 2
-    ms = cuda_ms(lambda: bn254._final_exp_kernel(f_big, 2, Bf, prog), 3)
-    res["final_exp"].update(lanes_timed=Bf, **bn_reading(
-        ms, Bf * final_exp_products_min(prog, 2),
-        Bf * final_exp_products(prog, 2), Bf * (24 + 12) * L * 4 + Bf))
+
+    def tiled(n):
+        """mst's two terms each tiled to n products (term t at column
+        t * n + lane)."""
+        def one(x):
+            return torch.cat([torch.cat([x[t * PAIRING_LANES:(t + 1)
+                                           * PAIRING_LANES]]
+                                        * -(-n // PAIRING_LANES))[:n]
+                              for t in range(2)])
+        return tuple(one(x) if isinstance(x, torch.Tensor) else
+                     tuple(tuple(one(c) for c in xy) for xy in x)
+                     for x in mst)
+    for n_prod in (bucket, BLS_LANES):
+        big2 = tiled(n_prod)
+        B2 = 2 * n_prod
+        g = bn254.layout(B2)
+        ms = cuda_ms(lambda: bn254.miller_loop_batch(*big2), 3)
+        chain, executed = bn254.miller_products(group=g)
+        res["miller", g].update(
+            lanes_timed=B2, chain_products=chain,
+            us_per_chained_product=ms * 1e3 / chain, **bn_reading(
+                ms, B2 * miller_products_min(b.ATE_LOOP), B2 * executed,
+                B2 * (14 + 12) * L * 4))
+        f_big = tower.flat_from_f12(bn254.miller_loop_batch(*big2))
+        g = bn254.layout(n_prod)
+        ms = cuda_ms(lambda: bn254._final_exp_kernel(f_big, 2, n_prod,
+                                                     prog), 3)
+        chain, executed = bn254.final_exp_products(prog, 2, group=g)
+        res["final_exp", g].update(
+            lanes_timed=n_prod, chain_products=chain,
+            us_per_chained_product=ms * 1e3 / chain,
+            cyclotomic_row=bn254.cyclotomic_row(prog), **bn_reading(
+                ms, n_prod * final_exp_products_min(prog, 2),
+                n_prod * executed, n_prod * (24 + 12) * L * 4 + n_prod))
     kw_b, qf_b = bn254.stage_g2_msm_words(iblk["msm"] + [[(0, None)] * 3] * (
         2 * bucket - len(iblk["msm"])))
     kt_b = torch.as_tensor(kw_b.view(np.int32)).to(dev)
@@ -2831,17 +2862,32 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     ms = cuda_ms(lambda: bn254.g2_msm(kt_b, *qt_b), 3)
     Bm = kt_b.shape[0]
     executed, least, live = msm_products(kw_b, bn254.NBITS_R)
-    res["msm"].update(lanes_timed=Bm, live_lanes=live, **bn_reading(
+    res["msm", 1].update(lanes_timed=Bm, live_lanes=live, **bn_reading(
         ms, least, executed, Bm * (3 * 32 + 12 * L * 4 + 6 * L * 4)))
-    for entry, r in res.items():
+    for (entry, g), r in res.items():
         # milliseconds a call: events time the card (see ladder_vs_plain)
         r["ms_from"] = "cuda_events"
+        r["ptxas"] = ptxas_of(*BN_KERNELS[entry, g])
         emit({"phase": "pairing_vs_plain", "entry": entry, "ok": True,
-              "card": card, **({"edge_products": [k for k, _ in edges]}
-                               if entry != "msm" else
-                               {"edge_lanes": [k for k, _ in medges]}),
-              **r})
+              "threads_a_lane": g, "card": card,
+              **({"edge_products": [k for k, _ in edges]}
+                 if entry != "msm" else
+                 {"edge_lanes": [k for k, _ in medges]}), **r})
     return res
+
+
+# each BN254 entry's wrapper and the JAX function it replaces
+BN_NAMES = {"miller": ("bn254.miller_loop_batch",
+                       "fabric_tpu/ops/bn254.py:137"),
+            "final_exp": ("bn254.final_exp_batch (product of the terms)",
+                          "fabric_tpu/ops/bn254.py:251"),
+            "msm": ("bn254.g2_msm", "fabric_tpu/ops/bn254.py:332")}
+# (library, kernel) of each BN254 entry by threads a lane
+BN_KERNELS = {("miller", 1): ("bn254_pairing", "bn254_miller_kernel"),
+              ("final_exp", 1): ("bn254_pairing", "bn254_final_exp_kernel"),
+              ("msm", 1): ("g2_msm", "g2_msm_kernel"),
+              **{(e, g): ("bn254_pairing", f"bn254_{e}_coop_kernel<{g}>")
+                 for e in ("miller", "final_exp") for g in (8,)}}
 
 
 # -- BLS12-381: the orderer's aggregate verify --
@@ -3338,13 +3384,12 @@ def bls_tower_int_misses(case, row) -> list[str]:
     return [k for k, (g, w) in want.items() if g != w]
 
 
-def bls_coop_cases(rng, n: int):
-    """Cooperative self-test cases (42 plain values: x, y in Fp12, a
-    line's A, B, C, and c in the cyclotomic subgroup, the easy part of a
-    random value): x's first coefficient 0, 1 and p - 1 in the first three
-    (the binary Euclid inverse's edges), random after."""
-    from fabric_tpu_torch.ops import bls12_381_ref as b
-
+def coop_cases(rng, n: int, b):
+    """Cooperative self-test cases on curve `b` (bls12_381_ref or
+    bn254_ref; 42 plain values: x, y in Fp12, a line's A, B, C, and c in
+    the cyclotomic subgroup, the easy part of a random value): x's first
+    coefficient 0, 1 and p - 1 in the first three (the binary Euclid
+    inverse's edges), random after."""
     def fp():
         return int.from_bytes(rng.bytes(48), "big") % b.P
 
@@ -3358,25 +3403,25 @@ def bls_coop_cases(rng, n: int):
     for i in range(n):
         m = f12()
         m = b.f12_mul(b.f12_conj(m), b.f12_inv(m))
-        c = b.f12_mul(b._frob2(m), m)
+        c = b.f12_mul(b.f12_frob(b.f12_frob(m)), m)
         x = flat(f12())
         x[0] = (0, 1, b.P - 1)[i] if i < 3 else x[0]
         cases.append(x + flat(f12()) + flat(f12())[:6] + flat(c))
     return cases
 
 
-def bls_coop_int_misses(vals, row) -> list[str]:
-    """The cooperative self-test's 110 outputs against the int tower: the
-    names of the outputs that differ."""
-    from fabric_tpu_torch.ops import bls12_381_ref as b
-
+def coop_int_misses(vals, row, b, mtype: bool) -> list[str]:
+    """The cooperative self-test's 110 outputs against curve `b`'s int
+    tower (its line M-type, slots w^0, w^2, w^3, or D-type, w^0, w^1,
+    w^3): the names of the outputs that differ."""
     def f12(v, o):
         return (tuple(tuple(v[o + 2 * j:o + 2 * j + 2]) for j in range(3)),
                 tuple(tuple(v[o + 6 + 2 * j:o + 8 + 2 * j])
                       for j in range(3)))
     x, y, c = f12(vals, 0), f12(vals, 12), f12(vals, 30)
     A, B, C = (tuple(vals[24 + 2 * i:26 + 2 * i]) for i in range(3))
-    line = ((C, B, b.F2_ZERO), (b.F2_ZERO, A, b.F2_ZERO))
+    line = (((C, B, b.F2_ZERO), (b.F2_ZERO, A, b.F2_ZERO)) if mtype else
+            ((A, b.F2_ZERO, b.F2_ZERO), (B, C, b.F2_ZERO)))
     want = {"f12_sqr": (0, b.f12_mul(x, x)), "coop_sqr": (12, b.f12_mul(x, x)),
             "f12_mul_line": (24, b.f12_mul(x, line)),
             "coop_mul_line": (36, b.f12_mul(x, line)),
@@ -3576,6 +3621,23 @@ def field_vs_ints(card, seed: int) -> None:
     misses = [bn_tower_int_misses(case, limb.words_to_ints(row))
               for case, row in zip(t_cases, got_t.numpy())]
     check(not any(misses), f"BN254 tower != Python ints: {misses}")
+    # the cooperative layer on BN254's tower (a warp a case: its D-type
+    # line) and the serial formulas it distributes, with clock cycles
+    bco_cases = coop_cases(rng, 8, bref)
+    cw = words(v for vals in bco_cases for v in vals).reshape(
+        len(bco_cases), -1)
+    got_bco = bn254.coop_selftest(cw.cuda()).cpu()
+    want_bco = bn254.coop_selftest_plain(cw)
+    nwb = 8 * bn254.COOP_OUT
+    bad_bco = int((got_bco[:, :nwb] != want_bco[:, :nwb]).any(dim=1).sum())
+    check(bad_bco == 0, f"BN254 cooperative layer != the plain tower on "
+          f"{bad_bco} cases")
+    misses = [coop_int_misses(case, limb.words_to_ints(row[:nwb]), bref,
+                              False)
+              for case, row in zip(bco_cases, got_bco.numpy())]
+    check(not any(misses), f"BN254 cooperative layer != Python ints: "
+          f"{misses}")
+    bn_cycles = np.median(got_bco[:, nwb:].numpy(), axis=0)
 
     # BLS12-381's 381-bit core and tower (csrc/bls12_381_field.cuh,
     # bls12_381_tower.cuh), on 12-word values
@@ -3610,7 +3672,7 @@ def field_vs_ints(card, seed: int) -> None:
     # the cooperative layer (csrc/pairing_coop.cuh, a warp a case) and
     # the serial formulas it distributes; the clock cycles of the two Fp
     # inverses on one thread
-    co_cases = bls_coop_cases(rng, 8)
+    co_cases = coop_cases(rng, 8, blsk.ref)
     cw = words12(v for vals in co_cases for v in vals).reshape(
         len(co_cases), -1)
     got_co = blsk.coop_selftest(cw.cuda()).cpu()
@@ -3619,7 +3681,8 @@ def field_vs_ints(card, seed: int) -> None:
     bad_co = int((got_co[:, :nw] != want_co[:, :nw]).any(dim=1).sum())
     check(bad_co == 0, f"BLS12-381 cooperative layer != the plain tower on "
           f"{bad_co} cases")
-    misses = [bls_coop_int_misses(case, limb.words_to_ints(row[:nw], 12))
+    misses = [coop_int_misses(case, limb.words_to_ints(row[:nw], 12),
+                              blsk.ref, True)
               for case, row in zip(co_cases, got_co.numpy())]
     check(not any(misses), f"BLS12-381 cooperative layer != Python ints: "
           f"{misses}")
@@ -3629,6 +3692,9 @@ def field_vs_ints(card, seed: int) -> None:
           "modn_cases": len(cases), "dbl_cases": len(dbl),
           "f25_cases": len(f_pairs), "ed_cases": len(e_cases),
           "bn254_fp_cases": len(b_pairs), "bn254_tower_cases": len(t_cases),
+          "bn254_coop_cases": len(bco_cases),
+          "bn254_coop_cycles": dict(zip(bn254.COOP_CYCLE_NAMES,
+                                        map(int, bn_cycles))),
           "bls12_381_fp_cases": len(l_pairs),
           "bls12_381_tower_cases": len(lt_cases),
           "bls12_381_coop_cases": len(co_cases),
@@ -3741,7 +3807,7 @@ def drive(args, pool, nproc, card):
           "msm_lanes": len(iblk["msm"]), "bls_lanes": BLS_LANES,
           "make_s": iblk["make_s"]})
     provp = factory.new_bccsp({"Default": "CUDA"})
-    cp = pairing_path(iblk, provp, card, pool, nproc)
+    cp, cp_layouts = pairing_path(iblk, provp, card, pool, nproc)
     pvp = pairing_vs_plain(iblk, provp, card, pool, nproc)
     # BLS12-381: an orderer's span of block signatures, aggregated
     span = make_bls_span(args.seed, pool, nproc)
@@ -3811,20 +3877,11 @@ def drive(args, pool, nproc, card):
              source=src + "ed25519_verify.cu",
              replaces="fabric_tpu/ops/ed25519.py:264",
              launches=ced[ED], **edr),
-        dict(name="bn254.miller_loop_batch", source=src + "bn254_pairing.cu",
-             replaces="fabric_tpu/ops/bn254.py:137",
-             launches=n(cp, MILLER),
-             ptxas=ptxas_of("bn254_pairing", "bn254_miller_kernel"),
-             **pvp["miller"]),
-        dict(name="bn254.final_exp_batch (product of the terms)",
-             source=src + "bn254_pairing.cu",
-             replaces="fabric_tpu/ops/bn254.py:251",
-             launches=n(cp, FINAL_EXP),
-             ptxas=ptxas_of("bn254_pairing", "bn254_final_exp_kernel"),
-             **pvp["final_exp"]),
-        dict(name="bn254.g2_msm", source=src + "g2_msm.cu",
-             replaces="fabric_tpu/ops/bn254.py:332", launches=n(cp, MSM),
-             ptxas=ptxas_of("g2_msm", "g2_msm_kernel"), **pvp["msm"]),
+        *[dict(name=f"{BN_NAMES[e][0]} ({g} thread{'s' * (g > 1)} a lane)",
+               source=src + BN_KERNELS[e, g][0] + ".cu",
+               replaces=BN_NAMES[e][1],
+               launches=n(cp, MSM) if e == "msm" else cp_layouts[f"{e}_{g}"],
+               **r) for (e, g), r in pvp.items()],
         dict(name="bls12_381.miller_loop_batch",
              source=src + "bls12_381_pairing.cu",
              replaces="fabric_tpu/ops/bls12_381_kernel.py:87",
@@ -3930,6 +3987,16 @@ def main() -> int:
         check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
               and rep.get("stack", 1 << 20) < 1024,
               f"ptxas: {fn} spills or has a stack of 1 KB or more: {rep}")
+    # the BN254 entries' layouts the launcher picks: no spills, and the
+    # cooperative ones (state in shared memory) a stack under 1 KB
+    from fabric_tpu_torch.ops import bn254
+    for e in ("miller", "final_exp"):
+        for g in bn254.LAYOUTS:
+            rep = ptxas_of(*BN_KERNELS[e, g])
+            check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0
+                  and (g == 1 or rep.get("stack", 1 << 20) < 1024),
+                  f"ptxas: {BN_KERNELS[e, g][1]} spills or (a cooperative "
+                  f"layout) has a stack of 1 KB or more: {rep}")
 
     nproc = os.cpu_count() or 1
     with mp.get_context("spawn").Pool(nproc) as pool:

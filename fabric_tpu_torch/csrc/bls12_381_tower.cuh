@@ -654,18 +654,20 @@ __device__ __noinline__ void g2_add_line(G2P& T, Fp12& l, const G2A& Q,
 }
 
 // The tower's traits for the cooperative layer (pairing_coop.cuh): its
-// types and its formulas' product counts; the layer finds the functions
-// above through these types.
+// types, its formulas' product counts and the Miller loop's one point;
+// the layer finds the functions above through these types.
 struct BlsTower {
   using Fp = bls381::Fp;
   using Fp2 = bls381::Fp2;
   using Fp6 = bls381::Fp6;
   using Fp12 = bls381::Fp12;
   using Consts = BlsConsts;
+  static constexpr int NW = bls381::NW;
   static constexpr int SQR_PRODS = bls381::SQR_PRODS;
   static constexpr int MUL_PRODS = bls381::MUL_PRODS;
   static constexpr int LINE_PRODS = bls381::LINE_PRODS;
   static constexpr int CYC_PRODS = bls381::CYC_PRODS;
+  static constexpr int MILLER_POINTS = 1;
 };
 
 // -- loads and stores in the plain version's layout --

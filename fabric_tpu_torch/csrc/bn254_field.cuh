@@ -13,7 +13,9 @@
 //     on a borrow: both keep values below 2p;
 //   * fp_canonical (one conditional subtraction of p) gives [0, p), for
 //     compares and stores only;
-//   * fp_inv is Fermat's x^(p-2) by square-and-multiply over p - 2's bits.
+//   * fp_inv is Fermat's x^(p-2) by square-and-multiply over p - 2's bits;
+//     fp_inv_binary the binary extended Euclid algorithm (variable time,
+//     far fewer cycles on the card: the final exponentiation's 1/f).
 // The kernels' operands arrive as the plain torch version's 13-bit limbs in
 // Montgomery form for R = 2^260 (ops/mont.py, values below 2p):
 // fp_load13 packs them into words, and a product by 2^252 mod p moves a
@@ -31,8 +33,10 @@
 #include <stdint.h>
 
 namespace {
+namespace bn254 {
 
-struct Fp {
+// 16-byte aligned: shared-memory operands load and store as 128-bit words
+struct alignas(16) Fp {
   uint32_t w[8];
 };
 
@@ -179,6 +183,94 @@ __device__ __noinline__ void fp_inv(Fp& out, const Fp& x) {
   out = acc;
 }
 
+__device__ __forceinline__ bool w_is_one(const Fp& a) {
+  uint32_t acc = a.w[0] ^ 1u;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) acc |= a.w[i];
+  return acc == 0;
+}
+
+// a >= b as 256-bit integers
+__device__ __forceinline__ bool w_geq(const Fp& a, const Fp& b) {
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    br = (static_cast<int64_t>(a.w[i]) - b.w[i] + br) >> 32;
+  return br == 0;
+}
+
+// a - b (a >= b)
+__device__ __forceinline__ void w_sub(Fp& a, const Fp& b) {
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t d = static_cast<int64_t>(a.w[i]) - b.w[i] + br;
+    a.w[i] = static_cast<uint32_t>(d);
+    br = d >> 32;
+  }
+}
+
+__device__ __forceinline__ void w_half(Fp& a) {
+#pragma unroll
+  for (int i = 0; i < 7; ++i) a.w[i] = (a.w[i] >> 1) | (a.w[i + 1] << 31);
+  a.w[7] >>= 1;
+}
+
+// a / 2 mod p for a < p: (a + p) / 2 when a is odd (a + p < 2^255)
+__device__ __forceinline__ void w_half_mod(Fp& a) {
+  const uint32_t odd = a.w[0] & 1u ? 0xFFFFFFFFu : 0u;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c += static_cast<uint64_t>(a.w[i]) + (bn_p_word(i) & odd);
+    a.w[i] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  w_half(a);
+}
+
+// x^-1 for x in Montgomery form (below 2p; 0 for 0, as fp_inv): the
+// binary extended Euclid algorithm on a = x mod p and p (Hankerson,
+// Menezes, Vanstone, Alg. 2.22), keeping u = x1 a and v = x2 a mod p, then
+// two products by R^2 move a^-1 = x^-1 R^-1 to x^-1 R. Variable time: its
+// input is public (a product of pairings). At most 2 * 254 halvings and
+// as many subtractions; the bound on the rounds only guards the card
+// against a value it was never meant to see.
+__device__ __noinline__ void fp_inv_binary(Fp& out, const Fp& x,
+                                           const Fp& r2) {
+  Fp u = fp_canonical(x), v, x1 = fp_zero(), x2 = fp_zero();
+  if (fp_eq_words(u, fp_zero())) {
+    out = u;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v.w[i] = bn_p_word(i);
+  x1.w[0] = 1u;
+  for (int round = 0; round < 4 * 256 && !w_is_one(u) && !w_is_one(v);
+       ++round) {
+    while (!(u.w[0] & 1u)) {
+      w_half(u);
+      w_half_mod(x1);
+    }
+    while (!(v.w[0] & 1u)) {
+      w_half(v);
+      w_half_mod(x2);
+    }
+    if (w_geq(u, v)) {
+      w_sub(u, v);
+      x1 = fp_canonical(fp_sub(x1, x2));
+    } else {
+      w_sub(v, u);
+      x2 = fp_canonical(fp_sub(x2, x1));
+    }
+    // u = v happens only at u = v = 1 (gcd(a, p) = 1); a zero would
+    // never turn odd
+    if (fp_eq_words(u, fp_zero()) || fp_eq_words(v, fp_zero())) break;
+  }
+  const Fp inv = w_is_one(u) ? x1 : x2;
+  out = fp_mul(fp_mul(inv, r2), r2);
+}
+
 // 20 13-bit limbs (any value below 2^256, limbs up to 2^13) -> words
 __device__ __forceinline__ Fp fp_load13(const int* __restrict__ src) {
   Fp r;
@@ -212,7 +304,8 @@ __device__ __forceinline__ void fp_store13(int* dst, const Fp& x) {
 // The self-test's per-case body (bn254_pairing.cu on the card, the host
 // build in the tests): a, b plain values below 2p as 8 words, r2 = 2^512
 // mod p -> out[0:8] a mod p, [8:16] a + b, [16:24] a - b, [24:32] a * b,
-// [32:40] a^-1 (0 for 0), canonical plain words.
+// [32:40] a^-1 (0 for 0; Fermat's), [40:48] a^-1 by the binary Euclid
+// algorithm, canonical plain words.
 __device__ __forceinline__ void bn_fp_selftest(const uint32_t* a32,
                                                const uint32_t* b32,
                                                const Fp& r2, uint32_t* out) {
@@ -224,16 +317,19 @@ __device__ __forceinline__ void bn_fp_selftest(const uint32_t* a32,
     b.w[i] = b32[i];
   }
   const Fp am = fp_mul(a, r2), bm = fp_mul(b, r2);
-  Fp inv;
+  Fp inv, inv_b;
   fp_inv(inv, am);
-  const Fp res[5] = {fp_canonical(a), fp_canonical(fp_mul(fp_add(am, bm), one)),
+  fp_inv_binary(inv_b, am, r2);
+  const Fp res[6] = {fp_canonical(a), fp_canonical(fp_mul(fp_add(am, bm), one)),
                      fp_canonical(fp_mul(fp_sub(am, bm), one)),
                      fp_canonical(fp_mul(fp_mul(am, bm), one)),
-                     fp_canonical(fp_mul(inv, one))};
+                     fp_canonical(fp_mul(inv, one)),
+                     fp_canonical(fp_mul(inv_b, one))};
 #pragma unroll
-  for (int k = 0; k < 5; ++k)
+  for (int k = 0; k < 6; ++k)
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[8 * k + i] = res[k].w[i];
 }
 
+}  // namespace bn254
 }  // namespace

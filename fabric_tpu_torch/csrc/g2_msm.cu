@@ -18,8 +18,9 @@
 // set bits of the run's scalars for its bound). The scalars and points are ~400 bytes a lane.
 //
 // The design, a simple first kernel: one thread per lane on the tower's
-// twist steps (bn254_tower.cuh), the points converted once into local
-// memory, the scalars read as words from global memory at each bit. Each
+// twist steps (bn254_tower.cuh, its Fp2 bodies out of line with operands
+// by value), the points converted once into local memory, the scalars
+// read as words from global memory at each bit. Each
 // lane adds where its own bit is set: a branch, so a warp runs an addition
 // when any of its lanes needs it (with random scalars nearly always), and
 // the result is the point fabric_tpu's masked select gives.
@@ -31,6 +32,8 @@
 
 namespace {
 
+using namespace bn254;
+
 constexpr int THREADS = 64;
 
 __global__ void __launch_bounds__(THREADS)
@@ -38,7 +41,7 @@ g2_msm_kernel(const uint32_t* __restrict__ kw, const int* __restrict__ q,
               const uint32_t* __restrict__ consts, int* __restrict__ out,
               int B, int nterms, int nbits) {
   __shared__ BnConsts k;
-  bn_consts_load(k, consts, threadIdx.x, blockDim.x);
+  consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;

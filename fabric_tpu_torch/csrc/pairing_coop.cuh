@@ -1,14 +1,16 @@
 // The pairing kernels' cooperative layer: one lane (a Miller value, a
-// final exponentiation) over a warp, its operands in shared memory, each
-// Fp12 operation's independent products spread over the warp's threads in
-// rounds.
+// final exponentiation) over a group of threads (a warp, or a part of
+// one), its operands in shared memory, each Fp12 operation's independent
+// products spread over the group's threads in rounds.
 //
 // A round is `g.each(count, job)`: thread t of the group runs jobs t,
 // t + n, t + 2n, ... of it, each job a function of its index over the
 // shared operands, and `g.sync()` ends the round. A job reads nothing that
 // another job of its round writes, so any order of the jobs gives the
-// same values: on the card the 32 threads of a warp run them at once,
-// rounds separated by __syncwarp(); the host build
+// same values: on the card the n threads of a group run them at once,
+// rounds separated by __syncwarp() (a warp of 32 / n groups runs every
+// round of its groups in step: the same job indices, the same bits and
+// program rows, so one path); the host build
 // (tests/cuda_host/cuda_runtime.h, where __syncwarp does nothing) runs
 // each round as a loop over the job indices on one thread, first to last
 // and, with `rev`, last to first, and the tests hold both orders to the
@@ -26,15 +28,18 @@
 // job (terms, then coefficients: bls12_381_tower.cuh).
 //
 // Generic over the curve: the templates take a tower's traits `Tw` (its
-// field core's types Fp, Fp2, Fp6, Fp12, its constants type Consts and
-// its formulas' product counts; BlsTower), and call the tower's
-// functions unqualified, found through their argument types' namespace
-// (bls12_381_tower.cuh: fp2_part, f2_from_parts, f2_add, ..., the
-// formulas' operands, terms and coefficients: sqr_operands,
-// mul_operands, line_operands, cyc_operand, frob_operands, f6k_term,
-// line_term, kara_coef, sqr_coef, cyc_coef, f6k_operands/f6k_coef, and
-// fp_load, fp_store, f2_inv_binary). Instantiated for BLS12-381
-// (bls12_381_pairing.cu).
+// field core's types Fp, Fp2, Fp6, Fp12, its constants type Consts, its
+// words a value NW, its formulas' product counts and its Miller loop's
+// points: BlsTower, BnTower), and call the tower's functions unqualified,
+// found through their argument types' namespace (bls12_381_tower.cuh,
+// bn254_tower.cuh: fp2_part, f2_from_parts, f2_add, ..., the formulas'
+// operands, terms and coefficients: sqr_operands, mul_operands,
+// line_operands, cyc_operand, frob_operands, f6k_term, line_term,
+// kara_coef, sqr_coef, cyc_coef, f6k_operands/f6k_coef, and fp_load,
+// fp_store, f2_inv_binary, fp_to_plain). The line's placement (BLS12-381's
+// M-type, BN254's D-type) lives in its tower's line_operands and
+// line_term. Instantiated for BLS12-381 (bls12_381_pairing.cu) and BN254
+// (bn254_pairing.cu).
 //
 // The bodies:
 //   sqr, mul, mul_line, cyc, conj, frob: one Fp12 operation (out of line,
@@ -51,8 +56,12 @@
 //     product's terms beside T', its coefficients; an addition step the
 //     chord step's three product rounds (21, 18, 57 jobs: the last
 //     beside f times the line), the terms beside T', the coefficients;
-//   final_exp_group: the register-machine program row by row, every
-//     `mul(d, a, a)` from row `cyc_from` on a cyclotomic squaring.
+//     after the loop one addition step through each further point (BN254's
+//     two correction points);
+//   final_exp_group: the product of the lane's terms, 1/f, then the
+//     register-machine program row by row, every `mul(d, a, a)` from row
+//     `cyc_from` on a cyclotomic squaring;
+//   selftest_group: the layer's self-test, and the serial formulas'.
 
 #pragma once
 
@@ -327,13 +336,13 @@ __device__ __noinline__ void inv_finish(const Group& g, typename Tw::Fp12& r,
 
 // -- the Miller loop --
 
-// A lane's Miller state: f, f^2, T = (X : Y : Z), Q = (xQ, yQ), P = (xP,
-// yP), the twist step's products (d1..d3, its three product rounds) and
-// the scratch of the Fp12 operations.
+// A lane's Miller state: f, f^2, T = (X : Y : Z), the points q[i] =
+// (x, y) (Q first), P = (xP, yP), the twist step's products (d1..d3, its
+// three product rounds) and the scratch of the Fp12 operations.
 template <class Tw>
 struct MillerState {
   typename Tw::Fp12 f, f2;
-  typename Tw::Fp2 X, Y, Z, xQ, yQ;
+  typename Tw::Fp2 X, Y, Z, q[Tw::MILLER_POINTS][2];
   typename Tw::Fp xP, yP;
   typename Tw::Fp2 d1[7], d2[6], d3[6];
   Scratch<Tw> s;
@@ -409,8 +418,8 @@ __device__ __noinline__ void dbl_line(const MillerState<Tw>& st,
   C = f2_sub(f2_small(d[2], 3), f2_small(d[3], 2));
 }
 
-// The mixed addition T + Q with its chord line (RCB15 Alg 7, a = 0, Z2 =
-// 1), in three rounds:
+// The mixed addition T + Q, Q = (xQ, yQ), with its chord line (RCB15
+// Alg 7, a = 0, Z2 = 1), in three rounds:
 //   d1: X1 xQ, Y1 yQ, (X1 + Y1)(xQ + yQ), (Y1 + Z1)(yQ + 1),
 //       (X1 + Z1)(xQ + 1), xQ Z1, yQ Z1;
 //   d2: b3' Z1, b3' Y3, dY xQ, dX yQ, dX yP, -dY xP   (dX = X1 - xQ Z1,
@@ -421,23 +430,27 @@ __device__ __noinline__ void dbl_line(const MillerState<Tw>& st,
 // d3[3] + d3[2], d3[4] + d3[5]).
 template <class Tw>
 __device__ __forceinline__ void add_operands1(const MillerState<Tw>& st,
+                                              const typename Tw::Fp2& xQ,
+                                              const typename Tw::Fp2& yQ,
                                               int j, typename Tw::Fp2& x,
                                               typename Tw::Fp2& y,
                                               const typename Tw::Consts& k) {
   const auto one = f2_one(k);
   switch (j) {
-    case 0: x = st.X; y = st.xQ; break;
-    case 1: x = st.Y; y = st.yQ; break;
-    case 2: x = f2_add(st.X, st.Y); y = f2_add(st.xQ, st.yQ); break;
-    case 3: x = f2_add(st.Y, st.Z); y = f2_add(st.yQ, one); break;
-    case 4: x = f2_add(st.X, st.Z); y = f2_add(st.xQ, one); break;
-    case 5: x = st.xQ; y = st.Z; break;
-    default: x = st.yQ; y = st.Z; break;
+    case 0: x = st.X; y = xQ; break;
+    case 1: x = st.Y; y = yQ; break;
+    case 2: x = f2_add(st.X, st.Y); y = f2_add(xQ, yQ); break;
+    case 3: x = f2_add(st.Y, st.Z); y = f2_add(yQ, one); break;
+    case 4: x = f2_add(st.X, st.Z); y = f2_add(xQ, one); break;
+    case 5: x = xQ; y = st.Z; break;
+    default: x = yQ; y = st.Z; break;
   }
 }
 
 template <class Tw>
 __device__ __forceinline__ void add_operands2(const MillerState<Tw>& st,
+                                              const typename Tw::Fp2& xQ,
+                                              const typename Tw::Fp2& yQ,
                                               int j, typename Tw::Fp2& x,
                                               typename Tw::Fp2& y,
                                               const typename Tw::Consts& k) {
@@ -446,8 +459,8 @@ __device__ __forceinline__ void add_operands2(const MillerState<Tw>& st,
   switch (j) {
     case 0: x = k.b3; y = st.Z; break;
     case 1: x = k.b3; y = f2_sub(d[4], f2_add(d[0], st.Z)); break;
-    case 2: x = dY; y = st.xQ; break;
-    case 3: x = dX; y = st.yQ; break;
+    case 2: x = dY; y = xQ; break;
+    case 3: x = dX; y = yQ; break;
     case 4: x = dX; y = as_f2<Tw>(st.yP, f2_zero(k)); break;
     default: x = f2_neg(dY); y = as_f2<Tw>(st.xP, f2_zero(k)); break;
   }
@@ -521,17 +534,21 @@ __device__ __noinline__ void miller_dbl(const Group& g, MillerState<Tw>& st,
       s, k);
 }
 
-// the addition step: f = f * chord line, T = T + Q
+// the addition step: f = f * chord line, T = T + Q, Q = (xQ, yQ)
 template <class Tw>
 __device__ __noinline__ void miller_add(const Group& g, MillerState<Tw>& st,
+                                        const typename Tw::Fp2& xQ,
+                                        const typename Tw::Fp2& yQ,
                                         const typename Tw::Consts& k) {
   using Fp2 = typename Tw::Fp2;
   auto& s = st.s;
   products<Tw>(
-      g, 7, [&](int j, Fp2& x, Fp2& y) { add_operands1(st, j, x, y, k); },
+      g, 7,
+      [&](int j, Fp2& x, Fp2& y) { add_operands1(st, xQ, yQ, j, x, y, k); },
       [&](int j) -> Fp2& { return st.d1[j]; }, s.m);
   products<Tw>(
-      g, 6, [&](int j, Fp2& x, Fp2& y) { add_operands2(st, j, x, y, k); },
+      g, 6,
+      [&](int j, Fp2& x, Fp2& y) { add_operands2(st, xQ, yQ, j, x, y, k); },
       [&](int j) -> Fp2& { return st.d2[j]; }, s.m);
   mul_line<Tw>(
       g, st.f, st.f,
@@ -555,29 +572,35 @@ __device__ __forceinline__ void set_one(const Group& g, typename Tw::Fp12& f,
   g.sync();
 }
 
-// The Miller value of lane `lane` (pts (6, B, 30): xP, yP, xQ.c0, xQ.c1,
-// yQ.c0, yQ.c1), its bits after the leading one msb first in (lo, hi),
-// nbits of them; a lane whose mask is 0 stores Fp12 one. out (12, B, 30)
-// canonical.
+// The Miller value of lane `lane` (pts (2 + 4 MILLER_POINTS, B, L): xP,
+// yP, then each point's x.c0, x.c1, y.c0, y.c1), its bits after the
+// leading one msb first in (lo, hi), nbits of them: the loop over Q, then
+// one addition step through each further point. A lane whose mask is 0
+// (mask may be null: every lane live) stores Fp12 one; a pad lane (lane
+// >= B: a group of a block past the batch) runs the rounds on lane B - 1's
+// points and stores nothing. out (12, B, L) canonical.
 template <class Tw>
 __device__ __forceinline__ void miller_group(
     const Group& g, MillerState<Tw>& st, const int* pts, const uint8_t* mask,
     int B, int lane, uint32_t bits_lo, uint32_t bits_hi, int nbits,
     const typename Tw::Consts& k, int* out) {
-  if (mask[lane]) {
-    g.each(6, [&](int i) {
-      const auto v = fp_load(pts, B, i, lane, k);
-      if (i == 0) st.xP = v;
-      else if (i == 1) st.yP = v;
-      else if (i == 2) st.xQ.c0 = v;
-      else if (i == 3) st.xQ.c1 = v;
-      else if (i == 4) st.yQ.c0 = v;
-      else st.yQ.c1 = v;
+  const int src = lane < B ? lane : B - 1;
+  if (!mask || mask[src]) {
+    g.each(2 + 4 * Tw::MILLER_POINTS, [&](int i) {
+      const auto v = fp_load(pts, B, i, src, k);
+      if (i == 0) {
+        st.xP = v;
+      } else if (i == 1) {
+        st.yP = v;
+      } else {
+        auto& c = st.q[(i - 2) / 4][(i - 2) / 2 % 2];
+        (i % 2 ? c.c1 : c.c0) = v;
+      }
     });
     g.sync();
     g.each(3, [&](int j) {
-      if (j == 0) st.X = st.xQ;
-      else if (j == 1) st.Y = st.yQ;
+      if (j == 0) st.X = st.q[0][0];
+      else if (j == 1) st.Y = st.q[0][1];
       else st.Z = f2_one(k);
     });
     set_one<Tw>(g, st.f, k);
@@ -585,15 +608,19 @@ __device__ __forceinline__ void miller_group(
       const uint32_t bit = i >= 32 ? (bits_hi >> (i - 32)) & 1u
                                    : (bits_lo >> i) & 1u;
       miller_dbl<Tw>(g, st, k);
-      if (bit) miller_add<Tw>(g, st, k);
+      if (bit) miller_add<Tw>(g, st, st.q[0][0], st.q[0][1], k);
     }
+    for (int i = 1; i < Tw::MILLER_POINTS; ++i)
+      miller_add<Tw>(g, st, st.q[i][0], st.q[i][1], k);
   } else {
     set_one<Tw>(g, st.f, k);
   }
-  g.each(12, [&](int i) {
-    const auto& c = f12_slot(st.f, i / 2);
-    fp_store(out, B, i, lane, i & 1 ? c.c1 : c.c0, k);
-  });
+  if (lane < B) {
+    g.each(12, [&](int i) {
+      const auto& c = f12_slot(st.f, i / 2);
+      fp_store(out, B, i, lane, i & 1 ? c.c1 : c.c0, k);
+    });
+  }
 }
 
 // -- the final exponentiation --
@@ -628,23 +655,30 @@ __device__ __noinline__ void run_rows(const Group& g, FinalExpState<Tw>& st,
   }
 }
 
-// One lane's final exponentiation: registers 0 and 1 = f (from f_in, (12,
-// B, 30)) and 1/f, the rest 0, then the program's rows (op, dst, a, b: 0 =
-// mul, 1 = conj, 2 = frob), a `mul(d, a, a)` at row cyc_from or later as a
-// cyclotomic squaring. gt (12, B, 30): register 0, canonical; ok[lane] =
-// it is one.
+// One lane's final exponentiation: f = the product of the lane's nterms
+// Miller values (f_in (12, nterms B, L), term t at column t B + lane),
+// registers 0 and 1 = f and 1/f, the rest 0, then the program's rows (op,
+// dst, a, b: 0 = mul, 1 = conj, 2 = frob), a `mul(d, a, a)` at row
+// cyc_from or later as a cyclotomic squaring. gt (12, B, L): register 0,
+// canonical; ok[lane] = it is one. A pad lane (lane >= B) runs on lane
+// B - 1's values and stores nothing.
 template <class Tw>
 __device__ __forceinline__ void final_exp_group(
     const Group& g, FinalExpState<Tw>& st, const int* f_in, int B, int lane,
     const int* prog, int nrows, int cyc_from, const typename Tw::Consts& k,
-    int* gt, uint8_t* ok) {
-  g.each(12 + 6 * 6, [&](int i) {
-    if (i < 12) {
-      auto& c = f12_slot(st.reg[0], i / 2);
-      (i & 1 ? c.c1 : c.c0) = fp_load(f_in, B, i, lane, k);
-    } else {
-      f12_slot(st.reg[2 + (i - 12) / 6], (i - 12) % 6) = f2_zero(k);
-    }
+    int* gt, uint8_t* ok, int nterms = 1) {
+  const int src = lane < B ? lane : B - 1;
+  for (int t = 0; t < nterms; ++t) {
+    auto& dst = st.reg[t ? 2 : 0];
+    g.each(12, [&](int i) {
+      auto& c = f12_slot(dst, i / 2);
+      (i & 1 ? c.c1 : c.c0) = fp_load(f_in, nterms * B, i, t * B + src, k);
+    });
+    g.sync();
+    if (t) mul<Tw>(g, st.reg[0], st.reg[0], st.reg[2], st.s, k);
+  }
+  g.each(6 * 6, [&](int i) {
+    f12_slot(st.reg[2 + i / 6], i % 6) = f2_zero(k);
   });
   g.sync();
   inv<Tw>(g, st.reg[1], st.reg[0], st.s, st.inv, k);
@@ -652,7 +686,7 @@ __device__ __forceinline__ void final_exp_group(
   g.each(12, [&](int i) {
     const auto& c = f12_slot(st.reg[0], i / 2);
     const auto& x = i & 1 ? c.c1 : c.c0;
-    fp_store(gt, B, i, lane, x, k);
+    if (lane < B) fp_store(gt, B, i, lane, x, k);
     st.flag[i] = i == 0 ? fp_eq_words(fp_canonical(x), fp_canonical(k.one))
                         : fp_is_zero(x);
   });
@@ -660,8 +694,134 @@ __device__ __forceinline__ void final_exp_group(
   g.each(1, [&](int) {
     bool all = true;
     for (int i = 0; i < 12; ++i) all = all && st.flag[i];
-    ok[lane] = all ? 1 : 0;
+    if (lane < B) ok[lane] = all ? 1 : 0;
   });
+}
+
+// -- the layer's self-test (the pairing libraries' coop self-test entries;
+// host tests) --
+//
+// in: 42 plain values as NW words each: x (Fp12, 12), y (Fp12, 12), a
+// line's A, B, C (6) and c (Fp12, 12: an element of the cyclotomic
+// subgroup). out: 110 canonical plain values, x^2 by f12_sqr and by the
+// group, x times the tower's sparse line by f12_mul_line and by the group,
+// c^2 by f12_sqr_cyclotomic and by the group, the group's x * y, 1/x and
+// x^p, and the inverse of x's first coefficient by fp_inv_binary and by
+// fp_inv (0 for 0); then SELFTEST_CYCLES words of clock cycles (0 on the
+// host): fp_inv (Fermat) and fp_inv_binary on that coefficient on one
+// thread, the group's Fp12 product and cyclotomic squaring (every round
+// and barrier), and one thread's f2_mul and f2_add of shared operands
+// (each the last of three runs).
+constexpr int SELFTEST_IN = 42;
+constexpr int SELFTEST_OUT = 9 * 12 + 2;
+constexpr int SELFTEST_CYCLES = 6;
+
+template <class Tw>
+__device__ __noinline__ void selftest_put(const Group& g,
+                                          const typename Tw::Fp12& a,
+                                          uint32_t* out, int at) {
+  g.each(12, [&](int i) {
+    const auto& c = f12_slot(a, i / 2);
+    const auto v = fp_to_plain(i & 1 ? c.c1 : c.c0);
+    for (int j = 0; j < Tw::NW; ++j) out[Tw::NW * (at + i) + j] = v.w[j];
+  });
+  g.sync();
+}
+
+template <class Tw>
+__device__ __forceinline__ void selftest_group(const Group& g,
+                                               FinalExpState<Tw>& st,
+                                               const uint32_t* in,
+                                               const typename Tw::Consts& k,
+                                               uint32_t* out) {
+  using Fp = typename Tw::Fp;
+  using Fp2 = typename Tw::Fp2;
+  constexpr int NW = Tw::NW;
+  auto &x = st.reg[0], &y = st.reg[1], &c = st.reg[2], &r = st.reg[3];
+  Scratch<Tw>& s = st.s;
+  Fp2* line = st.inv.n;                      // A, B, C
+  g.each(SELFTEST_IN, [&](int i) {
+    Fp a;
+    for (int j = 0; j < NW; ++j) a.w[j] = in[NW * i + j];
+    const Fp m = fp_mul(a, k.r2);
+    Fp2& slot = i < 12 ? f12_slot(x, i / 2)
+              : i < 24 ? f12_slot(y, (i - 12) / 2)
+              : i < 30 ? line[(i - 24) / 2] : f12_slot(c, (i - 30) / 2);
+    (i & 1 ? slot.c1 : slot.c0) = m;
+  });
+  g.sync();
+  g.each(1, [&](int) { f12_sqr(r, x, k); });
+  g.sync();
+  selftest_put<Tw>(g, r, out, 0);
+  sqr<Tw>(g, r, x, s, k);
+  selftest_put<Tw>(g, r, out, 12);
+  g.each(1, [&](int) { f12_mul_line(r, x, line[0], line[1], line[2], k); });
+  g.sync();
+  selftest_put<Tw>(g, r, out, 24);
+  mul_line<Tw>(
+      g, r, x,
+      [&](Fp2& A, Fp2& B, Fp2& C) {
+        A = line[0];
+        B = line[1];
+        C = line[2];
+      },
+      0, [&](int, Fp2& a, Fp2& b) { a = b = line[0]; },
+      [&](int) -> Fp2& { return s.p[0]; }, 0, [](int) {}, s, k);
+  selftest_put<Tw>(g, r, out, 36);
+  g.each(1, [&](int) { f12_sqr_cyclotomic(r, c, k); });
+  g.sync();
+  selftest_put<Tw>(g, r, out, 48);
+  cyc<Tw>(g, r, c, s, k);
+  selftest_put<Tw>(g, r, out, 60);
+  mul<Tw>(g, r, x, y, s, k);
+  selftest_put<Tw>(g, r, out, 72);
+  inv<Tw>(g, r, x, s, st.inv, k);
+  selftest_put<Tw>(g, r, out, 84);
+  frob<Tw>(g, r, x, s, k);
+  selftest_put<Tw>(g, r, out, 96);
+  g.each(1, [&](int) {
+    Fp fermat, binary;
+    const long long t0 = clock64();
+    fp_inv(fermat, x.d0.c[0].c0);
+    const long long t1 = clock64();
+    fp_inv_binary(binary, x.d0.c[0].c0, k.r2);
+    const long long t2 = clock64();
+    const Fp v = fp_to_plain(binary), w = fp_to_plain(fermat);
+    for (int j = 0; j < NW; ++j) {
+      out[NW * 108 + j] = v.w[j];
+      out[NW * 109 + j] = w.w[j];
+    }
+    out[NW * SELFTEST_OUT] = static_cast<uint32_t>(t1 - t0);
+    out[NW * SELFTEST_OUT + 1] = static_cast<uint32_t>(t2 - t1);
+  });
+  g.sync();
+  // the group's clock around one Fp12 product and one cyclotomic
+  // squaring (their rounds and barriers), then one thread's around an
+  // f2_mul and an f2_add of shared operands: each the third of three runs
+  // (the first fetches the code)
+  long long t3 = 0, t4 = 0, t5 = 0;
+  for (int rep = 0; rep < 3; ++rep) {
+    t3 = clock64();
+    mul<Tw>(g, r, x, y, s, k);
+    t4 = clock64();
+    cyc<Tw>(g, r, c, s, k);
+    t5 = clock64();
+  }
+  g.each(1, [&](int) {
+    long long t6 = 0, t7 = 0, t8 = 0;
+    for (int rep = 0; rep < 3; ++rep) {
+      t6 = clock64();
+      s.p[0] = f2_mul(s.p[1], s.p[2]);
+      t7 = clock64();
+      s.p[3] = f2_add(s.p[4], s.p[5]);
+      t8 = clock64();
+    }
+    out[NW * SELFTEST_OUT + 2] = static_cast<uint32_t>(t4 - t3);
+    out[NW * SELFTEST_OUT + 3] = static_cast<uint32_t>(t5 - t4);
+    out[NW * SELFTEST_OUT + 4] = static_cast<uint32_t>(t7 - t6);
+    out[NW * SELFTEST_OUT + 5] = static_cast<uint32_t>(t8 - t7);
+  });
+  g.sync();
 }
 
 }  // namespace coop

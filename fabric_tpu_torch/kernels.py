@@ -96,17 +96,20 @@ KERNELS = {
         "ed25519_verify_error_string": ([_INT], ctypes.c_char_p),
     }),
     "bn254_pairing": ("bn254_pairing.cu", {
-        # pts, consts, out, B, bits_lo, bits_hi, nbits, stream
-        "bn254_miller_launch": ([_VOIDP] * 3 + [_INT] * 4 + [_VOIDP], _INT),
-        # f, consts, prog, nrows, gt, ok, nterms, B, stream
-        "bn254_final_exp_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2
-                                   + [_INT] * 2 + [_VOIDP], _INT),
+        # pts, consts, out, B, bits_lo, bits_hi, nbits, group, stream
+        "bn254_miller_launch": ([_VOIDP] * 3 + [_INT] * 5 + [_VOIDP], _INT),
+        # f, consts, prog, nrows, cyc_from, gt, ok, nterms, B, group, stream
+        "bn254_final_exp_launch": ([_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] * 2
+                                   + [_INT] * 3 + [_VOIDP], _INT),
         # a, b, consts, n, out, stream: the BN254 core
         "bn_fp_selftest_launch": ([_VOIDP] * 3 + [_INT] + [_VOIDP] * 2,
                                   _INT),
         # cases, consts, n, out, stream: the BN254 tower and twist steps
         "bn_tower_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2,
                                      _INT),
+        # cases, consts, n, out, stream: the cooperative layer on BN254
+        "bn_coop_selftest_launch": ([_VOIDP] * 2 + [_INT] + [_VOIDP] * 2,
+                                    _INT),
         "bn254_pairing_error_string": ([_INT], ctypes.c_char_p),
     }),
     "bls12_381_pairing": ("bls12_381_pairing.cu", {
@@ -264,13 +267,15 @@ _PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties "
 _PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
-_KERNEL_NAME = re.compile(r"\d([A-Za-z]\w*?_kernel)(?:ILi(\d+)ELi(\d+)E)?")
+_KERNEL_NAME = re.compile(
+    r"\d([A-Za-z]\w*?_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 
 def ptxas_summary(name: str) -> dict:
     """Per kernel of `name`'s last build, from `-Xptxas -v`: {kernel:
     {"registers", "stack", "spill_stores", "spill_loads"}}, a template's
-    widths in the key ("sha_windows_kernel<8,8>")."""
+    int arguments in the key ("sha_windows_kernel<8,8>",
+    "bn254_miller_coop_kernel<8>")."""
     log = _paths(name)[2]
     if not os.path.exists(log):
         return {}
@@ -281,8 +286,9 @@ def ptxas_summary(name: str) -> dict:
             m = _PTXAS_FN.search(ln)
             if m:
                 k = _KERNEL_NAME.search(m.group(1))
+                args = [a for a in k.groups()[1:] if a] if k else []
                 fn = m.group(1) if k is None else k.group(1) + (
-                    f"<{k.group(2)},{k.group(3)}>" if k.group(2) else "")
+                    f"<{','.join(args)}>" if args else "")
                 out.setdefault(fn, {})
                 continue
             m = _PTXAS_STACK.search(ln)

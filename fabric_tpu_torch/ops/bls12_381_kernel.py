@@ -249,18 +249,8 @@ def final_exp_program(u: int = ref.X_BLS) -> np.ndarray:
 
 _FINAL_EXP_PROGRAM = final_exp_program()
 
-# the easy part's last row: m = m^(p^2) * m
-EASY_LAST = (tower.OP_MUL, 2, 6, 2)
-
-
-def cyclotomic_row(program) -> int:
-    """The row from which the program's squarings square elements of the
-    cyclotomic subgroup: the one after the easy part's `mul(2, 6, 2)`
-    (every later squaring squares m or a value made from it; f and 1/f in
-    registers 0 and 1 are overwritten before they are squared). A program
-    without that row gets none (its length)."""
-    rows = [tuple(r) for r in np.asarray(program).tolist()]
-    return rows.index(EASY_LAST) + 1 if EASY_LAST in rows else len(rows)
+EASY_LAST = tower.EASY_LAST
+cyclotomic_row = tower.cyclotomic_row
 
 
 def final_exp_plain(f, program=_FINAL_EXP_PROGRAM):
@@ -539,37 +529,13 @@ COOP_CYCLE_NAMES = ("fermat_inverse", "binary_euclid_inverse", "coop_mul",
                     "coop_cyc", "f2_mul", "f2_add")
 
 
-def _coop_cases_plain(vals):
-    """The cooperative self-test's outputs by the plain torch tower (CPU):
-    vals (n, 42) plain ints -> (n, COOP_OUT) canonical plain ints."""
-    n = len(vals)
-    cols = [torch.as_tensor(np.stack([F.to_mont(v[k]) for v in vals]))
-            for k in range(COOP_IN)]
-    x = tower.f12_from_flat(cols[0:12])
-    y = tower.f12_from_flat(cols[12:24])
-    A, B, C = (cols[24], cols[25]), (cols[26], cols[27]), (cols[28], cols[29])
-    c = tower.f12_from_flat(cols[30:42])
-    sq = tower.flat_from_f12(f12_sqr_complex(x))
-    ln = tower.flat_from_f12(f12_mul_line(x, A, B, C))
-    cy = tower.flat_from_f12(f12_sqr_cyclotomic(c))
-    outs = [*sq, *sq, *ln, *ln, *cy, *cy,
-            *tower.flat_from_f12(f12_mul(x, y)),
-            *tower.flat_from_f12(f12_inv(x)),
-            *tower.flat_from_f12(f12_frob(x))]
-    rows = [[F.from_limbs(o[i].numpy()) for o in outs] for i in range(n)]
-    for r, v in zip(rows, vals):
-        a = v[0] % ref.P
-        r += [pow(a, ref.P - 2, ref.P)] * 2
-    return rows
-
-
 def coop_selftest_plain(cases):
     """The plain tower on the cases of coop_selftest: cases (n, 504) int32
     words (42 plain values a case) -> (n, 12 * COOP_OUT + COOP_CYCLES)
     int64 canonical words, the cycle words 0."""
     vals = [limb.words_to_ints(r, NW) for r in cases.tolist()]
     rows = [limb.ints_to_words(r, NW) + [0] * COOP_CYCLES
-            for r in _coop_cases_plain(vals)]
+            for r in _T.coop_selftest_rows(vals)]
     return torch.tensor(rows, dtype=torch.int64).reshape(
         -1, NW * COOP_OUT + COOP_CYCLES)
 
@@ -588,63 +554,19 @@ def coop_selftest(cases):
 # The cooperative entries' critical paths (csrc/pairing_coop.cuh)
 # ---------------------------------------------------------------------------
 
-# Each round as its jobs' Fp products: an Fp2 product is three jobs of one
-# Fp product (csrc/pairing_coop.cuh products), a domain conversion on load
-# or store one, a sum, term or coefficient none. Thread t of a group of n
-# runs jobs t, t + n, ..., so a round costs the thread with the most
-# products that many in series (`chain`), and all of its jobs' products
-# are executed (`executed`).
-def _parts(n_f2: int, others: int = 0) -> tuple:
-    return (1,) * (3 * n_f2) + (0,) * others
-
-
-MILLER_LOAD, MILLER_STORE = (1,) * 6, (1,) * 12
-MILLER_DBL_ROUNDS = (_parts(12 + 7), _parts(6, 6), _parts(13 + 3))
-MILLER_ADD_ROUNDS = (_parts(7), _parts(6), _parts(13 + 6))
-FE_LOAD, FE_STORE = (1,) * 12, (1,) * 12
-# 1/f: a0^2 and a1^2, N's six products, the adjoint's three, the Fp2
-# norm's inverse on one thread (2 squarings, 2 products, and 2 products
-# by R^2 beside the binary Euclid algorithm, which holds no product), 1/N,
-# a / N
-FE_INV_ROUNDS = (_parts(12), _parts(6), _parts(3), (6,), _parts(3),
-                 _parts(12))
-FE_ROW_ROUNDS = {"cyc": _parts(9), "mul": _parts(18), "frob": _parts(6),
-                 "conj": ()}
 GROUP = 32
-
-
-def _cost(rounds, group: int) -> tuple[int, int]:
-    """(chain, executed) Fp products of `rounds` on a group of `group`."""
-    chain = sum(max(sum(r[t::group]) for t in range(min(group, len(r))))
-                for r in rounds if r)
-    return chain, sum(sum(r) for r in rounds)
 
 
 def miller_products(loop: int = ref.X_BLS, group: int = GROUP
                     ) -> tuple[int, int]:
     """(chain, executed) Fp products of a Miller lane on the Miller
-    entry's group: the chain is the products one thread runs in series
-    (the load, each doubling step's three product rounds, each set bit's
-    addition step's three, the store)."""
-    bits = bin(loop)[3:]
-    dbl, add = _cost(MILLER_DBL_ROUNDS, group), _cost(MILLER_ADD_ROUNDS,
-                                                      group)
-    ends = _cost((MILLER_LOAD, MILLER_STORE), group)
-    n1 = bits.count("1")
-    return tuple(ends[i] + len(bits) * dbl[i] + n1 * add[i]
-                 for i in range(2))
+    entry's group (tower.coop_miller_products: one point, no correction
+    steps)."""
+    return tower.coop_miller_products(loop, 1, group)
 
 
 def final_exp_products(program=_FINAL_EXP_PROGRAM, group: int = GROUP
                        ) -> tuple[int, int]:
     """(chain, executed) Fp products of a final-exp lane on the entry's
-    group: the load and store, 1/f's rounds and each row's product round,
-    a squaring from cyclotomic_row(program) on a cyclotomic one."""
-    cyc_from = cyclotomic_row(program)
-    rounds = [FE_LOAD, FE_STORE, *FE_INV_ROUNDS]
-    for row, (op, _, a, b) in enumerate(np.asarray(program).tolist()):
-        rounds.append(FE_ROW_ROUNDS[
-            "conj" if op == tower.OP_CONJ else "frob"
-            if op == tower.OP_FROB else "cyc"
-            if a == b and row >= cyc_from else "mul"])
-    return _cost(rounds, group)
+    group (tower.coop_final_exp_products, one term)."""
+    return tower.coop_final_exp_products(program, 1, group)

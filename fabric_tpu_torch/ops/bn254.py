@@ -20,15 +20,19 @@ limbs agree with it exactly:
 
 The card entries, each a hand-written CUDA kernel (csrc/bn254_pairing.cu,
 csrc/g2_msm.cu) on the 32-bit Montgomery core csrc/bn254_field.cuh and
-the tower csrc/bn254_tower.cuh:
+the tower csrc/bn254_tower.cuh; the pairing entries run a lane over a
+group of threads on the cooperative layer csrc/pairing_coop.cuh (the
+lane's Fp12 values in shared memory, each operation's independent Fp2
+products spread over the group in rounds), `layout(B)` threads a lane:
 
     miller_loop_batch(xP, yP, Q, Q1, nQ2, loop)
         CPU tensors: the plain version; CUDA tensors: the Miller entry,
         one launch (`miller_launches`);
     final_exp_batch(f), pairing_product_is_one(...)
         CPU: the plain versions; CUDA: the final-exp entry, which
-        multiplies the T terms' Miller values, runs the program and
-        writes the GT value and the identity verdict
+        multiplies the T terms' Miller values, runs the program (its
+        squarings cyclotomic from `cyclotomic_row` on, as the plain
+        version's) and writes the GT value and the identity verdict
         (`final_exp_launches`; the product check also launches the
         Miller entry once);
     g2_msm(k_words, *Q_flat)
@@ -99,12 +103,31 @@ gt_is_one = _T.gt_is_one
 
 NBITS_R = 254                       # ref.R.bit_length()
 
-# kernel launches since import (or since a caller last set them to 0)
+_I32 = (torch.int32,)
+
+# The pairing entries' layouts, the threads a lane (csrc/bn254_pairing.cu
+# `group`): 8 (four lanes a warp, their state in shared memory: ~36 lanes
+# an SM, so a short chain a lane) for a launch of up to SERIAL_ABOVE
+# lanes, one thread on the serial formulas (hundreds of lanes an SM) for
+# more. Measured on an H100 80GB HBM3 at 700 W (bn_timing.py, PERF.md):
+# Miller lanes 32,768 / 8,192 / 2,048: one thread 28.5 / 11.0 / 11.0 ms,
+# 8 threads 85.0 / 20.3 / 5.9; final-exp lanes 16,384 / 4,096 / 1,024:
+# 17.1 / 10.9 / 10.7 and 35.0 / 10.7 / 4.6.
+LAYOUTS = (8, 1)
+SERIAL_ABOVE = 4096
+
+# kernel launches since import (or since a caller last set them to 0),
+# and the pairing entries' launches by (entry, threads a lane)
 miller_launches = 0
 final_exp_launches = 0
 msm_launches = 0
+layout_launches = {(e, g): 0 for e in ("miller", "final_exp")
+                   for g in LAYOUTS}
 
-_I32 = (torch.int32,)
+
+def layout(B: int) -> int:
+    """The threads a lane for a launch of B lanes (either entry)."""
+    return 8 if B <= SERIAL_ABOVE else 1
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +160,12 @@ def _flat_points(xP, yP, Q, Q1, nQ2):
     return [xP, yP] + [c for q in (Q, Q1, nQ2) for xy in q for c in xy]
 
 
-def miller_loop_batch(xP, yP, Q, Q1, nQ2, loop: int = ref.ATE_LOOP):
+def miller_loop_batch(xP, yP, Q, Q1, nQ2, loop: int = ref.ATE_LOOP,
+                      group: int | None = None):
     """f_{loop,Q}(P) with the optimal-ate corrections, per lane: the
     plain version on CPU tensors, csrc/bn254_pairing.cu's Miller entry on
-    CUDA tensors (one launch). Returns the Fp12 value as nested tuples
-    of (B, L) tensors."""
+    CUDA tensors (one launch, `group` threads a lane: `layout(B)` unless
+    given). Returns the Fp12 value as nested tuples of (B, L) tensors."""
     global miller_launches
     flat = _flat_points(xP, yP, Q, Q1, nQ2)
     B = xP.shape[0]
@@ -155,10 +179,12 @@ def miller_loop_batch(xP, yP, Q, Q1, nQ2, loop: int = ref.ATE_LOOP):
     rest = int(bits, 2)
     pts = torch.stack(flat)                              # (14, B, L)
     out = torch.empty((12, B, L), dtype=torch.int32, device=xP.device)
+    group = group or layout(B)
     kernels.launch(xP.device, "bn254_pairing", "bn254_miller_launch", pts,
                    kernel_consts(xP.device), out, B, rest & 0xFFFFFFFF,
-                   rest >> 32, len(bits))
+                   rest >> 32, len(bits), group)
     miller_launches += 1
+    layout_launches["miller", group] += 1
     return tower.f12_from_flat(out)
 
 
@@ -238,25 +264,38 @@ def _final_exp_program() -> np.ndarray:
 
 _FINAL_EXP_PROGRAM = _final_exp_program()
 
+EASY_LAST = tower.EASY_LAST
+cyclotomic_row = tower.cyclotomic_row
 
-def _final_exp_kernel(f_flat, nterms: int, B: int, program):
+
+def _final_exp_kernel(f_flat, nterms: int, B: int, program,
+                      group: int | None = None):
     """The final-exp entry: f_flat (12, nterms * B, L) Miller values, term
-    t of lane i at column t * B + i -> (GT (12, B, L), is-one (B,))."""
+    t of lane i at column t * B + i -> (GT (12, B, L), is-one (B,));
+    squarings from cyclotomic_row(program) on cyclotomic, `group`
+    threads a lane (`layout(B)` unless given)."""
     global final_exp_launches
     dev = f_flat.device
     prog = torch.as_tensor(np.ascontiguousarray(program, np.int32),
                            device=dev)
     gt = torch.empty((12, B, L), dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
+    group = group or layout(B)
     kernels.launch(dev, "bn254_pairing", "bn254_final_exp_launch",
                    f_flat.contiguous(), kernel_consts(dev), prog,
-                   int(prog.shape[0]), gt, ok, nterms, B)
+                   int(prog.shape[0]), cyclotomic_row(program), gt, ok,
+                   nterms, B, group)
     final_exp_launches += 1
+    layout_launches["final_exp", group] += 1
     return gt, ok
 
 
 def final_exp_plain(f, program=_FINAL_EXP_PROGRAM):
-    return _T.run_final_exp(f, program)
+    """The register machine in plain torch, every squaring from
+    `cyclotomic_row(program)` on a cyclotomic squaring, as the card's
+    entry runs it (the same values as fabric_tpu's dense squarings: they
+    square elements of the cyclotomic subgroup)."""
+    return _T.run_final_exp(f, program, cyc_from=cyclotomic_row(program))
 
 
 def final_exp_batch(f):
@@ -532,17 +571,22 @@ def kernel_consts(device) -> torch.Tensor:
     return t
 
 
+FP_OUT = 6 * 8
+
+
 def fp_selftest_plain(a, b):
     """Python ints, the reference of csrc/bn254_field.cuh: a, b (n, 8)
-    little-endian 32-bit words (values below 2p) -> (n, 40) int64
-    canonical words of a mod p, a + b, a - b, a * b and a^-1 (0 for 0)."""
+    little-endian 32-bit words (values below 2p) -> (n, 48) int64
+    canonical words of a mod p, a + b, a - b, a * b and a^-1 (0 for 0)
+    twice (Fermat's and the binary Euclid algorithm's)."""
     P = ref.P
     rows = []
     for ra, rb in zip(a.tolist(), b.tolist()):
         x, y = limb.words_to_ints(ra)[0], limb.words_to_ints(rb)[0]
+        inv = pow(x, P - 2, P)
         rows.append(limb.ints_to_words([x % P, (x + y) % P, (x - y) % P,
-                                        x * y % P, pow(x, P - 2, P)]))
-    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 40)
+                                        x * y % P, inv, inv]))
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, FP_OUT)
 
 
 # tower self-test case: x, y (Fp12, 12 values each), P (2), T (6,
@@ -605,7 +649,8 @@ def fp_selftest(a, b):
     """The BN254 core on the cases of fp_selftest_plain (a, b (n, 8) int32
     words): CPU tensors run the plain version, CUDA tensors
     csrc/bn254_pairing.cu's entry (the nvcc build of bn254_field.cuh)."""
-    return _selftest("bn_fp_selftest_launch", fp_selftest_plain, 40, a, b)
+    return _selftest("bn_fp_selftest_launch", fp_selftest_plain, FP_OUT,
+                     a, b)
 
 
 def tower_selftest(cases):
@@ -614,3 +659,89 @@ def tower_selftest(cases):
     bn254_pairing.cu's entry."""
     return _selftest("bn_tower_selftest_launch", tower_selftest_plain,
                      8 * TOWER_OUT, cases)
+
+
+# the cooperative layer's self-test case: x, y (Fp12, 12 values each), a
+# line's A, B, C (6) and c (Fp12, 12: cyclotomic) = 42 values; outputs,
+# canonical: x^2 by the serial f12_sqr and by the group, x * the D-type
+# line by f12_mul_line and by the group, c^2 by f12_sqr_cyclotomic and by
+# the group, the group's x * y, 1/x and x^p, and the inverse of x's first
+# coefficient by the binary Euclid algorithm and by Fermat; then
+# COOP_CYCLES words of the card's clock cycles (0 on the CPU): those two
+# inverses on one thread, the group's Fp12 product and cyclotomic squaring,
+# and one thread's f2_mul and f2_add
+COOP_IN = 42
+COOP_OUT = 9 * 12 + 2
+COOP_CYCLES = 6
+COOP_CYCLE_NAMES = ("fermat_inverse", "binary_euclid_inverse", "coop_mul",
+                    "coop_cyc", "f2_mul", "f2_add")
+
+
+def coop_selftest_plain(cases):
+    """The plain tower on the cases of coop_selftest: cases (n, 336) int32
+    words (42 plain values a case) -> (n, 8 * COOP_OUT + COOP_CYCLES)
+    int64 canonical words, the cycle words 0."""
+    vals = [limb.words_to_ints(r) for r in cases.tolist()]
+    rows = [limb.ints_to_words(r) + [0] * COOP_CYCLES
+            for r in _T.coop_selftest_rows(vals)]
+    return torch.tensor(rows, dtype=torch.int64).reshape(
+        -1, 8 * COOP_OUT + COOP_CYCLES)
+
+
+def coop_selftest(cases):
+    """csrc/pairing_coop.cuh on BN254's tower and the serial formulas it
+    distributes, on the cases of coop_selftest_plain (cases (n, 336) int32
+    words): CPU tensors run the plain tower, CUDA tensors
+    bn254_pairing.cu's entry, a warp a case. The last COOP_CYCLES words of
+    a row are the card's clock cycles (COOP_CYCLE_NAMES; 0 on the CPU)."""
+    return _selftest("bn_coop_selftest_launch", coop_selftest_plain,
+                     8 * COOP_OUT + COOP_CYCLES, cases)
+
+
+# ---------------------------------------------------------------------------
+# The pairing entries' products (csrc/pairing_coop.cuh's schedule)
+# ---------------------------------------------------------------------------
+
+# The serial entries' Fp products (one thread a lane on bn254_tower.cuh's
+# serial forms, an Fp2 square 2 products, a scaling by an Fp value 2): a
+# doubling step is f^2 (36), the tangent step (43) and f times the line
+# (39); an addition step the chord step (55) and the line product; a
+# final-exp row a Karatsuba product (54), a cyclotomic squaring (18) or a
+# Frobenius (15); 1/f 111 (four Karatsuba Fp6 products and the Fp6
+# inverse, its Fp inverse by the binary Euclid algorithm); a domain
+# conversion on load or store one.
+SERIAL_DBL, SERIAL_ADD, SERIAL_INV = 36 + 43 + 39, 55 + 39, 111
+SERIAL_ROW = {"mul": 54, "cyc": 18, "frob": 15, "conj": 0}
+
+
+def miller_products(loop: int = ref.ATE_LOOP, group: int | None = None,
+                    B: int = 1) -> tuple[int, int]:
+    """(chain, executed) Fp products of a Miller lane on `group` threads
+    (`layout(B)` unless given): the loop over Q, then the chord steps
+    through Q1 and nQ2 (tower.coop_miller_products, three points; one
+    thread: the serial forms, chain = executed)."""
+    group = group or layout(B)
+    if group > 1:
+        return tower.coop_miller_products(loop, 3, group)
+    bits = bin(loop)[3:]
+    n = (14 + 12 + len(bits) * SERIAL_DBL
+         + (bits.count("1") + 2) * SERIAL_ADD)
+    return n, n
+
+
+def final_exp_products(program=_FINAL_EXP_PROGRAM, nterms: int = 2,
+                       group: int | None = None, B: int = 1
+                       ) -> tuple[int, int]:
+    """(chain, executed) Fp products of a final-exp lane of `nterms`
+    terms on `group` threads (`layout(B)` unless given; one thread: the
+    serial forms)."""
+    group = group or layout(B)
+    if group > 1:
+        return tower.coop_final_exp_products(program, nterms, group)
+    cyc_from = cyclotomic_row(program)
+    n = 12 * nterms + SERIAL_ROW["mul"] * (nterms - 1) + SERIAL_INV + 12
+    for row, (op, _, a, b) in enumerate(np.asarray(program).tolist()):
+        n += SERIAL_ROW["conj" if op == tower.OP_CONJ else "frob"
+                        if op == tower.OP_FROB else "cyc"
+                        if a == b and row >= cyc_from else "mul"]
+    return n, n

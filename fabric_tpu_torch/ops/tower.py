@@ -125,6 +125,84 @@ class Asm:
         return np.asarray(self.rows, dtype=np.int32)
 
 
+# the easy part's last row: m = m^(p^2) * m (both curves' programs)
+EASY_LAST = (OP_MUL, 2, 6, 2)
+
+
+def cyclotomic_row(program) -> int:
+    """The row from which the program's squarings square elements of the
+    cyclotomic subgroup: the one after the easy part's `mul(2, 6, 2)`
+    (every later squaring squares m or a value made from it; f and 1/f in
+    registers 0 and 1 are overwritten before they are squared). A program
+    without that row gets none (its length)."""
+    rows = [tuple(r) for r in np.asarray(program).tolist()]
+    return rows.index(EASY_LAST) + 1 if EASY_LAST in rows else len(rows)
+
+
+# -- the cooperative pairing layer's schedule (csrc/pairing_coop.cuh) --
+#
+# Each round as its jobs' Fp products: an Fp2 product is three jobs of one
+# Fp product (pairing_coop.cuh products), a domain conversion on load or
+# store one, a sum, term or coefficient none. Thread t of a group of n
+# runs jobs t, t + n, ..., so a round costs the thread with the most
+# products that many in series (`chain`), and all of its jobs' products
+# are executed (`executed`).
+
+def coop_parts(n_f2: int, others: int = 0) -> tuple:
+    return (1,) * (3 * n_f2) + (0,) * others
+
+
+COOP_DBL_ROUNDS = (coop_parts(12 + 7), coop_parts(6, 6), coop_parts(13 + 3))
+COOP_ADD_ROUNDS = (coop_parts(7), coop_parts(6), coop_parts(13 + 6))
+# 1/f: a0^2 and a1^2, N's six products, the adjoint's three, the Fp2
+# norm's inverse on one thread (2 squarings, 2 products, and 2 products
+# by R^2 beside the binary Euclid algorithm, which holds no product), 1/N,
+# a / N
+COOP_INV_ROUNDS = (coop_parts(12), coop_parts(6), coop_parts(3), (6,),
+                   coop_parts(3), coop_parts(12))
+COOP_ROW_ROUNDS = {"cyc": coop_parts(9), "mul": coop_parts(18),
+                   "frob": coop_parts(6), "conj": ()}
+
+
+def coop_cost(rounds, group: int) -> tuple[int, int]:
+    """(chain, executed) Fp products of `rounds` on a group of `group`."""
+    chain = sum(max(sum(r[t::group]) for t in range(min(group, len(r))))
+                for r in rounds if r)
+    return chain, sum(sum(r) for r in rounds)
+
+
+def coop_miller_products(loop: int, points: int, group: int
+                         ) -> tuple[int, int]:
+    """(chain, executed) Fp products of a Miller lane on a group: the load
+    (2 + 4 `points` values), each doubling step's three product rounds,
+    each set bit's addition step's three and one more addition step a
+    further point, the store."""
+    bits = bin(loop)[3:]
+    dbl = coop_cost(COOP_DBL_ROUNDS, group)
+    add = coop_cost(COOP_ADD_ROUNDS, group)
+    ends = coop_cost(((1,) * (2 + 4 * points), (1,) * 12), group)
+    n_add = bits.count("1") + points - 1
+    return tuple(ends[i] + len(bits) * dbl[i] + n_add * add[i]
+                 for i in range(2))
+
+
+def coop_final_exp_products(program, nterms: int, group: int
+                            ) -> tuple[int, int]:
+    """(chain, executed) Fp products of a final-exp lane on a group: the
+    terms' loads and product, 1/f's rounds, each row's product round (a
+    squaring from cyclotomic_row(program) on a cyclotomic one), the
+    store."""
+    cyc_from = cyclotomic_row(program)
+    rounds = [(1,) * 12] * nterms + [COOP_ROW_ROUNDS["mul"]] * (nterms - 1)
+    rounds += [(1,) * 12, *COOP_INV_ROUNDS]
+    for row, (op, _, a, b) in enumerate(np.asarray(program).tolist()):
+        rounds.append(COOP_ROW_ROUNDS[
+            "conj" if op == OP_CONJ else "frob"
+            if op == OP_FROB else "cyc"
+            if a == b and row >= cyc_from else "mul"])
+    return coop_cost(rounds, group)
+
+
 def _flat6(a):
     return [c for fp2 in a for c in fp2]
 
@@ -610,6 +688,37 @@ class Tower:
         one = F.canonical(self._one(c[0]))
         return (c[0] == one).all(dim=-1) & (c[1:] == 0).all(dim=-1).all(
             dim=0)
+
+    def coop_selftest_rows(self, vals):
+        """The cooperative layer's self-test (csrc/pairing_coop.cuh
+        selftest_group) by this tower: vals (n, 42) plain ints, a case's
+        x, y (Fp12), a line's A, B, C and c (Fp12, cyclotomic) -> (n, 110)
+        canonical plain ints: x^2 twice (the serial and the group's), x
+        times the sparse line twice, c^2 by Granger-Scott twice, x * y,
+        1/x, x^p, and the inverse of x's first coefficient twice (the
+        binary Euclid and Fermat's)."""
+        F = self.F
+        n = len(vals)
+        cols = [torch.as_tensor(np.stack([F.to_mont(v[k]) for v in vals]))
+                for k in range(42)]
+        x = f12_from_flat(cols[0:12])
+        y = f12_from_flat(cols[12:24])
+        A, B, C = (cols[24], cols[25]), (cols[26], cols[27]), \
+            (cols[28], cols[29])
+        c = f12_from_flat(cols[30:42])
+        sq = flat_from_f12(self.f12_sqr_complex(x))
+        ln = flat_from_f12(self.f12_mul_line(x, A, B, C))
+        cy = flat_from_f12(self.f12_sqr_cyclotomic(c))
+        outs = [*sq, *sq, *ln, *ln, *cy, *cy,
+                *flat_from_f12(self.f12_mul(x, y)),
+                *flat_from_f12(self.f12_inv(x)),
+                *flat_from_f12(self.f12_frob(x))]
+        rows = [[F.from_limbs(o[i].numpy()) for o in outs]
+                for i in range(n)]
+        for r, v in zip(rows, vals):
+            a = v[0] % F.m
+            r += [pow(a, F.m - 2, F.m)] * 2
+        return rows
 
     def run_final_exp(self, f, program, cyc_from=None):
         """Seed the register file with (f, 1/f) and zeros, then run the

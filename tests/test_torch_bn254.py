@@ -12,7 +12,9 @@ CUDA provider's pairing methods, on the CPU.
 * g2_msm_scan on 8-bit scalar columns against the host MSM, the words
   unpacked to the same columns, g2_msm on the words equal.
 * final_exp_batch in full against final_exponentiation_chain (`slow`:
-  ~9 s of eager torch).
+  ~9 s of eager torch); the final-exp program's cyclotomic lowering
+  (cyclotomic_row = 5) against the JAX package's eager rows on a short
+  program.
 * CUDAProvider's pairing routes with the kernels stubbed: host cutoffs,
   the 2-term pad lane, nterms != 2, BLS None lanes, stats, errors that
   propagate.
@@ -143,6 +145,52 @@ def test_g2_msm_scan_8bit_matches_host():
     for a, b in zip(jax.tree_util.tree_leaves(out),
                     jax.tree_util.tree_leaves(out2)):
         assert torch.equal(a, b)
+
+
+def test_cyclotomic_lowering_matches_jax_rows():
+    """The final-exp program squares cyclotomically from cyclotomic_row =
+    5, the row after the easy part's mul(2, 6, 2), no squaring before it;
+    the plain register machine lowered from that row (final_exp_plain) on
+    a short program with the real easy part equals the JAX package's
+    register machine, its rows run eagerly with the dense f12_mul from
+    (f, 1/f), canonically (1/f from the int reference)."""
+    prog = dev._FINAL_EXP_PROGRAM
+    row = dev.cyclotomic_row(prog)
+    assert row == 5 and tuple(prog[row - 1]) == dev.EASY_LAST
+    assert not any(op == 0 and a == b for op, _, a, b in prog[:row].tolist())
+    A = dev._Asm()
+    A.conj(2, 0)
+    A.mul(2, 2, 1)
+    A.frob(6, 2)
+    A.frob(6, 6)
+    A.mul(2, 6, 2)
+    A.pow_static(3, 2, 7, 0b1101)
+    A.mul(0, 3, 2)
+    short = A.program()
+    assert dev.cyclotomic_row(short) == 5
+    rng = random.Random(78)
+    fs = [tuple(tuple((rng.randrange(ref.P), rng.randrange(ref.P))
+                      for _ in range(3)) for _ in range(2)) for _ in range(2)]
+
+    def limbs(vals):
+        return np.stack([np.stack([dev.F.to_mont(c) for h in f for fp2 in h
+                                   for c in fp2]) for f in vals], axis=1)
+    got = dev.final_exp_plain(tower.f12_from_flat(torch.as_tensor(
+        limbs(fs))), short)
+    jt = jdev._T
+
+    def jf12(vals):
+        return jtower.f12_from_flat(jnp.asarray(limbs(vals)))
+    z = jnp.zeros_like(jf12(fs)[0][0][0])
+    regs = ([jf12(fs), jf12([ref.f12_inv(f) for f in fs])]
+            + [(((z, z),) * 3, ((z, z),) * 3)] * 6)
+    for op, dst, a, b in short.tolist():
+        regs[dst] = (jt.f12_mul(regs[a], regs[b]) if op == 0 else
+                     jt.f12_conj(regs[a]) if op == 1 else
+                     jt.f12_frob(regs[a]))
+    want = torch.as_tensor(np.array(jtower.flat_from_f12(regs[0])))
+    assert torch.equal(dev.F.canonical(tower.flat_from_f12(got)),
+                       dev.F.canonical(want))
 
 
 @pytest.mark.slow

@@ -1,23 +1,36 @@
-"""The BN254 kernels' field core, tower and lane bodies, built by the host
-C++ compiler.
+"""The BN254 kernels' field core, tower, cooperative bodies and lane
+bodies, built by the host C++ compiler.
 
 fabric_tpu_torch/csrc/bn254_field.cuh (Montgomery arithmetic mod BN254's p
-on 8 x 32-bit words), bn254_tower.cuh (Fp2/Fp6/Fp12, Frobenius,
-inversions, the RCB15 twist steps and their lines) and bn254_pairing.cuh
-(the Miller, final-exp and G2 MSM lane bodies) are portable C++ behind
-CUDA's execution-space keywords, so the host compiler builds them here
-behind the stand-in tests/cuda_host/cuda_runtime.h, and the per-case
-bodies the card's self-test kernel runs (bn_fp_selftest,
-bn_tower_selftest) and the kernels' lane bodies are held to Python ints
-and to the plain torch versions (ops/bn254.py): the field ops on edge
-operands (0, 1, p - 1, p, p + 1, 2p - 1) and seeded random ones below 2p;
-Fp2 mul/sqr/inv, Fp12 mul, Frobenius and inverse, the twist doubling and
-addition with their lines (points also held to the int group law); the
-Miller lane at a truncated loop, the final-exp lane on a short program
-with two terms, the MSM lane on 8-bit scalars with Q + Q, Q + (-Q), k = 0
-and a sum at infinity. Tolerance: exact words and limbs. The nvcc build is
-held to the same on the card (tests/test_torch_cuda.py, chip_smoke.py
-field_vs_ints and pairing_vs_plain).
+on 8 x 32-bit words, Fermat's and the binary Euclid inverse),
+bn254_tower.cuh (Fp2/Fp6/Fp12, Frobenius, inversions, the RCB15 twist
+steps and their D-type lines, and the formulas the cooperative layer
+distributes: the Karatsuba product, the complex squaring, the sparse line
+product, the cyclotomic squaring), pairing_coop.cuh (a lane over a group
+of threads, instantiated for BnTower) and bn254_pairing.cuh (the serial
+lanes, the G2 MSM lane and the cooperative self-test) are portable C++
+behind CUDA's execution-space keywords, so the host compiler builds them
+here behind the stand-in tests/cuda_host/cuda_runtime.h. The host runs a
+group's rounds on one thread, each round's jobs first to last and last to
+first (`rev`): both orders must give the plain values, which a round
+reading another job's output of the same round would not; it also runs
+one pad lane past B, which must store nothing. Held to Python ints and to
+the plain torch versions (ops/bn254.py): the field ops on edge operands
+(0, 1, p - 1, p, p + 1, 2p - 1) and seeded random ones below 2p, the
+binary Euclid inverse among them; Fp2 mul/sqr/inv, Fp12 mul, Frobenius
+and inverse, the twist doubling and addition with their lines (points
+also held to the int group law); the serial formulas and the group's
+squaring, sparse line product, cyclotomic squaring, product, inverse and
+Frobenius; the cooperative Miller body at a truncated loop against the
+plain version and over the full loop against bn254_ref (the same pairing
+after the final exponentiation); the cooperative final-exp body on a
+short program with two terms against the plain version and on the full
+program against bn254_ref.final_exponentiation_chain, with its identity
+verdict on a product that is one; the serial lanes on the same inputs;
+the MSM lane on 8-bit scalars with Q + Q, Q + (-Q), k = 0 and a sum at
+infinity. Tolerance: exact words and limbs. The nvcc build is held to the
+same on the card (tests/test_torch_cuda.py, chip_smoke.py field_vs_ints
+and pairing_vs_plain).
 """
 
 import ctypes
@@ -45,6 +58,8 @@ HARNESS = r"""
 #include <string.h>
 #include "bn254_pairing.cuh"
 
+using namespace bn254;
+
 static BnConsts consts_of(const uint32_t* w) {
   BnConsts k;
   memcpy(&k, w, sizeof(k));
@@ -55,7 +70,7 @@ extern "C" void h_fp(const uint32_t* a, const uint32_t* b,
                      const uint32_t* c, int n, uint32_t* out) {
   const BnConsts k = consts_of(c);
   for (int i = 0; i < n; ++i)
-    bn_fp_selftest(a + 8 * i, b + 8 * i, k.r2, out + 40 * i);
+    bn_fp_selftest(a + 8 * i, b + 8 * i, k.r2, out + 48 * i);
 }
 
 extern "C" void h_tower(const uint32_t* cases, const uint32_t* c, int n,
@@ -66,19 +81,53 @@ extern "C" void h_tower(const uint32_t* cases, const uint32_t* c, int n,
                       out + 8 * BN_TOWER_OUT * i);
 }
 
+// the cooperative bodies: one host thread runs each round's jobs, first
+// to last or (rev) last to first, for lanes 0..B (lane B a pad lane)
 extern "C" void h_miller(const int* pts, const uint32_t* c, int* out, int B,
-                         int lo, int hi, int nbits) {
+                         int lo, int hi, int nbits, int rev) {
+  const BnConsts k = consts_of(c);
+  static coop::MillerState<BnTower> st;
+  const coop::Group g{0, 1, rev != 0};
+  for (int i = 0; i <= B; ++i)
+    coop::miller_group<BnTower>(g, st, pts, nullptr, B, i, (uint32_t)lo,
+                                (uint32_t)hi, nbits, k, out);
+}
+
+extern "C" void h_final_exp(const int* f, const uint32_t* c, const int* prog,
+                            int nrows, int cyc_from, int* gt, uint8_t* ok,
+                            int nterms, int B, int rev) {
+  const BnConsts k = consts_of(c);
+  static coop::FinalExpState<BnTower> st;
+  const coop::Group g{0, 1, rev != 0};
+  for (int i = 0; i <= B; ++i)
+    coop::final_exp_group<BnTower>(g, st, f, B, i, prog, nrows, cyc_from, k,
+                                   gt, ok, nterms);
+}
+
+extern "C" void h_coop(const uint32_t* cases, const uint32_t* c, int n,
+                       uint32_t* out, int rev) {
+  const BnConsts k = consts_of(c);
+  static CoopState st;
+  const coop::Group g{0, 1, rev != 0};
+  for (int i = 0; i < n; ++i)
+    coop_selftest_group(g, st, cases + NW * COOP_IN * i, k,
+                        out + (NW * COOP_OUT + COOP_CYCLES) * i);
+}
+
+// the serial lanes (the serial entries' bodies)
+extern "C" void h_miller_serial(const int* pts, const uint32_t* c, int* out,
+                                int B, int lo, int hi, int nbits) {
   const BnConsts k = consts_of(c);
   for (int i = 0; i < B; ++i)
     bn_miller_lane(pts, B, i, (uint32_t)lo, (uint32_t)hi, nbits, k, out);
 }
 
-extern "C" void h_final_exp(const int* f, const uint32_t* c, const int* prog,
-                            int nrows, int* gt, uint8_t* ok, int nterms,
-                            int B) {
+extern "C" void h_final_exp_serial(const int* f, const uint32_t* c,
+                                   const int* prog, int nrows, int cyc_from,
+                                   int* gt, uint8_t* ok, int nterms, int B) {
   const BnConsts k = consts_of(c);
   for (int i = 0; i < B; ++i)
-    bn_final_exp_lane(f, nterms, B, i, prog, nrows, k, gt, ok);
+    bn_final_exp_lane(f, nterms, B, i, prog, nrows, cyc_from, k, gt, ok);
 }
 
 extern "C" void h_msm(const uint32_t* kw, const int* q, const uint32_t* c,
@@ -99,7 +148,7 @@ def core(tmp_path_factory):
     d = tmp_path_factory.mktemp("bn254")
     src, so = d / "harness.cpp", d / "libbn254.so"
     src.write_text(HARNESS)
-    subprocess.run([cxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-Wall",
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-Wall",
                     "-Werror", "-Wno-unknown-pragmas",
                     "-I", os.path.join(HERE, "cuda_host"), "-I", CSRC,
                     "-o", str(so), str(src)], check=True,
@@ -150,12 +199,15 @@ def test_field_ops_match_ints(core):
               for _ in range(300)]
     a = _words(x for x, _ in pairs)
     b = _words(y for _, y in pairs)
-    out = np.zeros((len(pairs), 40), np.uint32)
+    out = np.zeros((len(pairs), dev.FP_OUT), np.uint32)
     _call(core.h_fp, a, b, CONSTS, len(pairs), out)
     want = dev.fp_selftest_plain(torch.from_numpy(a.view(np.int32)),
                                  torch.from_numpy(b.view(np.int32)))
     np.testing.assert_array_equal(out.astype(np.int64), want.numpy())
-    assert _ints(out[2]) == [0, P - 1, 1, 0, 0]     # a = 0, b = p - 1
+    assert _ints(out[2]) == [0, P - 1, 1, 0, 0, 0]  # a = 0, b = p - 1
+    # the binary Euclid inverse (and Fermat's) at 1 and p - 1: 1, p - 1
+    assert _ints(out[6 * 1])[4:] == [1, 1]
+    assert _ints(out[6 * 2])[4:] == [P - 1, P - 1]
 
 
 def _tower_cases(seed, n):
@@ -225,29 +277,96 @@ def _staged_points(seed, n):
     return dev.to_device(dev.stage_g1(ps) + dev.stage_g2(qs), "cpu")
 
 
+def _miller_out(B):
+    """An out buffer of (12, B, 20) limbs and, past it, one lane's worth
+    of zeros that a pad lane's store would reach first."""
+    buf = np.zeros(12 * B * 20 + 20, np.int32)
+    return buf, buf[:-20].reshape(12, B, 20)
+
+
+def _run_miller(core, st, loop, rev=0, serial=False):
+    pts = np.ascontiguousarray(torch.stack(dev._flat_points(*st)).numpy())
+    B = pts.shape[1]
+    buf, out = _miller_out(B)
+    bits = bin(loop)[3:]
+    rest = int(bits, 2)
+    if serial:
+        _call(core.h_miller_serial, pts, CONSTS, out, B, rest & 0xFFFFFFFF,
+              rest >> 32, len(bits))
+    else:
+        _call(core.h_miller, pts, CONSTS, buf, B, rest & 0xFFFFFFFF,
+              rest >> 32, len(bits), rev)
+        assert not buf[-20:].any()                   # the pad lane
+    return out
+
+
 def test_miller_lane_matches_plain(core):
+    _check_miller_lane(core, 0)
+
+
+def _check_miller_lane(core, rev, serial=False):
     st = _staged_points(92, 3)
     plain = dev.miller_loop_batch(*st, loop=SMALL_LOOP)
-    pts = np.ascontiguousarray(torch.stack(dev._flat_points(*st)).numpy())
-    out = np.zeros((12, 3, 20), np.int32)
-    rest = int(bin(SMALL_LOOP)[3:], 2)
-    _call(core.h_miller, pts, CONSTS, out, 3, rest, 0,
-          len(bin(SMALL_LOOP)) - 3)
+    out = _run_miller(core, st, SMALL_LOOP, rev, serial)
     np.testing.assert_array_equal(
         out, dev.F.canonical(tower.flat_from_f12(plain)).numpy())
 
 
-def test_final_exp_lane_matches_plain(core):
-    """Two terms a lane (multiplied first), a short program with every
-    op, the identity verdict on a lane whose product is one."""
+def test_full_miller_lane_matches_ref(core):
+    """The full loop with its correction steps: the same pairing as
+    bn254_ref's after the final exponentiation."""
+    _check_full_miller(core, 0)
+
+
+def _check_full_miller(core, rev, serial=False):
+    rng = random.Random(95)
+    ps = [ref.G1, ref.g1_mul_fast(rng.randrange(2, ref.R), ref.G1)]
+    qs = [G2, ref.g2_mul_fast(rng.randrange(2, ref.R), G2)]
+    st = dev.to_device(dev.stage_g1(ps) + dev.stage_g2(qs), "cpu")
+    out = _run_miller(core, st, ref.ATE_LOOP, rev, serial)
+    got = dev.f12_from_device(tower.f12_from_flat(torch.as_tensor(out)))
+    for i in range(2):
+        assert ref.final_exponentiation_chain(got[i]) == ref.pairing(
+            qs[i], ps[i]), i
+
+
+def _short_program():
     A = dev._Asm()
     A.conj(2, 0)
     A.mul(2, 2, 1)
     A.frob(6, 2)
-    A.mul(0, 6, 2)
-    A.pow_static(3, 0, 7, 0b101)
-    A.mul(0, 3, 0)
-    prog = A.program()
+    A.frob(6, 6)
+    A.mul(2, 6, 2)
+    A.pow_static(3, 2, 7, 0b101)
+    A.mul(0, 3, 2)
+    return A.program()
+
+
+def _run_final_exp(core, f, prog, nterms, rev=0, serial=False):
+    B = f.shape[1] // nterms
+    gbuf = np.zeros(12 * B * 20 + 20, np.int32)
+    gt = gbuf[:-20].reshape(12, B, 20)
+    okbuf = np.zeros(B + 1, np.uint8)
+    args = (np.ascontiguousarray(f), CONSTS, np.ascontiguousarray(prog),
+            len(prog), dev.cyclotomic_row(prog))
+    if serial:
+        _call(core.h_final_exp_serial, *args, gt, okbuf, nterms, B)
+    else:
+        _call(core.h_final_exp, *args, gbuf, okbuf, nterms, B, rev)
+    assert not gbuf[-20:].any() and okbuf[B] == 0   # the pad lane
+    return gt, okbuf[:B]
+
+
+def test_final_exp_lane_matches_plain(core):
+    """Two terms a lane (multiplied first), a short program with every
+    op and cyclotomic squarings after its easy part, the identity verdict
+    on a lane whose product is one."""
+    _check_final_exp(core, 0)
+
+
+def _check_final_exp(core, rev, serial=False):
+    prog = _short_program()
+    assert dev.cyclotomic_row(prog) == 5
     rng = random.Random(93)
     # columns t * B + lane, B = 2: lane 1's second term is the inverse of
     # its first, so its product, and its final exponentiation, is one
@@ -259,13 +378,122 @@ def test_final_exp_lane_matches_plain(core):
     prod = dev.f12_mul(tower.f12_from_flat(f[:, :2]),
                        tower.f12_from_flat(f[:, 2:]))
     plain = dev.final_exp_plain(prod, prog)
-    gt = np.zeros((12, 2, 20), np.int32)
-    ok = np.zeros(2, np.uint8)
-    _call(core.h_final_exp, np.ascontiguousarray(f.numpy()), CONSTS, prog,
-          len(prog), gt, ok, 2, 2)
+    gt, ok = _run_final_exp(core, f.numpy(), prog, 2, rev, serial)
     np.testing.assert_array_equal(
         gt, dev.F.canonical(tower.flat_from_f12(plain)).numpy())
     assert ok.tolist() == [0, 1] == dev.gt_is_one(plain).int().tolist()
+
+
+def test_final_exp_lane_full_program_matches_chain(core):
+    """The full program on two lanes of two terms, squarings cyclotomic
+    from the easy part on: a random product (GT value equal to
+    final_exponentiation_chain exactly) and a pairing product that is one
+    (e(P, Q) e(P, -Q): verdict true)."""
+    _check_full_final_exp(core, 0)
+
+
+def _check_full_final_exp(core, rev, serial=False):
+    rng = random.Random(96)
+    p = ref.g1_mul_fast(rng.randrange(2, ref.R), ref.G1)
+    q = ref.g2_mul_fast(rng.randrange(2, ref.R), G2)
+    rnd = [tuple(tuple((rng.randrange(P), rng.randrange(P))
+                       for _ in range(3)) for _ in range(2))
+           for _ in range(2)]
+    one = [ref.miller_loop(q, p), ref.miller_loop(ref.g2_neg_tw(q), p)]
+    terms = [rnd[0], one[0], rnd[1], one[1]]           # column t * 2 + lane
+    f = np.stack([np.stack([dev.F.to_mont(c) for c in
+                            [x for half in v for f2 in half for x in f2]])
+                  for v in terms], axis=1)                  # (12, 4, L)
+    gt, ok = _run_final_exp(core, f, dev._FINAL_EXP_PROGRAM, 2, rev, serial)
+    got = dev.f12_from_device(tower.f12_from_flat(torch.as_tensor(gt)))
+    assert got[0] == ref.final_exponentiation_chain(
+        ref.f12_mul(rnd[0], rnd[1]))
+    assert got[1] == ref.F12_ONE
+    assert ok.tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("body", ["miller", "full_miller", "final_exp",
+                                  "full_final_exp"])
+def test_coop_bodies_in_reverse_job_order(core, body):
+    """The cooperative bodies' tests above with every round's jobs run
+    last to first: the same values, so no job of a round reads what
+    another job of it writes."""
+    _BODIES[body](core, 1)
+
+
+@pytest.mark.parametrize("body", ["miller", "full_miller", "final_exp",
+                                  "full_final_exp"])
+def test_serial_lanes_match(core, body):
+    """The serial entries' lanes (one thread a lane) on the same inputs."""
+    _BODIES[body](core, 0, serial=True)
+
+
+_BODIES = {"miller": _check_miller_lane, "full_miller": _check_full_miller,
+           "final_exp": _check_final_exp,
+           "full_final_exp": _check_full_final_exp}
+
+
+def _cyclotomic(f):
+    """f^((p^6 - 1)(p^2 + 1)): the easy part, into the cyclotomic
+    subgroup."""
+    m = ref.f12_mul(ref.f12_conj(f), ref.f12_inv(f))
+    return ref.f12_mul(ref.f12_frob(ref.f12_frob(m)), m)
+
+
+def _f12(v, o):
+    return (tuple(tuple(v[o + 2 * j:o + 2 * j + 2]) for j in range(3)),
+            tuple(tuple(v[o + 6 + 2 * j:o + 8 + 2 * j]) for j in range(3)))
+
+
+def _flat(el):
+    return [x for half in el for f2 in half for x in f2]
+
+
+@pytest.fixture(scope="module")
+def coop_cases():
+    """Cooperative self-test cases (x's first coefficient over the edge
+    operands, 0 too: its inverse is 0; the rest seeded random), their
+    words and the plain tower's rows (shared by both orders)."""
+    rng = random.Random(97)
+    cases = []
+    for e in EDGES:
+        x = [e % P] + [rng.randrange(P) for _ in range(11)]
+        y = [rng.randrange(P) for _ in range(12)]
+        line = [rng.randrange(P) for _ in range(6)]
+        c = _cyclotomic(_f12([rng.randrange(P) for _ in range(12)], 0))
+        cases.append(x + y + line + _flat(c))
+    cw = np.stack([_words(c).reshape(-1) for c in cases])
+    return cases, cw, dev.coop_selftest_plain(
+        torch.from_numpy(cw.view(np.int32))).numpy()
+
+
+@pytest.mark.parametrize("rev", [0, 1])
+def test_coop_formulas_match_plain_and_ints(core, coop_cases, rev):
+    """The serial formulas (f12_sqr by the complex method, f12_mul_line on
+    the D-type line, f12_sqr_cyclotomic) and the group's squaring, sparse
+    line product, cyclotomic squaring, Karatsuba product, inverse and
+    Frobenius against the plain tower and the int tower's dense product,
+    inverse and Frobenius; the binary Euclid inverse of x's first
+    coefficient against Fermat's and pow(a, p - 2) on the edge
+    operands."""
+    cases, cw, want = coop_cases
+    out = np.zeros((len(cases), 8 * dev.COOP_OUT + dev.COOP_CYCLES),
+                   np.uint32)
+    _call(core.h_coop, cw, CONSTS, len(cases), out, rev)
+    np.testing.assert_array_equal(out.astype(np.int64), want)
+    for row, vals in zip(out, cases):
+        v = _ints(row[:8 * dev.COOP_OUT])
+        x, y, c = _f12(vals, 0), _f12(vals, 12), _f12(vals, 30)
+        A, B, C = (tuple(vals[24 + 2 * i:26 + 2 * i]) for i in range(3))
+        line = ((A, ref.F2_ZERO, ref.F2_ZERO), (B, C, ref.F2_ZERO))
+        x2, xl, c2 = (ref.f12_mul(x, x), ref.f12_mul(x, line),
+                      ref.f12_mul(c, c))
+        for off, want_el in ((0, x2), (12, x2), (24, xl), (36, xl),
+                             (48, c2), (60, c2), (72, ref.f12_mul(x, y)),
+                             (84, ref.f12_inv(x)), (96, ref.f12_frob(x))):
+            assert _f12(v, off) == want_el, off
+        a = vals[0] % P
+        assert v[108] == v[109] == pow(a, P - 2, P)
 
 
 def test_msm_lane_matches_plain_and_ints(core):

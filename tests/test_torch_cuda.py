@@ -742,39 +742,76 @@ def test_bn254_core_and_tower_match_ints(dev):
 
 
 def test_bn254_miller_and_final_exp_match_plain(dev):
-    """The Miller entry at a truncated loop and the final-exp entry on a
-    short two-term program against their plain versions on the card
-    (canonical limbs equal); the full loop and program on two lanes
-    against bn254_ref.pairing."""
+    """In every layout the entries build (bn254.LAYOUTS, threads a lane):
+    the Miller entry at a truncated loop on 6 lanes (pad lanes past B in
+    the groups of a warp) and the final-exp entry on a short two-term
+    program (squarings cyclotomic after its easy part) against their
+    plain versions on the card (canonical limbs equal); the full loop and
+    program on two lanes against bn254_ref.pairing."""
     from fabric_tpu_torch.ops import bn254, tower
     from fabric_tpu_torch.ops import bn254_ref as bref
     ps, qs = _bn_points(96, 6)
     st = bn254.to_device(bn254.stage_g1(ps) + bn254.stage_g2(qs), dev)
     loop = 0b1011010
-    m0, f0 = bn254.miller_launches, bn254.final_exp_launches
-    got = tower.flat_from_f12(bn254.miller_loop_batch(*st, loop=loop))
-    assert bn254.miller_launches == m0 + 1
     plain = tower.flat_from_f12(bn254.miller_loop_plain(*st, loop=loop))
-    assert torch.equal(got, bn254.F.canonical(plain))
     A = bn254._Asm()
     A.conj(2, 0)
     A.mul(2, 2, 1)
     A.frob(6, 2)
-    A.mul(0, 6, 2)
-    A.pow_static(3, 0, 7, 0b1101)
-    A.mul(0, 3, 0)
-    gt, ok = bn254._final_exp_kernel(got, 2, 3, A.program())
-    assert bn254.final_exp_launches == f0 + 1
-    prod = bn254.f12_mul(tower.f12_from_flat(got[:, :3]),
-                         tower.f12_from_flat(got[:, 3:]))
-    want = bn254.final_exp_plain(prod, A.program())
-    assert torch.equal(gt, bn254.F.canonical(tower.flat_from_f12(want)))
-    assert torch.equal(ok, bn254.gt_is_one(want))
-    full = bn254.final_exp_batch(bn254.miller_loop_batch(
-        *bn254.to_device(bn254.stage_g1(ps[:2]) + bn254.stage_g2(qs[:2]),
-                         dev)))
-    assert bn254.f12_from_device(full) == [bref.pairing(qs[i], ps[i])
-                                           for i in range(2)]
+    A.frob(6, 6)
+    A.mul(2, 6, 2)
+    A.pow_static(3, 2, 7, 0b1101)
+    A.mul(0, 3, 2)
+    assert bn254.cyclotomic_row(A.program()) == 5
+    full_st = bn254.to_device(bn254.stage_g1(ps[:2]) + bn254.stage_g2(qs[:2]),
+                              dev)
+    for group in bn254.LAYOUTS:
+        m0, f0 = bn254.miller_launches, bn254.final_exp_launches
+        got = tower.flat_from_f12(bn254.miller_loop_batch(
+            *st, loop=loop, group=group))
+        assert bn254.miller_launches == m0 + 1
+        assert torch.equal(got, bn254.F.canonical(plain)), group
+        gt, ok = bn254._final_exp_kernel(got, 2, 3, A.program(), group=group)
+        assert bn254.final_exp_launches == f0 + 1
+        prod = bn254.f12_mul(tower.f12_from_flat(got[:, :3]),
+                             tower.f12_from_flat(got[:, 3:]))
+        want = bn254.final_exp_plain(prod, A.program())
+        assert torch.equal(gt, bn254.F.canonical(tower.flat_from_f12(want)))
+        assert torch.equal(ok, bn254.gt_is_one(want))
+        f = tower.flat_from_f12(bn254.miller_loop_batch(*full_st,
+                                                        group=group))
+        full, _ = bn254._final_exp_kernel(f, 1, 2, bn254._FINAL_EXP_PROGRAM,
+                                          group=group)
+        assert bn254.f12_from_device(tower.f12_from_flat(full)) == [
+            bref.pairing(qs[i], ps[i]) for i in range(2)], group
+
+
+def test_bn254_coop_selftest_matches_plain(dev):
+    """csrc/pairing_coop.cuh on BN254's tower (a warp a case): the group's
+    and the serial formulas against the plain tower, the binary Euclid
+    inverse against Fermat's, on cases whose x starts with 0, 1 and p - 1;
+    the clock words are counts."""
+    import random
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    P = bref.P
+    rng = random.Random(98)
+    vals = [[e] + [rng.randrange(P) for _ in range(29)] for e in (0, 1, P - 1)]
+    for v in vals:           # c: a value past the easy part (cyclotomic)
+        x = (tuple(tuple(v[2 * j:2 * j + 2]) for j in range(3)),
+             tuple(tuple(v[6 + 2 * j:8 + 2 * j]) for j in range(3)))
+        m = bref.f12_mul(bref.f12_conj(x), bref.f12_inv(x))
+        c = bref.f12_mul(bref.f12_frob(bref.f12_frob(m)), m)
+        v += [z for h in c for f2 in h for z in f2]
+    cases = torch.as_tensor(np.array(
+        [[(x >> (32 * i)) & 0xFFFFFFFF for x in v for i in range(8)]
+         for v in vals], dtype=np.uint32).view(np.int32))
+    got = bn254.coop_selftest(cases.to(dev)).cpu()
+    want = bn254.coop_selftest_plain(cases)
+    nw = 8 * bn254.COOP_OUT
+    assert torch.equal(got[:, :nw], want[:, :nw])
+    assert (got[:, nw:] > 0).all()
 
 
 def test_bn254_msm_matches_plain_and_ints(dev):
