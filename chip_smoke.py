@@ -24,8 +24,9 @@ Phases, one JSON line each; any failure exits non-zero:
   field_vs_ints    the P-256 field core (csrc/p256_field.cuh) built by nvcc
                    (csrc/field_selftest.cu) against Python ints: mul, add,
                    sub and the 13-bit conversion on edge operands (0, 1,
-                   p - 1, p, p + 1, 2^256 - 1, 2^256 + 2^243 - 1) and seeded
-                   random ones, RCB15 Alg. 4 on P + P, P + (-P), P + inf,
+                   p - 1, p, p + 1, 2^256 - 1, 2^256 + 2^243 - 1, and
+                   ptree.CARRY_EDGES, where the PTX carry chains carry
+                   through every word) and seeded random ones, RCB15 Alg. 4 on P + P, P + (-P), P + inf,
                    inf + inf and random points; the mod-n core
                    (csrc/modn32.cuh) on e = 0, 1, n - 1, n, n + 1,
                    2^256 - 1 against w = 1, n - 1 and r = 1, n - 1, and
@@ -187,9 +188,10 @@ Phases, one JSON line each; any failure exits non-zero:
                    the creator from 1,021 client keys (1,024 keys, over
                    MaxKeys = 16), bad lanes as above, through a fresh
                    CUDAProvider: verify_prepared (the ladder's digest-lanes
-                   entry) and verify_batch (its message entry, SHA-256 in
-                   the kernel), each counted: the ladder one launch a
-                   chunk, every other kernel 0; bitmaps equal the expected
+                   entry) and verify_batch (its message entry: the
+                   digest-only SHA kernel, then the ladder), each counted:
+                   the ladder (and on message lanes the SHA kernel) one
+                   launch a chunk, every other kernel 0; bitmaps equal the expected
                    one and sw on >= 2,048 lanes; one steady verify_prepared
                    under torch.profiler.
   ladder_vs_plain  both ladder entries against the plain version
@@ -201,7 +203,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    Python ints on the edge lanes, the expected bitmap
                    beyond; then each entry at the block's 32,768-lane
                    bucket: kernel = plain, its time (CUDA events: a call
-                   is milliseconds) against ladder_bound.
+                   is milliseconds; the message entry's two launches
+                   together) against ladder_bound.
   ed25519_path     30,720 Ed25519 lanes from --seed over 64 keys, 256-byte
                    messages, ~1% bad lanes of five kinds (message flipped,
                    S + L, R encoded with y = p + 1, a small-order key, the
@@ -229,7 +232,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    the process pool from bn254_ref's fast Jacobian ladders.
   pairing_path     the block through a CUDAProvider: pairing_check_batch
                    (one Miller and one final-exp launch a chunk),
-                   g2_msm_batch (one MSM launch a chunk), bls_verify_batch,
+                   g2_msm_batch (one MSM launch a chunk of the live lanes),
+                   bls_verify_batch,
                    each counted with every kernel count 0 before; bitmaps
                    equal the expected ones and the port's sw provider on
                    samples of >= 256 lanes holding every bad lane (the sw
@@ -239,23 +243,30 @@ Phases, one JSON line each; any failure exits non-zero:
                    the Miller and final-exp launches by layout
                    (layout_launches: the block's bucket one thread a
                    lane, bls_verify_batch's 1,024 lanes 8), each > 0.
-  pairing_vs_plain the Miller entry (8,192 term lanes), the final-exp
-                   entry (4,096 two-term products) and the MSM entry
-                   (4,096 lanes) against their plain torch versions on the
-                   card at full length (the 6t+2 loop, the whole final
-                   exponentiation, 254-bit scalars), edge lanes first:
-                   G1 with G2, the identity products e(P, Q) e(P, -Q) and
-                   e(2P, Q) e(P, -2Q), an off-by-one product; MSM lanes
-                   with k = 0, 1, r - 1, Q + Q, T + (-T), the subgroup lane
-                   of G2, all terms zero. Canonical values equal, verdicts
-                   equal and the expected bitmap; the edges also held to
-                   Python ints (Miller values through the final
-                   exponentiation, GT values, MSM points); the Miller and
-                   final-exp entries in each layout (bn254.LAYOUTS). Then
-                   each layout at the width where bn254.layout picks it
-                   (the block's bucket, 32,768 Miller and 16,384
-                   final-exp lanes; bls_verify_batch's, 2,048 and 1,024)
-                   and the MSM at the bucket: CUDA events against a bound
+  pairing_vs_plain the Miller entry (8,192 term lanes) and the final-exp
+                   entry (4,096 two-term products) against their plain
+                   torch versions on the card at full length (the 6t+2
+                   loop, the whole final exponentiation), edge lanes
+                   first: G1 with G2, the identity products
+                   e(P, Q) e(P, -Q) and e(2P, Q) e(P, -2Q), an off-by-one
+                   product. Canonical values equal, verdicts equal and
+                   the expected bitmap; the edges also held to Python ints
+                   (Miller values through the final exponentiation, GT
+                   values); both entries in each layout (bn254.LAYOUTS).
+                   Then each layout at the width where bn254.layout picks
+                   it (the block's bucket, 32,768 Miller and 16,384
+                   final-exp lanes; bls_verify_batch's, 2,048 and 1,024).
+  msm_vs_plain     the MSM entry (4,096 lanes, 254-bit scalars) against
+                   its plain version, the card's chain (g2_msm_chain),
+                   limb for limb, edge lanes first: k = 0, 1, r - 1,
+                   Q + Q, T + (-T), the subgroup lane of G2, all terms
+                   zero, their points also against Python ints; then at
+                   the block's 20,480 live lanes in the provider's class
+                   order (beside it, padded_ms: 32,768 lanes with the
+                   block's order and all-zero pads, as the provider
+                   launched them before it launched live lanes only).
+                   The pairing and MSM entries' times: CUDA events
+                   against a bound
                    from the least Fp products of each function (live
                    lanes, cheapest published formulas:
                    miller_products_min, final_exp_products_min,
@@ -364,7 +375,15 @@ DIGEST, RESIDENT = "sha256_launches", "resident_launches"
 BAD_KINDS = ("flipped", "high_s", "bad_der", "wrong_key", "r_ge_n")
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries `t_s`, the
+    script's seconds so far, so the phases' share of the time limit can
+    be read from the output."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.monotonic() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -748,7 +767,7 @@ def run_route(name, prov, blk, sw_bits, sample, card, *, prepared: bool,
 # one build event in the provider's device_cost)
 Q16_LIBS = ("batchprep", "ptree", "sha_windows")
 TRACE_CAPTURES = 3              # bounded captures, 2 kept
-OVERHEAD_CALLS = 60             # commit-path calls per tracing mode
+OVERHEAD_CALLS = 240            # commit-path calls per tracing mode
 
 
 def check_build_events(label, prov, need) -> dict:
@@ -1914,28 +1933,33 @@ def _ladder_tensors(h, dev):
 
 def ladder_path(blk, prov, sw_bits, sample, card):
     """The ladder block through CUDAProvider: verify_prepared (digest
-    lanes) and verify_batch (message lanes, SHA-256 in the kernel), each
-    counted; one steady verify_prepared under the profiler."""
+    lanes) and verify_batch (message lanes: the digest-only SHA kernel,
+    then the ladder), each counted; one steady verify_prepared under the
+    profiler."""
     from fabric_tpu_torch.bccsp.cuda import LAUNCH_COUNTERS
 
     n = blk["n"]
     pr = blk["prepared"]
     chunks = -(-prov._bucket(n) // prov._chunk)
-    others = [k for k in LAUNCH_COUNTERS if k != LADDER]
     rec = {"phase": "ladder_path", "ok": True, "card": card, "lanes": n,
            "keys": len(blk["pubs"]),
            "bad_lanes": int((~blk["expected"]).sum()),
            "sample_vs_sw": int(len(sample))}
     counts = {}
-    for path, fn in (("verify_prepared", lambda: prov.verify_prepared(**pr)),
-                     ("verify_batch", lambda: prov.verify_batch(
-                         blk["items"]))):
+    # message lanes: the digest-only SHA kernel, then the ladder
+    for path, need, fn in (
+            ("verify_prepared", (LADDER,),
+             lambda: prov.verify_prepared(**pr)),
+            ("verify_batch", (LADDER, DIGEST),
+             lambda: prov.verify_batch(blk["items"]))):
         got, counts[path], delta, secs = counted(prov, f"ladder {path}",
-                                                 (LADDER,), fn)
+                                                 need, fn)
         check_bits(f"ladder {path}", got, blk, sw_bits, sample)
-        check(counts[path][LADDER] == chunks,
-              f"ladder {path}: {counts[path][LADDER]} launches, not one per "
-              f"chunk ({chunks})")
+        for k in need:
+            check(counts[path][k] == chunks,
+                  f"ladder {path}: {counts[path][k]} {k}, not one per "
+                  f"chunk ({chunks})")
+        others = [k for k in LAUNCH_COUNTERS if k not in need]
         check(all(counts[path][k] == 0 for k in others),
               f"ladder {path}: other kernels ran: {counts[path]}")
         check(delta["ladder_batches"] >= 1 and delta["comb_batches"] == 0,
@@ -2337,13 +2361,15 @@ PAIRING_SAMPLE = 256            # lanes held to the sw provider, at least
 # their schedule (ops/bn254.py miller_products, final_exp_products: the
 # layout's rounds on csrc/pairing_coop.cuh, chain and executed); the MSM's
 # from csrc/bn254_tower.cuh: the doubling 7 Fp2 products and 2 complex
-# squarings (25 Fp products), the mixed addition 14 Fp2 products, 254
-# doublings on every lane, pad lanes included; the BLS12-381 reduce's
+# squarings (25 Fp products), the mixed addition of the joint tables 13
+# Fp2 products, the projective addition of the chain 14 (`msm_products`
+# runs the kernel's warps over the launch order); the BLS12-381 reduce's
 # dense Fp12 product 81. These give `executed_bound_ms`, the reading
 # "products executed".
 F12_MUL_FP = 81
 G2_DBL_FP = 7 * 3 + 2 * 2
-G2_ADD_FP = 14 * 3
+G2_MIXED_FP = 13 * 3
+G2_ADDP_FP = 14 * 3
 # The functions' minimum, which `bound_ms` counts: the reference's
 # algorithms (the 6t+2 loop, its final-exponentiation chain, double-and-add
 # over the scalars' bits) at the cheapest published formulas, an Fp2
@@ -2360,10 +2386,14 @@ G2_ADD_FP = 14 * 3
 # squarings, an Fp6 inverse of 6 products and 3 squarings, the Fp2
 # inverse's 4 products, an Fp inverse at its 253 squarings, two Fp6
 # products). The MSM over live lanes only: a lane with a nonzero scalar
-# doubles (its longest scalar's bits - 1) times and adds (its scalars' set
-# bits - 1) times, at RCB15's complete a = 0 formulas (doubling 6
-# products, 2 squarings and b3': 25; mixed addition 11 products and 2 b3':
-# 39), complete because the lanes hold Q + Q and T + (-T).
+# doubles (its longest scalar's bits - 1) times and adds, the lesser of
+# (its scalars' set bits - 1) mixed additions (double-and-add) and (its
+# nonzero joint indices - 1) projective additions plus its joint table's
+# composite entries by mixed additions (the kernel's chain), at RCB15's
+# complete a = 0 formulas (doubling 6 products, 2 squarings and b3': 25;
+# mixed addition 11 products and 2 b3': 39; projective addition 12
+# products and 2 b3': 42), complete because the lanes hold Q + Q and
+# T + (-T).
 F12_MUL_MIN = 6 * 3 * 3
 F12_SQR_MIN = 2 * 6 * 3
 SPARSE_MIN = 13 * 3
@@ -2374,6 +2404,7 @@ FROB_MIN = 5 * 2
 F12_INV_MIN = 2 * 12 + (6 * 3 + 3 * 2) + 4 + 253 + 2 * 18
 G2_DBL_MIN = 6 * 3 + 2 * 2 + 3
 G2_ADD_MIN = 11 * 3 + 2 * 3
+G2_ADDP_MIN = 12 * 3 + 2 * 3
 EASY_ROWS = 5                   # the program's easy part: no squaring
 BN_MUL_IMAD = 2 * 2 * 8 * 8
 
@@ -2403,22 +2434,45 @@ def final_exp_products_min(program, nterms: int,
 
 
 def msm_products(k_words, nbits: int) -> tuple[int, int, int]:
-    """(executed, least, live lanes) Fp products of the MSM over k_words
-    (B, T, 8) little-endian uint32 scalar words: executed, `nbits`
-    doublings a lane and an addition a set bit; least, see G2_DBL_MIN."""
-    w = np.asarray(k_words, np.uint32)
-    ints = [[sum(int(v) << (32 * i) for i, v in enumerate(t)) for t in lane]
-            for lane in w.tolist()]
-    ones = int(np.unpackbits(w.view(np.uint8)).sum())
-    executed = len(ints) * nbits * G2_DBL_FP + ones * G2_ADD_FP
-    least, live = 0, 0
-    for lane in ints:
-        if any(lane):
-            live += 1
-            least += ((max(k.bit_length() for k in lane) - 1) * G2_DBL_MIN
-                      + (sum(bin(k).count("1") for k in lane) - 1)
-                      * G2_ADD_MIN)
-    return executed, least, live
+    """(executed, least, live lanes) Fp products of the MSM entry over
+    k_words (B, T, 8) little-endian uint32 scalar words in launch order.
+    Executed, as csrc/g2_msm.cu runs them: per warp of 32 lanes, on each
+    of its lanes that is not all zero, a doubling a bit from the warp's
+    highest top bit, a projective addition a window at each bit where any
+    of those lanes has a nonzero index, and the joint tables' composite
+    entries by mixed additions. Least: see G2_DBL_MIN."""
+    from fabric_tpu_torch.ops import bn254
+
+    w = np.ascontiguousarray(k_words).view(np.uint32)
+    B, T = w.shape[:2]
+    bits = np.unpackbits(w.view(np.uint8), axis=-1,
+                         bitorder="little")[..., :nbits]    # (B, T, nbits)
+    wins = bn254.msm_windows(T)
+    idx = [sum(bits[:, lo + t].astype(np.int64) << t for t in range(hi - lo))
+           for lo, hi in wins]                               # (B, nbits)
+    nz = bits.any(axis=1)
+    top = np.where(nz.any(axis=1), nbits - 1 - np.argmax(nz[:, ::-1], 1), -1)
+    live = top >= 0
+    tab = sum((1 << (hi - lo)) - 1 - (hi - lo) for lo, hi in wins)
+    executed = 0
+    for s in range(0, B, 32):
+        lv = live[s:s + 32]
+        if not lv.any():
+            continue
+        start = int(top[s:s + 32].max())
+        adds = sum(int((ix[s:s + 32][lv, :start + 1] != 0).any(axis=0).sum())
+                   for ix in idx)
+        executed += int(lv.sum()) * ((start + 1) * G2_DBL_FP
+                                     + adds * G2_ADDP_FP + tab * G2_MIXED_FP)
+    ones = bits.sum(axis=(1, 2))
+    joint = sum((ix != 0).sum(axis=1) for ix in idx)
+    live_terms = [bits[:, lo:hi].any(axis=2).sum(axis=1) for lo, hi in wins]
+    composite = sum((1 << t) - 1 - t for t in live_terms)
+    old = top * G2_DBL_MIN + (ones - 1) * G2_ADD_MIN
+    new = (top * G2_DBL_MIN + (joint - 1) * G2_ADDP_MIN
+           + composite * G2_ADD_MIN)
+    least = int(np.minimum(old, new)[live].sum())
+    return executed, least, int(live.sum())
 
 
 def bn_bound(products: int, nbytes: int,
@@ -2705,14 +2759,14 @@ def msm_edges():
 
 
 def pairing_vs_plain(iblk, prov, card, pool, nproc):
-    """The Miller, final-exp and MSM entries against their plain versions
-    on the card at full length: PAIRING_LANES product lanes (edge
-    products first; the Miller entry over their 2 x PAIRING_LANES terms,
-    the final-exp entry with T = 2), PAIRING_LANES MSM lanes (edges
-    first); Miller values and GT values equal canonically, verdicts equal
-    and the expected bitmap; edge lanes also held to Python ints (the
-    Miller values through the final exponentiation, GT, the MSM points).
-    Then each entry's time at the block's bucket against its bound."""
+    """The Miller and final-exp entries against their plain versions on
+    the card at full length: PAIRING_LANES product lanes (edge products
+    first; the Miller entry over their 2 x PAIRING_LANES terms, the
+    final-exp entry with T = 2); Miller values and GT values equal
+    canonically, verdicts equal and the expected bitmap; edge lanes also
+    held to Python ints (the Miller values through the final
+    exponentiation, GT). Then each entry's time at the block's bucket
+    against its bound (the MSM entry: msm_vs_plain)."""
     import torch
 
     from fabric_tpu_torch.ops import bn254, tower
@@ -2783,33 +2837,6 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     jobs += [(g_e[i], terms, False) for i, (_, terms) in enumerate(edges)]
     gt_ints = pool.map_async(_gt_int_chunk, [[j] for j in jobs])
 
-    # the MSM entry
-    medges = msm_edges()
-    ME = len(medges)
-    lanes = [ln for _, ln in medges] + iblk["msm"][:PAIRING_LANES - ME]
-    kw, qf = bn254.stage_g2_msm_words(lanes)
-    kt = torch.as_tensor(kw.view(np.int32)).to(dev)
-    qt = [torch.as_tensor(a).to(dev) for a in qf]
-    m_k = bn254.g2_msm(kt, *qt)
-    e0.record()
-    m_p = bn254.g2_msm_plain(bn254.words_to_bits(kt), *qt)
-    e1.record()
-    torch.cuda.synchronize()
-    mk = torch.stack([c for p in m_k for c in p])
-    mp = F.canonical(torch.stack([c for p in m_p for c in p]))
-    err = int((mk - mp).abs().max())
-    check(err == 0, "MSM entry != plain")
-    got_edges = bn254.read_g2_msm(tuple(tuple(c[:ME] for c in p)
-                                        for p in m_k))
-    want_edges = [b.g2_msm(ln) for _, ln in medges]
-    check(got_edges == want_edges, "MSM edge lanes != bn254_ref.g2_msm at "
-          f"{[k for (k, _), g, w in zip(medges, got_edges, want_edges) if g != w]}")
-    check(got_edges[4] is None and got_edges[6] is None
-          and got_edges[5] == b.g2_frobenius_fast((b.G2_X, b.G2_Y)),
-          "MSM edges: T + (-T) or the zero lane not at infinity, or G2 "
-          "outside the subgroup")
-    res["msm", 1] = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
-                         lanes_vs_plain=PAIRING_LANES)
     gt_ints = [v for part in gt_ints.get() for v in part]
     check(all(gt_ints), f"pairing edges != Python ints: "
           f"{[j for j, v in enumerate(gt_ints) if not v]}")
@@ -2855,24 +2882,89 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
             cyclotomic_row=bn254.cyclotomic_row(prog), **bn_reading(
                 ms, n_prod * final_exp_products_min(prog, 2),
                 n_prod * executed, n_prod * (24 + 12) * L * 4 + n_prod))
-    kw_b, qf_b = bn254.stage_g2_msm_words(iblk["msm"] + [[(0, None)] * 3] * (
-        2 * bucket - len(iblk["msm"])))
-    kt_b = torch.as_tensor(kw_b.view(np.int32)).to(dev)
-    qt_b = [torch.as_tensor(a).to(dev) for a in qf_b]
-    ms = cuda_ms(lambda: bn254.g2_msm(kt_b, *qt_b), 3)
-    Bm = kt_b.shape[0]
-    executed, least, live = msm_products(kw_b, bn254.NBITS_R)
-    res["msm", 1].update(lanes_timed=Bm, live_lanes=live, **bn_reading(
-        ms, least, executed, Bm * (3 * 32 + 12 * L * 4 + 6 * L * 4)))
     for (entry, g), r in res.items():
         # milliseconds a call: events time the card (see ladder_vs_plain)
         r["ms_from"] = "cuda_events"
         r["ptxas"] = ptxas_of(*BN_KERNELS[entry, g])
         emit({"phase": "pairing_vs_plain", "entry": entry, "ok": True,
               "threads_a_lane": g, "card": card,
-              **({"edge_products": [k for k, _ in edges]}
-                 if entry != "msm" else
-                 {"edge_lanes": [k for k, _ in medges]}), **r})
+              "edge_products": [k for k, _ in edges], **r})
+    return res
+
+
+def msm_vs_plain(iblk, prov, card):
+    """The MSM entry against its plain version on the card at full length
+    (254-bit scalars): PAIRING_LANES lanes, the edges of msm_edges first,
+    held limb for limb to the chain's plain version (g2_msm_chain); the
+    edges' points also to bn254_ref.g2_msm. Then its time at the block's
+    live lanes in the provider's class order against its bound, and at
+    the shape the provider launched before it launched live lanes only
+    (padded_*: the block's order, all-zero lanes up to the power of two)."""
+    import torch
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as b
+
+    dev = prov.device
+    F = bn254.F
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    medges = msm_edges()
+    ME = len(medges)
+    lanes = [ln for _, ln in medges] + iblk["msm"][:PAIRING_LANES - ME]
+    kw, qf = bn254.stage_g2_msm_words(lanes)
+    kt = torch.as_tensor(kw.view(np.int32)).to(dev)
+    qt = [torch.as_tensor(a).to(dev) for a in qf]
+    m_k = bn254.g2_msm(kt, *qt)
+    e0.record()
+    m_p = bn254.g2_msm_chain(bn254.words_to_bits(kt), *qt)
+    e1.record()
+    torch.cuda.synchronize()
+    mk = torch.stack([c for p in m_k for c in p])
+    mp = F.canonical(torch.stack([c for p in m_p for c in p]))
+    err = int((mk - mp).abs().max())
+    check(err == 0, "MSM entry != plain")
+    got_edges = bn254.read_g2_msm(tuple(tuple(c[:ME] for c in p)
+                                        for p in m_k))
+    want_edges = [b.g2_msm(ln) for _, ln in medges]
+    check(got_edges == want_edges, "MSM edge lanes != bn254_ref.g2_msm at "
+          f"{[k for (k, _), g, w in zip(medges, got_edges, want_edges) if g != w]}")
+    check(got_edges[4] is None and got_edges[6] is None
+          and got_edges[5] == b.g2_frobenius_fast((b.G2_X, b.G2_Y)),
+          "MSM edges: T + (-T) or the zero lane not at infinity, or G2 "
+          "outside the subgroup")
+    res = dict(max_abs_err=err, plain_ms=e0.elapsed_time(e1),
+               lanes_vs_plain=PAIRING_LANES)
+    bucket = 1
+    while bucket < len(iblk["msm"]):
+        bucket *= 2
+    # the MSM at the block's shape as the provider launches it: its live
+    # lanes in class order (bn254.msm_order); beside it, the shape the
+    # provider launched before, padded with all-zero lanes to the power of
+    # two in the block's interleaved order
+    kw_b, qf_b = bn254.stage_g2_msm_words(iblk["msm"])
+    order = bn254.msm_order(kw_b)
+    kw_b = np.ascontiguousarray(kw_b[order])
+    kt_b = torch.as_tensor(kw_b.view(np.int32)).to(dev)
+    qt_b = [torch.as_tensor(np.ascontiguousarray(a[order])).to(dev)
+            for a in qf_b]
+    ms = cuda_ms(lambda: bn254.g2_msm(kt_b, *qt_b), 3)
+    Bm = kt_b.shape[0]
+    executed, least, live = msm_products(kw_b, bn254.NBITS_R)
+    kw_p, qf_p = bn254.stage_g2_msm_words(iblk["msm"] + [[(0, None)] * 3] * (
+        bucket - len(iblk["msm"])))
+    kt_p = torch.as_tensor(kw_p.view(np.int32)).to(dev)
+    qt_p = [torch.as_tensor(a).to(dev) for a in qf_p]
+    res.update(
+        lanes_timed=Bm, live_lanes=live, launch_order="class",
+        padded_lanes=kt_p.shape[0],
+        padded_ms=cuda_ms(lambda: bn254.g2_msm(kt_p, *qt_p), 3),
+        padded_products_executed=msm_products(kw_p, bn254.NBITS_R)[0],
+        **bn_reading(ms, least, executed,
+                     Bm * (3 * 32 + 12 * L * 4 + 6 * L * 4)))
+    res.update(ms_from="cuda_events", ptxas=ptxas_of(*BN_KERNELS["msm", 1]))
+    emit({"phase": "msm_vs_plain", "entry": "msm", "ok": True,
+          "threads_a_lane": 1, "card": card,
+          "edge_lanes": [k for k, _ in medges], **res})
     return res
 
 
@@ -2885,7 +2977,7 @@ BN_NAMES = {"miller": ("bn254.miller_loop_batch",
 # (library, kernel) of each BN254 entry by threads a lane
 BN_KERNELS = {("miller", 1): ("bn254_pairing", "bn254_miller_kernel"),
               ("final_exp", 1): ("bn254_pairing", "bn254_final_exp_kernel"),
-              ("msm", 1): ("g2_msm", "g2_msm_kernel"),
+              ("msm", 1): ("g2_msm", "g2_msm_kernel<1>"),
               **{(e, g): ("bn254_pairing", f"bn254_{e}_coop_kernel<{g}>")
                  for e in ("miller", "final_exp") for g in (8,)}}
 
@@ -3494,8 +3586,8 @@ def bn_tower_int_misses(case, row) -> list[str]:
 
 def field_vs_ints(card, seed: int) -> None:
     """The nvcc-built field core against Python ints (ptree.field_selftest
-    and its plain version): edge operands in 13-bit form, every pair, and
-    seeded random ones; Alg. 4 on the edge point pairs and random points.
+    and its plain version): edge operands in 13-bit form with the carry
+    edges (ptree.CARRY_EDGES), every pair, and seeded random ones; Alg. 4 on the edge point pairs and random points.
     Every output word must be equal."""
     import torch
 
@@ -3506,8 +3598,9 @@ def field_vs_ints(card, seed: int) -> None:
 
     P = p256.P
     rng = np.random.default_rng(seed)
+    # and the operands where the PTX carry chains carry through every word
     edges = [0, 1, P - 1, P, P + 1, (1 << 256) - 1,
-             (1 << 256) + (1 << 243) - 1]
+             (1 << 256) + (1 << 243) - 1] + ptree.CARRY_EDGES
     rand = [int.from_bytes(rng.bytes(32), "big") for _ in range(512)]
     pairs = [(a, b) for a in edges for b in edges] + list(
         zip(rand[::2], rand[1::2]))
@@ -3809,6 +3902,7 @@ def drive(args, pool, nproc, card):
     provp = factory.new_bccsp({"Default": "CUDA"})
     cp, cp_layouts = pairing_path(iblk, provp, card, pool, nproc)
     pvp = pairing_vs_plain(iblk, provp, card, pool, nproc)
+    pvp["msm", 1] = msm_vs_plain(iblk, provp, card)
     # BLS12-381: an orderer's span of block signatures, aggregated
     span = make_bls_span(args.seed, pool, nproc)
     emit({"phase": "bls_span", "ok": True, "signatures": max(BLS_WIDTHS),
@@ -3860,7 +3954,8 @@ def drive(args, pool, nproc, card):
         dict(name="sha256.sha256_blocks (digest-only entry)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/sha256.py:87",
-             launches=n(csha, DIGEST), **sha["digest"]),
+             launches=n(csha, DIGEST) + cl["verify_batch"][DIGEST],
+             **sha["digest"]),
         dict(name="fused_verify.fused_verify_resident",
              source=src + "fused_resident.cu",
              replaces="fabric_tpu/ops/fused_verify.py:442",
@@ -3869,10 +3964,12 @@ def drive(args, pool, nproc, card):
              source=src + "ladder.cu",
              replaces="fabric_tpu/ops/p256.py:326",
              launches=cl["verify_prepared"][LADDER], **lad["digests"]),
-        dict(name="verify.ladder_verify (message lanes)",
+        dict(name="verify.ladder_verify (message lanes: the SHA "
+             "kernel, then the ladder)",
              source=src + "ladder.cu",
              replaces="fabric_tpu/bccsp/tpu.py:3111",
-             launches=cl["verify_batch"][LADDER], **lad["message"]),
+             launches=cl["verify_batch"][LADDER], launches_per_call=2,
+             **lad["message"]),
         dict(name="ed25519.ed25519_verify",
              source=src + "ed25519_verify.cu",
              replaces="fabric_tpu/ops/ed25519.py:264",

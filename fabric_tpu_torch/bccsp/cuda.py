@@ -97,7 +97,8 @@ common/tracing.py): each device dispatch runs in a `tpu.verify` span
 `tpu.bls_pairing` spans; the first load of each kernel library books one
 build event in `device_cost` (the `compile_*` stats); CUDA events around
 each dispatch's copies and launches feed `device_cost.busy` and the
-`device.ready.d<k>` stage, read after the wait the caller already makes;
+`device.ready.d<k>` stage, read while the card works on the next
+dispatch or when the busy totals are read;
 `health()` and `device_stats` are the reference's single-chip answers.
 """
 
@@ -310,6 +311,7 @@ class CUDAProvider(api.BCCSP):
         # a pair goes back once read, so a dispatch makes no new event
         self._events = [] if self.device.type == "cuda" else None
         self._ready_stage = f"device.ready.d{self.device.index or 0}"
+        self._stream = None     # the last current stream `_mark` saw
 
     def _fused_enabled(self) -> bool:
         """The fused-tier knob (CUDA.FusedVerify): FTPU_FUSED=0/1 first,
@@ -400,22 +402,43 @@ class CUDAProvider(api.BCCSP):
             ev = self._events.pop()
         except IndexError:
             ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
+        # torch.cuda.current_stream builds a Stream object a call, on the
+        # commit path before the copies; its raw reading tells whether
+        # the stream seen last is still the current one
+        s = self._stream
+        if s is None or torch._C._cuda_getCurrentStream(
+                s.device_index)[0] != s.stream_id:
+            s = self._stream = torch.cuda.current_stream(self.device)
+        ev.record(s)
+        return ev
+
+    def _mark_end(self):
+        """`_mark` after a dispatch's last launch; then, while the card
+        runs that dispatch, read and book the pairs of the dispatches
+        before it."""
+        ev = self._mark()
+        if ev is not None:
+            self._devicecost.busy.drain()
         return ev
 
     def _note_busy(self, start, end) -> None:
-        """Book the card's time between two `_mark` events as busy time
-        (DeviceBusy's single-chip contract: the whole-batch device stage,
-        its copies and host-paced gaps included, so not kernel occupancy)
-        and as the `device.ready.d<k>` stage. Called after the caller's
-        wait for the results has passed `end`, so it adds no
-        synchronisation."""
+        """Hand the card's time between two `_mark` events to the busy
+        time (DeviceBusy's single-chip contract: the whole-batch device
+        stage, its copies and host-paced gaps included, so not kernel
+        occupancy) and the `device.ready.d<k>` stage. Called after the
+        caller's wait for the results has passed `end`; the reading
+        itself waits for the next `_mark_end` or busy read
+        (`DeviceBusy.drain`)."""
         if start is None:
             return
-        s = start.elapsed_time(end) / 1e3
-        self._devicecost.busy.note(self.device.index or 0, s)
-        tracing.observe_stage(self._ready_stage, s)
-        self._events += (start, end)
+        self._devicecost.busy.note_events(self.device.index or 0, start,
+                                          end, self._booked)
+
+    def _booked(self, start, end, seconds: float) -> None:
+        """A busy pair read: feed the ready stage and return the events
+        to the free list."""
+        tracing.observe_stage(self._ready_stage, seconds)
+        self._events.extend((start, end))
 
     # -- the item path --
 
@@ -879,7 +902,7 @@ class CUDAProvider(api.BCCSP):
                 hi = lo + self._chunk
                 outs.append(bn254.pairing_product_is_one(
                     *bn254.to_device(staged, self.device, lo, hi)))
-        end = self._mark()
+        end = self._mark_end()
         out = torch.cat(outs).cpu().numpy()
         self._note_busy(start, end)
         self.stats["pairing_batches"] += 1
@@ -890,29 +913,35 @@ class CUDAProvider(api.BCCSP):
         """Per lane sum_t k_t * Q_t over the BN254 twist (affine int
         points or None; returns affine int points, None for infinity), on
         the card: the idemix PS presentations' Schnorr recombinations and
-        subgroup lanes in one dispatch. Batches under the host cutoff take
-        the host Strauss MSM (bn254_ref.g2_msm)."""
+        subgroup lanes in one dispatch. Only the live lanes go to the
+        card, in class order (`bn254.msm_order`: a warp's lanes then
+        share their length); the results come back in the caller's
+        order. Batches under the host cutoff take the host Strauss MSM
+        (bn254_ref.g2_msm)."""
         if len(lanes) < max(2, self._min_batch // 8):
             return [bn254_ref.g2_msm(lane) for lane in lanes]
-        nterms, n = len(lanes[0]), len(lanes)
-        bucket = _pow2(n)
-        kw, q_flat = bn254.stage_g2_msm_words(
-            list(lanes) + [[(0, None)] * nterms] * (bucket - n))
-        kw = kw.view(np.int32)
+        n = len(lanes)
+        kw, q_flat = bn254.stage_g2_msm_words(lanes)
+        order = bn254.msm_order(kw)
+        kw = np.ascontiguousarray(kw[order]).view(np.int32)
+        q_flat = [np.ascontiguousarray(a[order]) for a in q_flat]
         outs = []
         with self._dispatch_span():
             start = self._mark()
             with self._count_launches():
-                for lo in range(0, bucket, self._chunk):
+                for lo in range(0, n, self._chunk):
                     hi = lo + self._chunk
                     outs.append(bn254.g2_msm(*bn254.to_device(
                         [kw, *q_flat], self.device, lo, hi)))
-            end = self._mark()
+            end = self._mark_end()
             out = tuple(tuple(torch.cat([o[i][j] for o in outs]).cpu()
                               for j in range(2)) for i in range(3))
             self._note_busy(start, end)
         self.stats["g2_msm_batches"] += 1
-        return bn254.read_g2_msm(out)[:n]
+        res = [None] * n
+        for i, pt in zip(order.tolist(), bn254.read_g2_msm(out)):
+            res[i] = pt
+        return res
 
     def bls_verify_batch(self, pk_tw, msgs, sig_points) -> list[bool]:
         """Issuer-credential BLS verify: e(sig, G2) e(H(m), -pk) == 1 per
@@ -972,7 +1001,7 @@ class CUDAProvider(api.BCCSP):
         staged = blsk.to_device(staged, self.device)
         with self._count_launches():
             out = blsk.pairs_product_is_one(*staged)
-        end = self._mark()
+        end = self._mark_end()
         ok = bool(out.cpu()[0])
         self._note_busy(start, end)
         self.stats["pairing_batches"] += 1
@@ -1002,7 +1031,7 @@ class CUDAProvider(api.BCCSP):
                     return torch.from_numpy(np.ascontiguousarray(
                         a[lo:lo + self._chunk])).to(self.device)
                 outs.append(run(c))
-        end = self._mark()
+        end = self._mark_end()
 
         def wait():
             out = torch.cat(outs).cpu().numpy()

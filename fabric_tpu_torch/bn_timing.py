@@ -3,7 +3,7 @@
 pairing_check_batch's.
 
     python3 fabric_tpu_torch/bn_timing.py [--root DIR] [--reps 5]
-        [--call-reps 3] [--products 10240] [--seed 7]
+        [--call-reps 3] [--products 10240] [--seed 7] [--msm-only]
 
 Times the package under `--root` (default: this checkout) on the idemix
 block's shapes, made from `--seed` out of 64 distinct product lanes
@@ -16,16 +16,25 @@ e(P, Q) e(P, -Q) (each a valid identity product) tiled to the width:
     a package without them: its one layout), each `--reps` calls back to
     back between two CUDA events after one warm-up call: ms a call;
   * the G2 MSM entry at 32,768 lanes, 20,480 of them live (three 254-bit
-    scalars a lane, the idemix presentations' shape), the rest zero;
+    scalars a lane), the rest zero (what the provider launched before it
+    launched live lanes only); and at the idemix block's shape, 20,480
+    live lanes, a presentation's Schnorr lane (s_sk Y~ + s_r G~ - c T~)
+    beside its subgroup lane ([6x^2] T~ alone), in that interleaved order
+    and in the provider's class order (`bn254.msm_order` of this
+    checkout, applied to both roots: the same lanes in the same order);
   * CUDAProvider.pairing_check_batch on `--products` product lanes: after
     one warm-up call, `--call-reps` calls on the host's clock (their
     median) and the card's busy ms a call from the provider's CUDA events
     (device_cost.busy); every verdict must be True.
 
+`--msm-only` times the G2 MSM alone.
+
 Beside them: each library's build seconds and whether nvcc wrote it (cold:
 the first run on a checkout), ptxas' registers, stack and spills of the
 pairing and MSM kernels, and the sha256 of each entry's canonical outputs
-(every layout, and runs on two checkouts, must print the same). Running
+(every layout, and runs on two checkouts, must print the same; the MSM's
+over the affine points of its first 256 lanes, which two chains that
+reach a point through other projective representatives share). Running
 it on two checkouts in turns (for example a parent commit unpacked with
 `git archive` into the git-ignored `chip_tree/`: parent, change, change,
 parent) compares them on one card. Prints one JSON line; needs a CUDA
@@ -52,6 +61,7 @@ DISTINCT = 64               # distinct product lanes, tiled to each width
 # bls_verify_batch's 1,024
 WIDTHS = (16384, 4096, 1024)
 MSM_LANES, MSM_LIVE = 32768, 20480
+SAMPLE = 256                # MSM lanes whose affine points are hashed
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -81,6 +91,23 @@ def _tile(tree, n: int):
     return type(tree)(_tile(t, n) for t in tree)
 
 
+def _msm_entry(bn254, kw, qf, dev, reps: int, sample=None) -> dict:
+    """The MSM entry on staged lanes: ms a call and the sha256 of the
+    affine points of `sample` lanes (default the first SAMPLE)."""
+    import torch
+    kt = torch.as_tensor(np.ascontiguousarray(kw).view(np.int32)).to(dev)
+    qt = [torch.as_tensor(np.ascontiguousarray(a)).to(dev) for a in qf]
+
+    def msm():
+        return bn254.g2_msm(kt, *qt)
+    out = msm()
+    idx = torch.as_tensor(np.arange(SAMPLE) if sample is None else sample)
+    pts = bn254.read_g2_msm(tuple(tuple(c.cpu()[idx] for c in pt)
+                                  for pt in out))
+    return dict(lanes=len(kw), ms=_events_ms(msm, reps),
+                sha256=hashlib.sha256(repr(pts).encode()).hexdigest()[:16])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(HERE))
@@ -88,11 +115,15 @@ def main() -> int:
     ap.add_argument("--call-reps", type=int, default=3)
     ap.add_argument("--products", type=int, default=10240)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--msm-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("bn_timing: no CUDA device", file=sys.stderr)
         return 2
+
+    # the provider's launch order, from this checkout (a pure function)
+    from fabric_tpu_torch.ops.bn254 import msm_order
 
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -126,7 +157,7 @@ def main() -> int:
     layouts = getattr(bn254, "LAYOUTS", (None,))
     prog = bn254._FINAL_EXP_PROGRAM
     entries = {}
-    for n in WIDTHS:
+    for n in () if args.msm_only else WIDTHS:
         xPs, yPs, Qs, Q1s, nQ2s = bn254.to_device(_tile(staged, n), dev)
 
         def cat_pt(qs):
@@ -156,17 +187,31 @@ def main() -> int:
     kw_m, qf = bn254.stage_g2_msm_words(lanes)
     kw_m, qf = _tile((kw_m, qf), MSM_LIVE)
     pad = MSM_LANES - MSM_LIVE
-    kt = torch.as_tensor(np.concatenate(
-        [kw_m, np.zeros((pad,) + kw_m.shape[1:], kw_m.dtype)]).view(
-            np.int32)).to(dev)
-    qt = [torch.as_tensor(np.concatenate([a, a[:pad]])).to(dev) for a in qf]
-
-    def msm():
-        return bn254.g2_msm(kt, *qt)
-    m = torch.stack([c for pt in msm() for c in pt])
-    entries["g2_msm_32768"] = dict(ms=_events_ms(msm, args.reps),
-                                   sha256=_sha(m))
+    kw_m = np.concatenate([kw_m, np.zeros((pad,) + kw_m.shape[1:],
+                                          kw_m.dtype)])
+    qf = [np.concatenate([a, a[:pad]]) for a in qf]
+    entries["g2_msm_32768"] = _msm_entry(bn254, kw_m, qf, dev, args.reps)
+    # the idemix block's MSM lanes: per presentation a Schnorr lane and
+    # its subgroup lane, 64 distinct presentations tiled
+    y_t = b.g2_mul_fast(rng.randrange(2, b.R), g2)
+    lanes = []
+    for _ in range(DISTINCT):
+        q = b.g2_mul_fast(rng.randrange(2, b.R), g2)
+        lanes.append([(rng.randrange(1, b.R), y_t),
+                      (rng.randrange(1, b.R), g2),
+                      (b.R - rng.randrange(1, b.R), q)])
+        lanes.append([(6 * b.T_BN * b.T_BN, q), (0, None), (0, None)])
+    kw_m, qf = _tile(bn254.stage_g2_msm_words(lanes), MSM_LIVE)
+    entries[f"g2_msm_idemix_{MSM_LIVE}_interleaved"] = _msm_entry(
+        bn254, kw_m, qf, dev, args.reps)
+    order = msm_order(kw_m)
+    entries[f"g2_msm_idemix_{MSM_LIVE}_class_order"] = _msm_entry(
+        bn254, kw_m[order], [a[order] for a in qf], dev, args.reps,
+        np.argsort(order)[:SAMPLE])
     out["entries"] = entries
+    if args.msm_only:
+        print(json.dumps(out), flush=True)
+        return 0
 
     prov = factory.new_bccsp({"Default": "CUDA"})
     batch = (prods * (-(-args.products // DISTINCT)))[:args.products]

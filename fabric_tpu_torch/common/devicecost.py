@@ -73,7 +73,13 @@ class DeviceBusy:
     ready lag of a sharded dispatch, or the whole-batch device stage
     on a single-chip provider); ``ratios()`` returns each device's
     busy-time share of the wall window since the previous ``ratios()``
-    call, clamped to [0, 1] — the poller's cadence IS the window."""
+    call, clamped to [0, 1] — the poller's cadence IS the window.
+
+    ``note_events`` hands over a pair of recorded CUDA events instead of
+    seconds: the pair is read and booked by ``drain()``, which
+    ``totals()`` and ``ratios()`` run first and a dispatcher runs while
+    the card works on its next dispatch, so the elapsed-time reading
+    stays off the dispatching caller's path."""
 
     def __init__(self, clock: Callable[[], float] = time.monotonic):
         self._clock = clock
@@ -81,6 +87,7 @@ class DeviceBusy:
         self._busy: dict = {}       # device -> cumulative seconds
         self._last: dict = {}       # snapshot at the last ratios()
         self._last_t = clock()
+        self._pending: list = []    # (device, start, end, then)
 
     def note(self, device: int, seconds: float) -> None:
         if seconds <= 0:
@@ -89,7 +96,36 @@ class DeviceBusy:
             self._busy[device] = self._busy.get(device, 0.0) + \
                 float(seconds)
 
+    def note_events(self, device: int, start, end, then=None) -> None:
+        """Book the device time from event `start` to event `end` at the
+        first ``drain()`` after `end` has completed; `then(start, end,
+        seconds)` runs once the pair is booked."""
+        with self._lock:
+            self._pending.append((device, start, end, then))
+
+    def drain(self) -> None:
+        """Book every pending event pair whose end has completed; the
+        others stay pending."""
+        with self._lock:
+            if not self._pending:
+                return
+            pending, self._pending = self._pending, []
+        waiting = []
+        for p in pending:
+            device, start, end, then = p
+            if not end.query():
+                waiting.append(p)
+                continue
+            s = start.elapsed_time(end) / 1e3
+            self.note(device, s)
+            if then is not None:
+                then(start, end, s)
+        if waiting:
+            with self._lock:
+                self._pending[:0] = waiting
+
     def totals(self) -> dict:
+        self.drain()
         with self._lock:
             return dict(self._busy)
 
@@ -97,6 +133,7 @@ class DeviceBusy:
         """{device: busy_fraction} over the window since the last
         call. A device with no dispatches in the window reads 0.0 —
         idle, not absent."""
+        self.drain()
         with self._lock:
             now = self._clock()
             wall = now - self._last_t

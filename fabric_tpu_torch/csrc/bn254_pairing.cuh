@@ -25,12 +25,17 @@
 //   conj, 2 = frob; ops/bn254.py _final_exp_program) row by row, its rows
 //   the same for every lane, a squaring from row cyc_from on cyclotomic.
 //   gt (12, B, 20): register 0, canonical; ok[lane] = gt is the identity.
-// bn_msm_lane: fabric_tpu/ops/bn254.py g2_msm_scan for one lane, one
-//   thread: scalars k (B, T, 8) little-endian words, points q (4T, B, 20);
-//   from infinity (0, 1, 0), per bit from nbits - 1 down one complete
-//   doubling and, for each term whose bit is set, one complete mixed
-//   addition (a branch where fabric_tpu selects: the same point). out (6,
-//   B, 20): X, Y, Z, canonical.
+// bn_msm_thread / bn_msm_lane: per lane sum_t k_t Q_t (fabric_tpu/ops/
+//   bn254.py g2_msm_scan's points), one thread a lane: scalars k (B, T, 8)
+//   little-endian words, points q (4T, B, 20); the terms' joint tables
+//   (a window of three terms: its 7 subset sums), then from infinity
+//   (0, 1, 0) per bit one complete doubling and per window one complete
+//   projective addition of the entry the window's bits index, kept where
+//   the index is nonzero; the chain of ops/bn254.py g2_msm_chain, which
+//   gives the same projective representative. A warp starts at the
+//   highest bit any of its lanes has set and skips an addition none of
+//   its lanes needs; an all-zero lane writes infinity at once. out (6, B,
+//   20): X, Y, Z, canonical.
 // coop_selftest_group: the self-test of the cooperative layer on this
 //   tower and of the serial formulas it distributes, one case a group
 //   (pairing_coop.cuh selftest_group).
@@ -112,28 +117,109 @@ __device__ __forceinline__ void bn_final_exp_lane(
   ok[lane] = gt_is_one(regs[0], k) ? 1 : 0;
 }
 
+// The MSM's joint tables: the terms in windows of BN_MSM_WINDOW, each
+// window's 2^w - 1 subset sums of its points (entry e - 1 holds sum over
+// the set bits t of e of Q_t).
+constexpr int BN_MSM_WINDOW = 3;
+constexpr int BN_MSM_ENTRIES = (1 << BN_MSM_WINDOW) - 1;
+constexpr int BN_MSM_MAX_WINDOWS =
+    (BN_MSM_MAX_TERMS + BN_MSM_WINDOW - 1) / BN_MSM_WINDOW;
+
+// The highest set bit below nbits of the lane's scalars, -1 if all zero.
+__device__ __forceinline__ int bn_msm_top(const uint32_t* kl, int nterms,
+                                          int nbits) {
+  for (int i = (nbits - 1) >> 5; i >= 0; --i) {
+    uint32_t w = 0;
+    for (int t = 0; t < nterms; ++t) w |= __ldg(kl + 8 * t + i);
+    if (32 * i + 31 >= nbits) w &= 0xFFFFFFFFu >> (32 * i + 32 - nbits);
+    if (w) return 32 * i + 31 - __clz(w);
+  }
+  return -1;
+}
+
+// One lane from bit `start` (at or above its top bit) down: the joint
+// tables first (a composite entry is the entry without its lowest term
+// plus that term, one complete mixed addition: 4 for a window of three),
+// then from infinity (0, 1, 0), per bit one complete doubling and, per
+// window, the complete projective addition of the entry its bits index,
+// kept where the index is nonzero (index 0 is infinity). The bits above a
+// lane's top leave (0, 1, 0) as it is, so `start` does not change the
+// result. `work` holds the warp's lanes that run this body: a window's
+// addition is skipped when none of them needs it, so a warp of lanes with
+// one scalar (the subgroup lanes) adds only at its set bits.
+template <int NW>
 __device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
                                             const int* q, int B, int nterms,
-                                            int nbits, int lane,
-                                            const BnConsts& k, int* out) {
-  G2A Q[BN_MSM_MAX_TERMS];
-  for (int t = 0; t < nterms; ++t) {
-    Q[t].x.c0 = fp_load(q, B, 4 * t, lane, k);
-    Q[t].x.c1 = fp_load(q, B, 4 * t + 1, lane, k);
-    Q[t].y.c0 = fp_load(q, B, 4 * t + 2, lane, k);
-    Q[t].y.c1 = fp_load(q, B, 4 * t + 3, lane, k);
+                                            int start, unsigned work,
+                                            int lane, const BnConsts& k,
+                                            int* out) {
+  G2P tab[NW][BN_MSM_ENTRIES];
+  for (int w = 0; w < NW; ++w) {
+    const int lo = w * BN_MSM_WINDOW;
+    const int nt = min(BN_MSM_WINDOW, nterms - lo);
+    for (int e = 1; e < (1 << nt); ++e) {
+      int t = 0;
+      while (!((e >> t) & 1)) ++t;
+      const G2A Q = {{fp_load(q, B, 4 * (lo + t), lane, k),
+                      fp_load(q, B, 4 * (lo + t) + 1, lane, k)},
+                     {fp_load(q, B, 4 * (lo + t) + 2, lane, k),
+                      fp_load(q, B, 4 * (lo + t) + 3, lane, k)}};
+      const int rest = e & (e - 1);
+      if (rest == 0) {
+        tab[w][e - 1] = {Q.x, Q.y, f2_one(k)};
+      } else {
+        tab[w][e - 1] = tab[w][rest - 1];
+        g2_add_mixed(tab[w][e - 1], Q, k);
+      }
+    }
   }
   const uint32_t* kl = kw + static_cast<size_t>(lane) * nterms * 8;
-  G2P acc = {f2_zero(), {k.one, fp_zero()}, f2_zero()};
-  for (int i = nbits - 1; i >= 0; --i) {
+  G2P acc = {f2_zero(), {k.one, fp_zero()}, f2_zero()}, sum;
+  for (int i = start; i >= 0; --i) {
     g2_dbl(acc, k);
-    for (int t = 0; t < nterms; ++t)
-      if ((__ldg(kl + 8 * t + (i >> 5)) >> (i & 31)) & 1u)
-        g2_add_mixed(acc, Q[t], k);
+    for (int w = 0; w < NW; ++w) {
+      const int lo = w * BN_MSM_WINDOW;
+      const int nt = min(BN_MSM_WINDOW, nterms - lo);
+      int idx = 0;
+      for (int t = 0; t < nt; ++t)
+        idx |= static_cast<int>(
+                   (__ldg(kl + 8 * (lo + t) + (i >> 5)) >> (i & 31)) & 1u)
+               << t;
+      if (!__any_sync(work, idx != 0)) continue;
+      g2_add(sum, acc, tab[w][max(idx, 1) - 1], k);
+      if (idx) acc = sum;
+    }
   }
   const Fp* c[6] = {&acc.X.c0, &acc.X.c1, &acc.Y.c0,
                     &acc.Y.c1, &acc.Z.c0, &acc.Z.c1};
   for (int i = 0; i < 6; ++i) fp_store(out, B, i, lane, *c[i], k);
+}
+
+// One thread's part of the MSM entry (lanes past B store nothing): every
+// thread of the warp takes part in its vote and its reduction, a lane
+// whose scalars are all zero writes infinity (0, 1, 0) at once, and the
+// others run from the highest top bit among the warp's lanes.
+template <int NW>
+__device__ __forceinline__ void bn_msm_thread(const uint32_t* kw,
+                                              const int* q, int B,
+                                              int nterms, int nbits,
+                                              int lane, const BnConsts& k,
+                                              int* out) {
+  const bool live = lane < B;
+  const int top = live ? bn_msm_top(kw + static_cast<size_t>(lane) *
+                                             nterms * 8,
+                                     nterms, nbits)
+                       : -1;
+  const unsigned work = __ballot_sync(0xFFFFFFFFu, top >= 0);
+  const int start = __reduce_max_sync(0xFFFFFFFFu, top);
+  if (!live) return;
+  if (top < 0) {
+    const Fp z = fp_zero();
+    const Fp* c[6] = {&z, &z, &k.one, &z, &z, &z};
+    for (int i = 0; i < 6; ++i) fp_store(out, B, i, lane, *c[i], k);
+    return;
+  }
+  bn_msm_lane<NW>(kw, q, B, nterms, start, work, lane, k, out);
 }
 
 // the cooperative layer's self-test on this tower: bn254_pairing.cu's

@@ -646,6 +646,47 @@ __device__ __noinline__ void g2_add_mixed(G2P& T, const G2A& Q,
   add_to(T.Z, s[0], s[1]);
 }
 
+// RCB15 Alg 7 in full, out = T + Q for a projective Q (the MSM's
+// joint-table step, ops/tower.py g2_add): g2_add_mixed's values with
+// t2 = Z1 Z2 and (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2); 14 Fp2 products.
+// out may alias T or Q: both are read before out is written.
+__device__ __noinline__ void g2_add(G2P& out, const G2P& T, const G2P& Q,
+                                    const BnConsts& k) {
+  Fp2 m[9], s[2];             // t0, t1, t3, t4, Y3, t2, Z3, t1', 3 t0
+  mul_to(m[0], T.X, Q.X);
+  mul_to(m[1], T.Y, Q.Y);
+  mul_to(m[5], T.Z, Q.Z);
+  add_to(s[0], T.X, T.Y);
+  add_to(s[1], Q.X, Q.Y);
+  mul_to(m[2], s[0], s[1]);
+  add_to(s[0], m[0], m[1]);
+  sub_to(m[2], m[2], s[0]);
+  add_to(s[0], T.Y, T.Z);
+  add_to(s[1], Q.Y, Q.Z);
+  mul_to(m[3], s[0], s[1]);
+  add_to(s[0], m[1], m[5]);
+  sub_to(m[3], m[3], s[0]);
+  add_to(s[0], T.X, T.Z);
+  add_to(s[1], Q.X, Q.Z);
+  mul_to(m[4], s[0], s[1]);
+  add_to(s[0], m[0], m[5]);
+  sub_to(m[4], m[4], s[0]);
+  mul_to(m[4], k.b3, m[4]);
+  mul_to(m[5], k.b3, m[5]);
+  add_to(m[6], m[1], m[5]);
+  sub_to(m[7], m[1], m[5]);
+  small_to(m[8], m[0], 3);
+  mul_to(s[0], m[2], m[7]);
+  mul_to(s[1], m[3], m[4]);
+  sub_to(out.X, s[0], s[1]);
+  mul_to(s[0], m[7], m[6]);
+  mul_to(s[1], m[4], m[8]);
+  add_to(out.Y, s[0], s[1]);
+  mul_to(s[0], m[6], m[3]);
+  mul_to(s[1], m[8], m[2]);
+  add_to(out.Z, s[0], s[1]);
+}
+
 // The doubling with its tangent line at the old T, evaluated at (xP,
 // yP), on the cooperative layer's three rounds of products
 // (pairing_coop.cuh dbl_operands1..3): Z^2, X^2, YZ, Y^2, XY, Y yP, Z xP;

@@ -9,21 +9,30 @@
 //   g2_msm_launch: k (B, T, 8) little-endian 32-bit scalar words, q (4T, B,
 //     20) int32 limbs of the affine points (ops/bn254.py
 //     stage_g2_msm_words), consts (148 words, BnConsts), out (6, B, 20): the
-//     projective sum (X, Y, Z), canonical; B, T (1..8), nbits (1..256).
+//     projective sum (X, Y, Z), canonical; any B, T (1..8), nbits (1..256).
 //
 // What bounds it on this card: 32-bit integer multiply-adds. Per bit one
-// complete doubling (9 Fp2 products: 27 field products) and one complete
-// mixed addition (14 Fp2 products: 42) for each set bit of the lane's
-// scalars, 256 IMAD a product (chip_smoke.py pairing_vs_plain counts the
-// set bits of the run's scalars for its bound). The scalars and points are ~400 bytes a lane.
+// complete doubling (9 Fp2 products: 25 field products) and, per window of
+// three terms, one complete projective addition (14 Fp2 products: 42)
+// where the window's bits are not all zero, 256 IMAD a product
+// (chip_smoke.py msm_products counts them on the run's scalars and launch
+// order). The scalars and points are ~400 bytes a lane.
 //
-// The design, a simple first kernel: one thread per lane on the tower's
-// twist steps (bn254_tower.cuh, its Fp2 bodies out of line with operands
-// by value), the points converted once into local memory, the scalars
-// read as words from global memory at each bit. Each
-// lane adds where its own bit is set: a branch, so a warp runs an addition
-// when any of its lanes needs it (with random scalars nearly always), and
-// the result is the point fabric_tpu's masked select gives.
+// The design: one thread per lane on the tower's twist steps
+// (bn254_tower.cuh, its Fp2 bodies out of line with operands by value).
+// A lane first builds its joint table (bn254_pairing.cuh bn_msm_lane: the
+// 7 subset sums of a window's three points, projective in local memory,
+// so that T + (-T) and Q + Q are entries like any other), then takes one
+// doubling and one addition of the indexed entry a bit: ~254 additions
+// for a three-term lane where one addition per set bit of each scalar
+// was ~381. The addition is computed, then kept where the index is
+// nonzero: no branch inside a warp. The provider launches only the live
+// lanes, ordered by class (live terms, then top bit), so a warp's lanes
+// share their length: the warp starts at its highest top bit
+// (__reduce_max_sync) and skips an addition no lane of it needs
+// (__any_sync), which makes the subgroup lanes' warps (one 127-bit scalar
+// of weight 70, the same for every lane) run 127 doublings and 70
+// additions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +45,7 @@ using namespace bn254;
 
 constexpr int THREADS = 64;
 
+template <int NW>
 __global__ void __launch_bounds__(THREADS)
 g2_msm_kernel(const uint32_t* __restrict__ kw, const int* __restrict__ q,
               const uint32_t* __restrict__ consts, int* __restrict__ out,
@@ -43,9 +53,8 @@ g2_msm_kernel(const uint32_t* __restrict__ kw, const int* __restrict__ q,
   __shared__ BnConsts k;
   consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  bn_msm_lane(kw, q, B, nterms, nbits, lane, k, out);
+  bn_msm_thread<NW>(kw, q, B, nterms, nbits,
+                    blockIdx.x * blockDim.x + threadIdx.x, k, out);
 }
 
 }  // namespace
@@ -58,11 +67,26 @@ extern "C" int g2_msm_launch(const void* kw, const void* q,
   if (nterms < 1 || nterms > BN_MSM_MAX_TERMS || nbits < 1 || nbits > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
-  g2_msm_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(kw), static_cast<const int*>(q),
-      static_cast<const uint32_t*>(consts), static_cast<int*>(out), B,
-      nterms, nbits);
+  const int grid = (B + THREADS - 1) / THREADS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* k = static_cast<const uint32_t*>(kw);
+  const int* pts = static_cast<const int*>(q);
+  const uint32_t* c = static_cast<const uint32_t*>(consts);
+  int* o = static_cast<int*>(out);
+  // the joint tables' windows: one for the three terms of the idemix lanes
+  switch ((nterms + BN_MSM_WINDOW - 1) / BN_MSM_WINDOW) {
+    case 1:
+      g2_msm_kernel<1><<<grid, THREADS, 0, s>>>(k, pts, c, o, B, nterms,
+                                                nbits);
+      break;
+    case 2:
+      g2_msm_kernel<2><<<grid, THREADS, 0, s>>>(k, pts, c, o, B, nterms,
+                                                nbits);
+      break;
+    default:
+      g2_msm_kernel<BN_MSM_MAX_WINDOWS><<<grid, THREADS, 0, s>>>(
+          k, pts, c, o, B, nterms, nbits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

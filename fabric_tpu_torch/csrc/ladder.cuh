@@ -1,27 +1,30 @@
-// The generic P-256 verify of one lane: u1 and u2 from stage A's core,
+// The generic P-256 verify of one lane: u1 and u2 from the mod-n core,
 // then R = u1*G + u2*Q by a 2-bit Shamir ladder over the lane's own key,
-// and the projective check. The lane bodies of csrc/ladder.cu's two
-// entries, built by the host compiler for tests/test_torch_ladder.py; the
-// device half of fabric_tpu/ops/p256.py double_scalar_mul and verify_core
-// (and, with SHA-256 in front, fabric_tpu/bccsp/tpu.py _pipeline).
+// and the projective check. The lane body of csrc/ladder.cu's entry, built
+// by the host compiler for tests/test_torch_ladder.py; the device half of
+// fabric_tpu/ops/p256.py double_scalar_mul and verify_core (message lanes
+// are hashed first by the digest-only SHA-256 kernel, ops/verify.py
+// ladder_verify).
 //
 // The ladder, as the JAX package's: a 16-entry table table[i + 4*j] =
-// i*G + j*Q (the G column constants, the Q side one doubling and ten
-// complete additions), then 128 steps of two doublings (pt_dbl) and one
-// complete addition (pt_add) of the entry chosen by bits (254 - 2i,
-// 255 - 2i) of u1 and u2. Both bits of a step lie in one 32-bit word
-// (254 - 2i is even), so the words are walked from the top, two bits a
-// step shifted out of a copy; a word is picked by a select chain, not an
-// index, so u1 and u2 stay in registers. The table is indexed by the
-// data, so it lives in local memory (16 x 96 bytes a lane): ptxas reports
-// it as the kernel's stack frame.
+// i*G + j*Q, then 128 steps of two doublings (pt_dbl) and one complete
+// addition (pt_add) of the entry chosen by bits (254 - 2i, 255 - 2i) of u1
+// and u2. Both bits of a step lie in one 32-bit word (254 - 2i is even),
+// so the words are walked from the top, two bits a step shifted out of a
+// copy; a word is picked by a select chain, not an index, so u1 and u2
+// stay in registers. The G column (infinity, G, 2G, 3G) is the same for
+// every lane: the kernel keeps one copy in shared memory for its block
+// (ladder_g_entry), and each lane's own table in local memory holds only
+// the 12 entries with j > 0 (one doubling and ten complete additions,
+// 1,152 bytes): a step reads its entry through a generic pointer to one
+// or the other.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "stage_a.cuh"
+#include "modn32.cuh"
 
 namespace {
 
@@ -87,8 +90,10 @@ __host__ __device__ __forceinline__ constexpr uint32_t ladder_g_word(int j) {
   }
 }
 
-// k*G in affine form (Z = 1), k = 1, 2, 3
-__device__ __forceinline__ Pt ladder_g_multiple(int k) {
+// the G column's entry k: infinity (k = 0) or k*G in affine form (Z = 1),
+// k = 1, 2, 3
+__device__ __forceinline__ Pt ladder_g_entry(int k) {
+  if (k == 0) return pt_infinity();
   Pt p;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -108,24 +113,22 @@ __device__ __forceinline__ uint32_t fe_word(const Fe& a, int i) {
 }
 
 // premask-free core: accept iff R = u1*G + u2*Q is not at infinity and
-// x(R) == r or rpn (mod p), for canonical scalars u1, u2 and an affine
-// key (qx, qy)
-__device__ __forceinline__ bool ladder_check(const Fe& u1, const Fe& u2,
-                                             const Fe& qx, const Fe& qy,
-                                             const Fe& r, const Fe& rpn) {
-  Pt tab[16];
-  tab[0] = pt_infinity();
-#pragma unroll 1
-  for (int k = 1; k < 4; ++k) tab[k] = ladder_g_multiple(k);
-  tab[4].X = qx;
-  tab[4].Y = qy;
-  tab[4].Z = fe_zero();
-  tab[4].Z.w[0] = 1;
-  pt_dbl(tab[8], tab[4]);
-  pt_add(tab[12], tab[8], tab[4]);
+// x(R) == r or rpn (mod p), for canonical scalars u1, u2, an affine key
+// (qx, qy) and the G column gtab[k] = ladder_g_entry(k)
+__device__ __forceinline__ bool ladder_check(const Pt* gtab, const Fe& u1,
+                                             const Fe& u2, const Fe& qx,
+                                             const Fe& qy, const Fe& r,
+                                             const Fe& rpn) {
+  Pt tab[12];                       // tab[e - 4] = table[e], e = i + 4j
+  tab[0].X = qx;
+  tab[0].Y = qy;
+  tab[0].Z = fe_zero();
+  tab[0].Z.w[0] = 1;
+  pt_dbl(tab[4], tab[0]);
+  pt_add(tab[8], tab[4], tab[0]);
 #pragma unroll 1
   for (int e = 5; e < 16; ++e) {
-    if ((e & 3) != 0) pt_add(tab[e], tab[e & 3], tab[e & 12]);
+    if ((e & 3) != 0) pt_add(tab[e - 4], gtab[e & 3], tab[(e & 12) - 4]);
   }
   Pt acc = pt_infinity();
 #pragma unroll 1
@@ -135,7 +138,9 @@ __device__ __forceinline__ bool ladder_check(const Fe& u1, const Fe& u2,
     for (int s = 0; s < 16; ++s) {
       pt_dbl(acc, acc);
       pt_dbl(acc, acc);
-      pt_add(acc, acc, tab[(a >> 30) | ((c >> 30) << 2)]);
+      const uint32_t i = a >> 30, j = c >> 30;
+      const Pt* e = j ? &tab[i + 4 * j - 4] : &gtab[i];
+      pt_add(acc, acc, *e);
       a <<= 2;
       c <<= 2;
     }
@@ -143,47 +148,13 @@ __device__ __forceinline__ bool ladder_check(const Fe& u1, const Fe& u2,
   return pt_check(acc, r, rpn);
 }
 
-// The two entries' lane bodies (ladder.cu runs one per thread). q8 is
-// (B, 64) uint8: the key's x then y, 32-byte big-endian each; r8, rpn8,
-// w8 (B, 32) uint8 big-endian rows; premask (B,) bool; out (B,) bool. A
-// lane with premask off rejects without computing.
-
-// digest words -> u1, u2 -> the ladder and check
-__device__ __forceinline__ uint8_t ladder_from_words(
-    size_t b, const uint32_t (&words)[8], const uint8_t* __restrict__ q8,
-    const uint8_t* __restrict__ r8, const uint8_t* __restrict__ rpn8,
-    const uint8_t* __restrict__ w8) {
-  const Fe r = fe_load_be(r8 + b * 32);
-  Fe u1, u2;
-  mn_scalars(fe_from_be_words(words), r, fe_load_be(w8 + b * 32), u1, u2);
-  return ladder_check(u1, u2, fe_load_be(q8 + b * 64),
-                      fe_load_be(q8 + b * 64 + 32), r,
-                      fe_load_be(rpn8 + b * 32))
-             ? 1
-             : 0;
-}
-
-// Message lanes: SHA-256 of the lane's live blocks, or its digest where
-// has_digest is set (stage_a.cuh stage_a_words).
-__device__ __forceinline__ void ladder_lane(
-    size_t b, const uint32_t* __restrict__ blocks, int NB,
-    const int* __restrict__ nblocks, const uint32_t* __restrict__ digests,
-    const uint8_t* __restrict__ has_digest, const uint8_t* __restrict__ q8,
-    const uint8_t* __restrict__ r8, const uint8_t* __restrict__ rpn8,
-    const uint8_t* __restrict__ w8, const uint8_t* __restrict__ premask,
-    uint8_t* __restrict__ out) {
-  if (!premask[b]) {
-    out[b] = 0;
-    return;
-  }
-  uint32_t words[8];
-  stage_a_words(words, b, blocks, NB, nblocks, digests, has_digest);
-  out[b] = ladder_from_words(b, words, q8, r8, rpn8, w8);
-}
-
-// Digest lanes: every lane takes its (8,) digest words.
+// The entry's lane body (ladder.cu runs one per thread): digests (B, 8)
+// 32-bit big-endian digest words; q8 (B, 64) uint8: the key's x then y,
+// 32-byte big-endian each; r8, rpn8, w8 (B, 32) uint8 big-endian rows;
+// premask (B,) bool; out (B,) bool; gtab the G column. A lane with premask
+// off rejects without computing.
 __device__ __forceinline__ void ladder_digest_lane(
-    size_t b, const uint32_t* __restrict__ digests,
+    size_t b, const Pt* gtab, const uint32_t* __restrict__ digests,
     const uint8_t* __restrict__ q8, const uint8_t* __restrict__ r8,
     const uint8_t* __restrict__ rpn8, const uint8_t* __restrict__ w8,
     const uint8_t* __restrict__ premask, uint8_t* __restrict__ out) {
@@ -193,7 +164,14 @@ __device__ __forceinline__ void ladder_digest_lane(
   }
   uint32_t words[8];
   load_words(words, digests + b * 8);
-  out[b] = ladder_from_words(b, words, q8, r8, rpn8, w8);
+  const Fe r = fe_load_be(r8 + b * 32);
+  Fe u1, u2;
+  mn_scalars(fe_from_be_words(words), r, fe_load_be(w8 + b * 32), u1, u2);
+  out[b] = ladder_check(gtab, u1, u2, fe_load_be(q8 + b * 64),
+                        fe_load_be(q8 + b * 64 + 32), r,
+                        fe_load_be(rpn8 + b * 32))
+               ? 1
+               : 0;
 }
 
 }  // namespace

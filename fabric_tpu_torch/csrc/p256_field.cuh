@@ -8,10 +8,15 @@
 // reach [0, p); no operation spends a compare-and-select on it. Every
 // function is __forceinline__ and works on values and fixed-size arrays
 // indexed only by compile-time constants (the loops are fully unrolled),
-// so that nothing reaches the stack: the operands live in registers. The
-// code is portable C++ (uint64_t accumulators, no inline PTX), so the host
-// compiler builds the same header for tests/test_torch_p256_field_host.py;
-// carry chains in PTX are a later tuning.
+// so that nothing reaches the stack: the operands live in registers. On
+// the card (__CUDA_ARCH__) the carries run in PTX carry chains: the 8 x 8
+// product by columns, a partial product's chain mad.lo.cc/madc.hi.cc/addc
+// into a three-word accumulator (fe_mul_wide), add and sub and the folds
+// of d as add.cc/addc and sub.cc/subc. The host compiler builds the portable C++
+// beside them (uint64_t accumulators) for tests/test_torch_p256_field_host.py:
+// both compute the same words, the same schoolbook product and the same
+// conditional folds, only the carries are taken another way. The Solinas
+// column sums stay portable signed 64-bit arithmetic on both.
 //
 // The comb tables (and the points entry's r and rpn) are 13-bit limbs: 20
 // little-endian int32 limbs, semi-reduced (limbs in [0, 2^13], value <
@@ -156,7 +161,23 @@ __device__ __forceinline__ Fe fe_reduce_top(Fe x, int64_t t) {
 }
 
 // x + (d & m), one pass; returns the carry out of bit 256.
-__device__ __forceinline__ uint64_t fe_add_d_pass(Fe& x, uint32_t m) {
+__device__ __forceinline__ uint32_t fe_add_d_pass(Fe& x, uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  uint32_t c;
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, %10;\n\t"
+      "addc.cc.u32 %4, %4, %10;\n\t"
+      "addc.cc.u32 %5, %5, %10;\n\t"
+      "addc.cc.u32 %6, %6, %11;\n\t"
+      "addc.cc.u32 %7, %7, 0;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "+r"(x.w[0]), "+r"(x.w[1]), "+r"(x.w[2]), "+r"(x.w[3]),
+        "+r"(x.w[4]), "+r"(x.w[5]), "+r"(x.w[6]), "+r"(x.w[7]), "=r"(c)
+      : "r"(m & 1u), "r"(m), "r"(m & 0xFFFFFFFEu));
+  return c;
+#else
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -164,11 +185,28 @@ __device__ __forceinline__ uint64_t fe_add_d_pass(Fe& x, uint32_t m) {
     x.w[i] = static_cast<uint32_t>(c);
     c >>= 32;
   }
-  return c;
+  return static_cast<uint32_t>(c);
+#endif
 }
 
-// x - (d & m), one pass; returns the borrow (0 or -1).
-__device__ __forceinline__ int64_t fe_sub_d_pass(Fe& x, uint32_t m) {
+// x - (d & m), one pass; returns the borrow as a mask (0 or all ones).
+__device__ __forceinline__ uint32_t fe_sub_d_pass(Fe& x, uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  uint32_t br;
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, 0;\n\t"
+      "subc.cc.u32 %2, %2, 0;\n\t"
+      "subc.cc.u32 %3, %3, %10;\n\t"
+      "subc.cc.u32 %4, %4, %10;\n\t"
+      "subc.cc.u32 %5, %5, %10;\n\t"
+      "subc.cc.u32 %6, %6, %11;\n\t"
+      "subc.cc.u32 %7, %7, 0;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "+r"(x.w[0]), "+r"(x.w[1]), "+r"(x.w[2]), "+r"(x.w[3]),
+        "+r"(x.w[4]), "+r"(x.w[5]), "+r"(x.w[6]), "+r"(x.w[7]), "=r"(br)
+      : "r"(m & 1u), "r"(m), "r"(m & 0xFFFFFFFEu));
+  return br;
+#else
   int64_t br = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -176,7 +214,8 @@ __device__ __forceinline__ int64_t fe_sub_d_pass(Fe& x, uint32_t m) {
     x.w[i] = static_cast<uint32_t>(t);
     br = t >> 32;
   }
-  return br;
+  return static_cast<uint32_t>(br);
+#endif
 }
 
 // x + d (m all ones) or x (m zero), for x in [0, 2^256), mod p: a carry out
@@ -195,14 +234,34 @@ __device__ __forceinline__ void fe_sub_d(Fe& x, uint32_t m) {
 // a + b: a carry out of bit 256 is worth d (mod p)
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
   Fe s;
-  uint64_t c = 0;
+  uint32_t c;
+#if defined(__CUDA_ARCH__)
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3]),
+        "=r"(s.w[4]), "=r"(s.w[5]), "=r"(s.w[6]), "=r"(s.w[7]), "=r"(c)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]),
+        "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]));
+#else
+  uint64_t acc = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    c += static_cast<uint64_t>(a.w[i]) + b.w[i];
-    s.w[i] = static_cast<uint32_t>(c);
-    c >>= 32;
+    acc += static_cast<uint64_t>(a.w[i]) + b.w[i];
+    s.w[i] = static_cast<uint32_t>(acc);
+    acc >>= 32;
   }
-  fe_add_d(s, 0u - static_cast<uint32_t>(c));
+  c = static_cast<uint32_t>(acc);
+#endif
+  fe_add_d(s, 0u - c);
   return s;
 }
 
@@ -210,19 +269,68 @@ __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
 // offset that brings the difference back into [0, 2^256)
 __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   Fe r;
-  int64_t br = 0;
+  uint32_t br;
+#if defined(__CUDA_ARCH__)
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]),
+        "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]), "=r"(br)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]),
+        "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]));
+#else
+  int64_t acc = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int64_t d = static_cast<int64_t>(a.w[i]) - b.w[i] + br;
+    const int64_t d = static_cast<int64_t>(a.w[i]) - b.w[i] + acc;
     r.w[i] = static_cast<uint32_t>(d);
-    br = d >> 32;
+    acc = d >> 32;
   }
-  fe_sub_d(r, static_cast<uint32_t>(br));
+  br = static_cast<uint32_t>(acc);
+#endif
+  fe_sub_d(r, br);
   return r;
 }
 
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
-  uint32_t c[16];
+// The 8 x 8 schoolbook product a * b -> c (16 words). On the card by
+// columns (product scanning): column k sums a_i * b_j over i + j = k into
+// a three-word accumulator, each partial product one carry chain, its low
+// half by mad.lo.cc, its high half by madc.hi.cc and the carry out by
+// addc; ptxas makes each such chain one 64-bit multiply-add (IMAD.WIDE)
+// and a carry add. (By rows, a chain of eight low halves then eight high
+// halves, every partial product took an IMAD, an IMAD.HI and carry adds
+// of their own.)
+__device__ __forceinline__ void fe_mul_wide(uint32_t (&c)[16], const Fe& a,
+                                            const Fe& b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t c0 = 0, c1 = 0, c2 = 0;
+#pragma unroll
+  for (int k = 0; k < 15; ++k) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = k - i;
+      if (j < 0 || j > 7) continue;
+      asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+          "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+          "addc.u32 %2, %2, 0;"
+          : "+r"(c0), "+r"(c1), "+r"(c2)
+          : "r"(a.w[i]), "r"(b.w[j]));
+    }
+    c[k] = c0;
+    c0 = c1;
+    c1 = c2;
+    c2 = 0;
+  }
+  c[15] = c0;
+#else
 #pragma unroll
   for (int k = 0; k < 16; ++k) c[k] = 0;
 #pragma unroll
@@ -237,6 +345,12 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
     }
     c[i + 8] = static_cast<uint32_t>(carry);
   }
+#endif
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+  uint32_t c[16];
+  fe_mul_wide(c, a, b);
   // Solinas: s1 + 2s2 + 2s3 + s4 + s5 - d1 - d2 - d3 - d4, by word
   int64_t v[16];
 #pragma unroll
@@ -283,6 +397,20 @@ __device__ __forceinline__ Fe fe_from_be_words(const uint32_t (&words)[8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.w[i] = words[7 - i];
   return r;
+}
+
+// (8,) words from a 32-byte row of 32-bit words (16-byte aligned)
+__device__ __forceinline__ void load_words(uint32_t (&words)[8],
+                                           const uint32_t* src) {
+  const uint4* v = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 q = __ldg(v + h);
+    words[4 * h] = q.x;
+    words[4 * h + 1] = q.y;
+    words[4 * h + 2] = q.z;
+    words[4 * h + 3] = q.w;
+  }
 }
 
 // (32,) big-endian bytes of a 256-bit value (16-byte aligned) -> (8,)

@@ -22,20 +22,6 @@
 
 namespace {
 
-// (8,) words from a 32-byte row of 32-bit words (16-byte aligned)
-__device__ __forceinline__ void load_words(uint32_t (&words)[8],
-                                           const uint32_t* src) {
-  const uint4* v = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint4 q = __ldg(v + h);
-    words[4 * h] = q.x;
-    words[4 * h + 1] = q.y;
-    words[4 * h + 2] = q.z;
-    words[4 * h + 3] = q.w;
-  }
-}
-
 // (8,) words -> a (8,) int64 row (the port's digest form: each word
 // zero-extended), as four 16-byte stores
 __device__ __forceinline__ void store_words(int64_t* dst,

@@ -82,10 +82,6 @@ KERNELS = {
         "fused_resident_error_string": ([_INT], ctypes.c_char_p),
     }),
     "ladder": ("ladder.cu", {
-        # blocks, nblocks, digests, has_digest, q8, r8, rpn8, w8, premask,
-        # out, NB, B, stream -> cudaError_t
-        "ladder_verify_launch": ([_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
-                                 _INT),
         # digests, q8, r8, rpn8, w8, premask, out, B, stream
         "ladder_digest_launch": ([_VOIDP] * 7 + [_INT] + [_VOIDP], _INT),
         "ladder_error_string": ([_INT], ctypes.c_char_p),

@@ -16,7 +16,13 @@ limbs agree with it exactly:
     axis, one Miller loop, the terms' values multiplied, one final
     exponentiation and the identity test;
   * `g2_msm_scan`: per scalar bit one complete doubling and T masked
-    mixed additions.
+    mixed additions (`g2_msm_plain`).
+
+`g2_msm_chain` is not the JAX package's: it is the plain version of the
+card's MSM chain (the terms' joint tables, one projective addition a bit
+and window), which reaches the same points through other projective
+representatives; the MSM entry is held to it limb for limb, and it to
+`g2_msm_scan`'s points.
 
 The card entries, each a hand-written CUDA kernel (csrc/bn254_pairing.cu,
 csrc/g2_msm.cu) on the 32-bit Montgomery core csrc/bn254_field.cuh and
@@ -36,10 +42,11 @@ products spread over the group in rounds), `layout(B)` threads a lane:
         (`final_exp_launches`; the product check also launches the
         Miller entry once);
     g2_msm(k_words, *Q_flat)
-        CPU: the plain scan; CUDA: the MSM entry (`msm_launches`), which
+        CPU: `g2_msm_chain`; CUDA: the MSM entry (`msm_launches`), which
         reads the 254-bit scalars as 32-bit words. `g2_msm_scan`, the JAX
         package's signature over bool columns, is the plain scan alone:
         on the card the columns would only be packed back into words.
+        `msm_order` is the launch order the provider gives the lanes.
 
 Anything else raises; nothing falls back. The kernels take and return the
 plain version's layout (13-bit limbs in Montgomery form for R = 2^260)
@@ -99,6 +106,7 @@ g2_dbl_line = _T.g2_dbl_line
 g2_add_line = _T.g2_add_line
 g2_dbl = _T.g2_dbl
 g2_add_mixed = _T.g2_add_mixed
+g2_add = _T.g2_add
 gt_is_one = _T.gt_is_one
 
 NBITS_R = 254                       # ref.R.bit_length()
@@ -384,6 +392,75 @@ def g2_msm_plain(bit_cols, *Q_flat):
     return acc
 
 
+MSM_WINDOW = 3                      # terms a joint table covers
+
+
+def msm_windows(nterms: int) -> list[tuple[int, int]]:
+    """The terms' windows (lo, hi) of the MSM's joint tables
+    (csrc/bn254_pairing.cuh BN_MSM_WINDOW)."""
+    return [(lo, min(lo + MSM_WINDOW, nterms))
+            for lo in range(0, nterms, MSM_WINDOW)]
+
+
+def g2_msm_chain(bit_cols, *Q_flat):
+    """The card's MSM chain in plain torch, step for step (csrc/
+    bn254_pairing.cuh bn_msm_lane): bit_cols (NBITS, B, T) bool msb
+    first, Q_flat 4*T (B, L) tensors. Per window of MSM_WINDOW terms a
+    joint table of its points' subset sums (entry e: the entry without
+    e's lowest term plus that term, by the complete mixed addition); then
+    from infinity per bit one complete doubling and, per window, the
+    complete projective addition of the entry its bits index, kept where
+    the index is nonzero. The same points as `g2_msm_plain`, through
+    other projective representatives. Returns the projective (X, Y, Z)
+    Fp2 triple."""
+    nterms = len(Q_flat) // 4
+    Qs = [((Q_flat[4 * t], Q_flat[4 * t + 1]),
+           (Q_flat[4 * t + 2], Q_flat[4 * t + 3])) for t in range(nterms)]
+    one = _T._one(Q_flat[0])
+    zero = torch.zeros_like(one)
+    lanes = torch.arange(one.shape[0], device=one.device)
+    tables = []
+    for lo, hi in msm_windows(nterms):
+        tab = [((zero, zero), (one, zero), (zero, zero))]
+        for e in range(1, 1 << (hi - lo)):
+            t = (e & -e).bit_length() - 1
+            rest = e & (e - 1)
+            Q = Qs[lo + t]
+            tab.append((Q[0], Q[1], (one, zero)) if rest == 0
+                       else g2_add_mixed(tab[rest], Q))
+        # (entries, 6, B, L): the entry of each lane's index by gather
+        tables.append(torch.stack([torch.stack([c for p in pt for c in p])
+                                   for pt in tab]))
+    acc = tables[0][0].unbind(0)
+    acc = ((acc[0], acc[1]), (acc[2], acc[3]), (acc[4], acc[5]))
+    for bits in bit_cols:
+        acc = g2_dbl(acc)
+        for (lo, hi), tab in zip(msm_windows(nterms), tables):
+            idx = sum(bits[:, lo + t].to(torch.int64) << t
+                      for t in range(hi - lo))
+            c = tab[idx, :, lanes].unbind(1)                  # 6 x (B, L)
+            entry = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+            acc = tower.select_pt(idx != 0, g2_add(acc, entry), acc)
+    return acc
+
+
+def msm_order(k_words) -> np.ndarray:
+    """The launch order CUDAProvider.g2_msm_batch gives MSM lanes: k_words
+    (B, T, 8) little-endian uint32 words -> a stable permutation by class,
+    the number of nonzero scalars, then the bit length of the lane's
+    largest scalar. A warp then holds lanes of one length (csrc/g2_msm.cu
+    starts a warp at its highest top bit): the subgroup lanes (one 127-bit
+    scalar) fill warps of their own."""
+    w = np.asarray(k_words).view(np.uint32)
+    live = (w != 0).any(axis=-1).sum(axis=-1)
+    orw = np.bitwise_or.reduce(w, axis=1)                     # (B, 8)
+    nz = orw != 0
+    hi = 7 - np.argmax(nz[:, ::-1], axis=1)
+    top = orw[np.arange(len(w)), hi].astype(np.float64)
+    bits = np.where(nz.any(axis=1), 32 * hi + np.frexp(top)[1], 0)
+    return np.lexsort((bits, live))
+
+
 def words_to_bits(k_words, nbits: int = NBITS_R):
     """(B, T, 8) little-endian 32-bit scalar words (int32) -> (nbits, B, T)
     bool columns, msb first."""
@@ -396,9 +473,9 @@ def words_to_bits(k_words, nbits: int = NBITS_R):
 def g2_msm(k_words, *Q_flat, nbits: int = NBITS_R):
     """sum_t k_t * Q_t per lane: k_words (B, T, 8) int32 little-endian
     words of the scalars (below 2^nbits), Q_flat 4*T (B, L) Montgomery
-    limbs. CPU: the plain scan over words_to_bits; CUDA: csrc/g2_msm.cu
-    (one launch). Returns the projective (X, Y, Z) Fp2 triple (the
-    kernel's canonical)."""
+    limbs. CPU: `g2_msm_chain` over words_to_bits; CUDA: csrc/g2_msm.cu
+    (one launch), limb for limb the same chain. Returns the projective
+    (X, Y, Z) Fp2 triple (the kernel's canonical)."""
     global msm_launches
     B, nterms = k_words.shape[0], k_words.shape[1]
     kernels.check_args(k_words, [("k_words", k_words, (B, nterms, 8), _I32)]
@@ -407,7 +484,7 @@ def g2_msm(k_words, *Q_flat, nbits: int = NBITS_R):
     if len(Q_flat) != 4 * nterms or not 1 <= nbits <= 256:
         raise ValueError("g2_msm: 4 coordinates a term, 1..256 bits")
     if k_words.device.type == "cpu":
-        return g2_msm_plain(words_to_bits(k_words, nbits), *Q_flat)
+        return g2_msm_chain(words_to_bits(k_words, nbits), *Q_flat)
     out = torch.empty((6, B, L), dtype=torch.int32, device=k_words.device)
     kernels.launch(k_words.device, "g2_msm", "g2_msm_launch", k_words,
                    torch.stack(Q_flat), kernel_consts(k_words.device), out,

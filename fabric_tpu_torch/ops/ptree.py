@@ -321,6 +321,17 @@ def tree_verify_windows(w1, w2, key_idx, g_tab, q_tab, K: int, wbits_g: int,
 # The field core's self-test (csrc/field_selftest.cu)
 # ---------------------------------------------------------------------------
 
+# Operands at the carry chains' edges (csrc/p256_field.cuh's PTX path):
+# a word of all ones at each position, all ones above each word boundary,
+# p - 1, 2^256 - 1 and d = 2^256 - p with its small multiples; the
+# self-test takes every pair of them.
+_D = (1 << 256) - p256.P
+CARRY_EDGES = ([0xFFFFFFFF << (32 * k) for k in range(8)]
+               + [(1 << 256) - (1 << (32 * k)) for k in range(1, 8)]
+               + [p256.P - 1, (1 << 256) - 1, _D, 2 * _D, 3 * _D - 1,
+                  p256.P - _D])
+
+
 def field_selftest_plain(a13, b13, p13, q13):
     """Python ints, the reference of csrc/p256_field.cuh: a13, b13
     (n, 20) int32 13-bit limbs -> (n, 32) int64 words of a mod p, a + b,

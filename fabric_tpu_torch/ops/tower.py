@@ -678,6 +678,14 @@ class Tower:
                                self._b3(X1[0]))
         return out
 
+    def g2_add(self, T, Q):
+        """RCB15 Alg 7 complete projective addition T + Q, no line (the
+        MSM's joint-table step)."""
+        X1, Y1, Z1 = T
+        X2, Y2, Z2 = Q
+        out, _ = self._rcb_add(X1, Y1, Z1, X2, Y2, Z2, self._b3(X1[0]))
+        return out
+
     # -- verdict + final exponentiation --
 
     def gt_is_one(self, f):

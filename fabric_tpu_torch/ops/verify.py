@@ -13,20 +13,23 @@ R = u1*G + u2*Q from a 2-bit Shamir ladder over each lane's own key.
         `p256.verify_core`;
     ladder_verify(blocks, nblocks, digests, has_digest, q8, r8, rpn8, w8,
                   premask)
-        the card entry over message lanes: SHA-256 (or the lane's
-        digest), u1 and u2, the ladder and the check in one kernel;
+        message lanes on the card: the digest-only SHA-256 kernel
+        (`sha256.sha256_blocks`), each lane's own digest where has_digest
+        is set (`message_digests`), then `ladder_verify_digests`: two
+        launches;
     ladder_verify_digests(digests, q8, r8, rpn8, w8, premask)
-        the card entry over digest lanes (the commit path and batches
-        hashed on the host).
+        the ladder kernel over digest lanes (the commit path, batches
+        hashed on the host, and message lanes once hashed).
 
 The card entries take the host's compact rows: q8 (B, 64) uint8, each
 lane's key as x then y in 32-byte big-endian form, and r8, rpn8, w8 (B,
 32) uint8 big-endian scalars. A tensor on the CPU runs the plain version;
 a CUDA tensor launches the hand-written kernel in csrc/ladder.cu and adds
-one to `launches`; anything else raises. Nothing falls back. The kernel
-adds with RCB15 Alg. 4 where the plain version uses Alg. 1, so the two
-reach R through other projective representatives; the check is invariant
-under projective scaling and the verdicts agree.
+one to `launches` (the SHA kernel adds to `sha256.launches`); anything
+else raises. Nothing falls back. The kernel adds with RCB15 Alg. 4 where
+the plain version uses Alg. 1, so the two reach R through other
+projective representatives; the check is invariant under projective
+scaling and the verdicts agree.
 """
 
 from __future__ import annotations
@@ -103,14 +106,23 @@ def _lane_rows(B, digests, q8, r8, rpn8, w8, premask):
             ("premask", premask, (B,), (torch.bool,))]
 
 
+def message_digests(blocks, nblocks, digests, has_digest):
+    """(B, 8) int32 digest words of message lanes: SHA-256 of each lane's
+    blocks (`sha256.sha256_blocks`: the plain version on the CPU, the
+    digest-only kernel on the card), a lane's own digest where has_digest
+    is set (`verify_pipeline`'s select)."""
+    words = sha256.sha256_blocks(blocks, nblocks).to(torch.int32)
+    return torch.where(has_digest[:, None], digests.view(torch.int32), words)
+
+
 def ladder_verify(blocks, nblocks, digests, has_digest, q8, r8, rpn8, w8,
                   premask):
     """The ladder over message lanes: blocks (B, NB, 16) uint32/int32
     SHA-padded words, nblocks (B,) int32, digests (B, 8) uint32/int32
     digest words, has_digest (B,) bool, q8 (B, 64) uint8, r8, rpn8, w8
     (B, 32) uint8, premask (B,) bool -> (B,) bool. CPU tensors run the
-    plain version; CUDA tensors launch csrc/ladder.cu's message entry."""
-    global launches
+    plain version; CUDA tensors hash the lanes with the digest-only SHA
+    kernel and launch csrc/ladder.cu on the digests."""
     sha256.check_blocks(blocks, nblocks)
     B = blocks.shape[0]
     _check(blocks, [("blocks", blocks, blocks.shape, sha256.WORD_DTYPES),
@@ -120,12 +132,9 @@ def ladder_verify(blocks, nblocks, digests, has_digest, q8, r8, rpn8, w8,
     if blocks.device.type == "cpu":
         return ladder_plain(blocks, nblocks, digests, has_digest, q8, r8,
                             rpn8, w8, premask)
-    out = torch.empty(B, dtype=torch.bool, device=blocks.device)
-    kernels.launch(blocks.device, "ladder", "ladder_verify_launch", blocks,
-                   nblocks, digests, has_digest, q8, r8, rpn8, w8, premask,
-                   out, blocks.shape[1], B)
-    launches += 1
-    return out
+    return ladder_verify_digests(
+        message_digests(blocks, nblocks, digests, has_digest), q8, r8, rpn8,
+        w8, premask)
 
 
 def ladder_verify_digests(digests, q8, r8, rpn8, w8, premask):

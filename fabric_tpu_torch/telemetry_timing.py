@@ -13,9 +13,13 @@ turns across four arms, `--calls` calls each on the host's clock:
   bare       tracing off and the provider's `_mark` stubbed out: neither;
   fresh      spans on, each call's events made anew (no free list).
 
-Then the host cost of each telemetry step alone, in microseconds, over
+Then, over `--calls` calls with everything on, the median host time of
+each telemetry step inside a call (`in_situ_us`): the mark before the
+copies, the mark after the last launch, the busy note after the wait,
+and the busy reading where the provider has `DeviceBusy.drain`. Then
+the host cost of each telemetry step alone, in microseconds, over
 `--reps` repetitions: an event pair made anew and recorded on an idle
-stream, the same pair reused, one elapsed-time reading and busy note, a
+stream, the same pair reused, one busy note and its reading (`drain`), a
 `_dispatch_span` with tracing on and off, and one `observe_stage`.
 Each timed call follows an untimed one in the same arm, so the free list
 holds a pair. Prints one JSON line with the card's name and power limit;
@@ -101,6 +105,42 @@ def main() -> int:
     finally:
         arm("on")
 
+    # in situ, spans and events on: each call's first `_mark` (before its
+    # copies), its second (after its last launch), its `_note_busy` (after
+    # the wait), and the busy reading (`DeviceBusy.drain`, where the
+    # provider has one) inside them
+    insitu: dict = {"mark": [], "note": [], "drain": []}
+
+    def timer(fn, into):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            into.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    busy = prov.device_cost.busy
+    has_drain = hasattr(busy, "drain")
+    prov._mark = timer(shipped_mark, insitu["mark"])
+    prov._note_busy = timer(shipped_note, insitu["note"])
+    if has_drain:
+        busy.drain = timer(busy.drain, insitu["drain"])
+    try:
+        for _ in range(args.calls):
+            prov.verify_prepared(**pr)
+    finally:
+        for name in ("_mark", "_note_busy"):
+            prov.__dict__.pop(name, None)
+        busy.__dict__.pop("drain", None)
+
+    def med_us(xs):
+        return statistics.median(xs) * 1e6 if xs else None
+
+    in_situ = {"start_mark_us": med_us(insitu["mark"][0::2]),
+               "end_mark_us": med_us(insitu["mark"][1::2]),
+               "note_us": med_us(insitu["note"]),
+               "drain_us": med_us(insitu["drain"]) if has_drain else None}
+
     torch.cuda.synchronize()
     stream = torch.cuda.current_stream(prov.device)
 
@@ -117,6 +157,11 @@ def main() -> int:
     start, end = shipped_mark(), shipped_mark()
     end.synchronize()
 
+    def note_and_read():
+        shipped_note(start, end)
+        if has_drain:
+            busy.drain()
+
     def span(on):
         tracing.set_enabled(on)
 
@@ -127,8 +172,7 @@ def main() -> int:
 
     micro = {"fresh_event_pair_us": _us(fresh_pair, args.reps),
              "reused_event_pair_us": _us(pooled_pair, args.reps),
-             "elapsed_and_note_us": _us(lambda: shipped_note(start, end),
-                                        args.reps),
+             "elapsed_and_note_us": _us(note_and_read, args.reps),
              "dispatch_span_on_us": _us(span(True), args.reps),
              "dispatch_span_off_us": _us(span(False), args.reps)}
     tracing.set_enabled(True)
@@ -142,7 +186,7 @@ def main() -> int:
         "median_ms": {a: statistics.median(t) * 1e3
                       for a, t in times.items()},
         "all_ms": {a: [x * 1e3 for x in t] for a, t in times.items()},
-        "host_us": micro}), flush=True)
+        "in_situ_us": in_situ, "host_us": micro}), flush=True)
     return 0
 
 

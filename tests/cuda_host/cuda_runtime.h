@@ -52,5 +52,18 @@ inline void __syncwarp(unsigned int = 0xFFFFFFFFu) {}
 
 inline long long clock64() { return 0; }
 
+// one host thread is a whole warp of one lane: a vote or a reduction
+// over the warp is the lane's own value
+inline int __any_sync(unsigned int, int pred) { return pred != 0; }
+
+inline unsigned int __ballot_sync(unsigned int, int pred) {
+  return pred != 0 ? 1u : 0u;
+}
+
+inline int __reduce_max_sync(unsigned int, int v) { return v; }
+
+// leading zero bits of a 32-bit word (32 for zero)
+inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
+
 using std::max;
 using std::min;

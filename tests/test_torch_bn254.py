@@ -10,14 +10,19 @@ CUDA provider's pairing methods, on the CPU.
   equals fabric_tpu's eager tower calls limb for limb (the JAX MontMod
   primitives jit-compiled, as in tests/test_torch_tower.py).
 * g2_msm_scan on 8-bit scalar columns against the host MSM, the words
-  unpacked to the same columns, g2_msm on the words equal.
+  unpacked to the same columns, g2_msm on the words (the card's chain,
+  g2_msm_chain) at the same points; g2_msm_chain against fabric_tpu's
+  g2_msm_scan (its lax.scan run as a Python loop over the same body) and
+  the host MSM, point for point, with the k0, Q + Q, T + (-T) and
+  all-zero edges.
 * final_exp_batch in full against final_exponentiation_chain (`slow`:
   ~9 s of eager torch); the final-exp program's cyclotomic lowering
   (cyclotomic_row = 5) against the JAX package's eager rows on a short
   program.
 * CUDAProvider's pairing routes with the kernels stubbed: host cutoffs,
   the 2-term pad lane, nterms != 2, BLS None lanes, stats, errors that
-  propagate.
+  propagate; g2_msm_batch's live lanes in class order, results in the
+  caller's order.
 Tolerance: exact (limbs, or integers).
 """
 
@@ -141,10 +146,46 @@ def test_g2_msm_scan_8bit_matches_host():
     kw, _ = dev.stage_g2_msm_words(lanes)
     kw = torch.as_tensor(kw.view(np.int32))
     assert torch.equal(dev.words_to_bits(kw, 8), torch.as_tensor(bits))
+    # g2_msm on the CPU runs the card's chain (g2_msm_chain): the same
+    # points through other projective representatives
     out2 = dev.g2_msm(kw, *q, nbits=8)
-    for a, b in zip(jax.tree_util.tree_leaves(out),
-                    jax.tree_util.tree_leaves(out2)):
-        assert torch.equal(a, b)
+    assert dev.read_g2_msm(out2) == dev.read_g2_msm(out)
+
+
+class _LaxLoop:
+    """fabric_tpu's `lax.scan` as a Python loop over the same body (its
+    MontMod primitives stay jitted by jit_primitives): XLA takes minutes
+    to compile the whole MSM scan on the CPU."""
+
+    @staticmethod
+    def scan(body, carry, xs):
+        for x in xs:
+            carry, _ = body(carry, x)
+        return carry, None
+
+
+def test_g2_msm_chain_matches_scan_points_and_ints(monkeypatch):
+    """The card's chain in plain torch (joint tables, one projective
+    addition a bit) against fabric_tpu's g2_msm_scan and the int MSM on
+    8-bit scalars, point for point, with the edges k0, q_plus_q,
+    t_minus_t and all_zero."""
+    monkeypatch.setattr(jdev, "lax", _LaxLoop)
+    rng = random.Random(77)
+    T = ref.g2_mul_fast(24680, G2)
+    lanes = [[(rng.randrange(1 << 8), G2), (rng.randrange(1 << 8), T),
+              (rng.randrange(1 << 8), ref.g2_neg_tw(T))] for _ in range(3)]
+    lanes += [[(0, T), (1, G2), (0, None)],                      # k0
+              [(1, T), (1, T), (0, None)],                       # q_plus_q
+              [(123, T), (0, None), (123, ref.g2_neg_tw(T))],    # t_minus_t
+              [(0, None), (0, None), (0, None)]]                 # all_zero
+    bits, qf = dev.stage_g2_msm(lanes, nbits=8)
+    chain = dev.g2_msm_chain(torch.as_tensor(bits),
+                             *[torch.as_tensor(a) for a in qf])
+    scan = jdev.g2_msm_scan(jnp.asarray(bits), *[jnp.asarray(a) for a in qf])
+    want = [ref.g2_msm(lane) for lane in lanes]
+    assert dev.read_g2_msm(chain) == dev.read_g2_msm(
+        jax.tree_util.tree_map(np.asarray, scan)) == want
+    assert want[5] is None and want[6] is None
 
 
 def test_cyclotomic_lowering_matches_jax_rows():
@@ -353,6 +394,58 @@ def test_provider_g2_msm_routes(monkeypatch):
     assert not seen
     before = dict(prov.stats)
     assert prov.g2_msm_batch(lanes) == [ref.g2_msm(lane) for lane in lanes]
-    assert seen == [(4, 3, 8)]
+    assert seen == [(3, 3, 8)]                 # the live lanes, no pad
     assert prov.stats["g2_msm_batches"] - before["g2_msm_batches"] == 1
     assert prov.stats["g2_msm_launches"] - before["g2_msm_launches"] == 1
+
+
+def test_provider_g2_msm_orders_lanes_by_class(monkeypatch):
+    """g2_msm_batch launches the n live lanes (no power-of-two pad) in
+    class order (nonzero scalars, then the largest scalar's bit length)
+    and returns the results in the caller's order, for a shuffled mix of
+    Schnorr lanes (three scalars), subgroup lanes (6x^2 alone) and an
+    all-zero lane; the kernel stubbed by the int MSM of the staged words."""
+    launched = []
+
+    def fake(kw, *q_flat, nbits=dev.NBITS_R):
+        dev.msm_launches += 1
+        lanes = []
+        for i in range(kw.shape[0]):
+            lane = []
+            for t in range(kw.shape[1]):
+                k = sum((int(w) & 0xFFFFFFFF) << (32 * j)
+                        for j, w in enumerate(kw[i, t].tolist()))
+                c = [dev.F.from_limbs(q_flat[4 * t + j][i].numpy())
+                     for j in range(4)]
+                lane.append((k, ((c[0], c[1]), (c[2], c[3]))))
+            lanes.append(lane)
+        launched.extend(lanes)
+        cols = [[] for _ in range(6)]
+        for lane in lanes:
+            pt = ref.g2_msm(lane)
+            vals = (0, 0, 1, 0, 0, 0) if pt is None else (
+                *pt[0], *pt[1], 1, 0)
+            for col, v in zip(cols, vals):
+                col.append(dev.F.to_mont(v))
+        t = [torch.as_tensor(np.stack(c)) for c in cols]
+        return ((t[0], t[1]), (t[2], t[3]), (t[4], t[5]))
+
+    monkeypatch.setattr(dev, "g2_msm", fake)
+    prov = CUDAProvider(device="cpu", min_batch=16)
+    rng = random.Random(85)
+    qs = [ref.g2_mul_fast(rng.randrange(2, 1 << 20), G2) for _ in range(3)]
+    lanes = [[(rng.randrange(1 << 200, ref.R), qs[0]),
+              (rng.randrange(1 << 100), qs[1]), (ref.R - 1, qs[2])]
+             for _ in range(3)]
+    lanes += [[(6 * ref.T_BN ** 2, q), (0, None), (0, None)] for q in qs]
+    lanes += [[(0, None), (0, None), (0, None)],
+              [(rng.randrange(1 << 60), qs[2]), (0, None), (5, qs[0])]]
+    rng.shuffle(lanes)
+    want = [ref.g2_msm(lane) for lane in lanes]
+    assert prov.g2_msm_batch(lanes) == want
+    assert len(launched) == len(lanes) == 8
+    classes = [(sum(1 for k, _ in ln if k), max(k.bit_length()
+                                                for k, _ in ln))
+               for ln in launched]
+    assert classes == sorted(classes)
+    assert [c for c in classes if c[0] == 1] == [(1, 127)] * 3

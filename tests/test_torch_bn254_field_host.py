@@ -27,8 +27,11 @@ after the final exponentiation); the cooperative final-exp body on a
 short program with two terms against the plain version and on the full
 program against bn254_ref.final_exponentiation_chain, with its identity
 verdict on a product that is one; the serial lanes on the same inputs;
-the MSM lane on 8-bit scalars with Q + Q, Q + (-Q), k = 0 and a sum at
-infinity. Tolerance: exact words and limbs. The nvcc build is held to the
+the MSM threads (joint tables, one projective addition a bit and window)
+on 8-bit scalars with Q + Q, Q + (-Q), k = 0, an all-zero lane and a sum
+at infinity, with three and five terms, word for word against the plain
+chain (ops/bn254.py g2_msm_chain), and on full-width scalars with the
+subgroup lane's 127-bit 6x^2 against the int MSM. Tolerance: exact words and limbs. The nvcc build is held to the
 same on the card (tests/test_torch_cuda.py, chip_smoke.py field_vs_ints
 and pairing_vs_plain).
 """
@@ -130,10 +133,17 @@ extern "C" void h_final_exp_serial(const int* f, const uint32_t* c,
     bn_final_exp_lane(f, nterms, B, i, prog, nrows, cyc_from, k, gt, ok);
 }
 
+// the MSM entry's threads for lanes 0..B (lane B a pad lane), each lane
+// a warp of its own (it starts at its own top bit)
 extern "C" void h_msm(const uint32_t* kw, const int* q, const uint32_t* c,
                       int* out, int B, int nterms, int nbits) {
   const BnConsts k = consts_of(c);
-  for (int i = 0; i < B; ++i) bn_msm_lane(kw, q, B, nterms, nbits, i, k, out);
+  for (int i = 0; i <= B; ++i) {
+    if (nterms <= BN_MSM_WINDOW)
+      bn_msm_thread<1>(kw, q, B, nterms, nbits, i, k, out);
+    else
+      bn_msm_thread<2>(kw, q, B, nterms, nbits, i, k, out);
+  }
 }
 """
 
@@ -496,7 +506,27 @@ def test_coop_formulas_match_plain_and_ints(core, coop_cases, rev):
         assert v[108] == v[109] == pow(a, P - 2, P)
 
 
+def _msm_host(core, lanes, nbits):
+    """The host-built MSM threads on staged lanes: (6, B, 20) limbs."""
+    kw, qf = dev.stage_g2_msm_words(lanes)
+    B, T = len(lanes), len(lanes[0])
+    q = np.ascontiguousarray(np.stack(qf))
+    out = np.zeros((6, B, 20), np.int32)
+    _call(core.h_msm, np.ascontiguousarray(kw), q, CONSTS, out, B, T, nbits)
+    return kw, qf, out
+
+
+def _msm_points(out):
+    return dev.read_g2_msm(((out[0], out[1]), (out[2], out[3]),
+                            (out[4], out[5])))
+
+
 def test_msm_lane_matches_plain_and_ints(core):
+    """The MSM thread word for word against the plain chain
+    (dev.g2_msm on the CPU: g2_msm_chain) on 8-bit scalars, and its
+    points against the int MSM: k = 0 lanes, Q + (-Q) (a joint-table
+    entry at infinity), Q + Q (an entry that doubles), a sum at infinity
+    and an all-zero lane."""
     rng = random.Random(94)
     T = ref.g2_mul_fast(31337, G2)
     lanes = [[(rng.randrange(1 << 8), G2), (rng.randrange(1 << 8), T),
@@ -504,17 +534,43 @@ def test_msm_lane_matches_plain_and_ints(core):
     lanes += [[(0, G2), (0, None), (0, G2)],                 # k = 0: inf
               [(9, T), (0, None), (9, ref.g2_neg_tw(T))],   # Q + (-Q)
               [(1, T), (1, T), (0, None)],                  # Q + Q
-              [(255, G2), (1, G2), (0, None)]]              # 256 G2
-    kw, qf = dev.stage_g2_msm_words(lanes)
-    B = len(lanes)
-    q = np.ascontiguousarray(np.stack(qf))
-    out = np.zeros((6, B, 20), np.int32)
-    _call(core.h_msm, np.ascontiguousarray(kw), q, CONSTS, out, B, 3, 8)
+              [(255, G2), (1, G2), (0, None)],              # 256 G2
+              [(0, T), (1, G2), (0, None)],                 # k0
+              [(0, None), (0, None), (0, None)]]            # all zero
+    kw, qf, out = _msm_host(core, lanes, 8)
     plain = dev.g2_msm(torch.as_tensor(kw.view(np.int32)),
                        *[torch.as_tensor(a) for a in qf], nbits=8)
     flat = torch.stack([c for p in plain for c in p])
     np.testing.assert_array_equal(out, dev.F.canonical(flat).numpy())
-    got = dev.read_g2_msm(((out[0], out[1]), (out[2], out[3]),
-                           (out[4], out[5])))
+    got = _msm_points(out)
     assert got == [ref.g2_msm(lane) for lane in lanes]
-    assert got[3] is None and got[4] is None
+    assert got[3] is None and got[4] is None and got[8] is None
+
+
+def test_msm_lane_two_windows_and_subgroup(core):
+    """Five terms (two joint tables) on 8-bit scalars word for word
+    against the plain chain and the int MSM, one window's entries at
+    infinity; then the subgroup lane [6x^2]T~ (127 bits, one scalar)
+    beside a 254-bit three-term lane, against the int MSM and psi(T~)."""
+    rng = random.Random(95)
+    T = ref.g2_mul_fast(4711, G2)
+    nT = ref.g2_neg_tw(T)
+    lanes = [[(rng.randrange(1 << 8), q) for q in (G2, T, nT, G2, T)]
+             for _ in range(2)]
+    lanes += [[(0, None), (0, None), (0, None), (5, T), (5, nT)],
+              [(3, T), (0, None), (0, None), (0, None), (1, G2)]]
+    kw, qf, out = _msm_host(core, lanes, 8)
+    plain = dev.g2_msm(torch.as_tensor(kw.view(np.int32)),
+                       *[torch.as_tensor(a) for a in qf], nbits=8)
+    flat = torch.stack([c for p in plain for c in p])
+    np.testing.assert_array_equal(out, dev.F.canonical(flat).numpy())
+    got = _msm_points(out)
+    assert got == [ref.g2_msm(lane) for lane in lanes]
+    assert got[2] is None
+    full = [[(6 * ref.T_BN ** 2, T), (0, None), (0, None)],
+            [(rng.randrange(ref.R), G2), (rng.randrange(ref.R), T),
+             (ref.R - 1, T)]]
+    _, _, out = _msm_host(core, full, dev.NBITS_R)
+    got = _msm_points(out)
+    assert got == [ref.g2_msm(lane) for lane in full]
+    assert got[0] == ref.g2_frobenius_fast(T)

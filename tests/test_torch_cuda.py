@@ -156,11 +156,12 @@ def test_windows_entry_matches_plain_and_ints(dev, T):
 
 
 def test_field_core_matches_ints(dev):
-    """The nvcc build of csrc/p256_field.cuh on the edge operands of the
-    host test: mul, add, sub, the 13-bit conversion and Alg. 4's add."""
+    """The nvcc build of csrc/p256_field.cuh (its PTX carry chains) on
+    the edge operands of the host test and the carry edges: mul, add,
+    sub, the 13-bit conversion and Alg. 4's add."""
     P = p256.P
     edges = [0, 1, P - 1, P, P + 1, (1 << 256) - 1,
-             (1 << 256) + (1 << 243) - 1]
+             (1 << 256) + (1 << 243) - 1] + ptree.CARRY_EDGES
     a = limb.ints_to_limbs([x for x in edges for _ in edges])
     b = limb.ints_to_limbs([y for _ in edges for y in edges])
     g = (p256.GX, p256.GY, 1)
@@ -579,7 +580,8 @@ def test_dbl_and_f25_cores_match_ints(dev):
 
 
 def test_ladder_kernel_matches_plain_and_ints(dev):
-    """Both ladder entries on chip_smoke's edge lanes (u1 = 0, R at
+    """Both ladder entries (digest lanes; message lanes: the SHA kernel
+    then the digest entry) on chip_smoke's edge lanes (u1 = 0, R at
     infinity, the rpn candidate, table entries at infinity and doublings,
     premask off, message lengths 0 to 503) and a small block over 23
     keys: kernel = plain version on every lane, = Python ints on the
@@ -593,10 +595,12 @@ def test_ladder_kernel_matches_plain_and_ints(dev):
     edges = cs.ladder_edges(blk, np.random.default_rng(6))
     h = cs.ladder_lanes(blk, 64, 8, edges)
     t = cs._ladder_tensors(h, dev)
-    before = verify.launches
+    before = verify.launches, sha256.launches
     got = {"digests": verify.ladder_verify_digests(*t["digests"]),
            "message": verify.ladder_verify(*t["message"])}
-    assert verify.launches == before + 2
+    # the message entry: the SHA kernel, then the ladder on the digests
+    assert (verify.launches, sha256.launches) == (before[0] + 2,
+                                                  before[1] + 1)
     plain = {"digests": verify.ladder_digests_plain(*t["digests"]),
              "message": verify.ladder_plain(*t["message"])}
     torch.cuda.synchronize()
@@ -683,6 +687,7 @@ def test_provider_ladder_and_ed25519_on_the_card(dev):
     assert prov.verify_batch(items) == want
     assert prov.stats["ladder_batches"] == 1
     assert prov.stats["ladder_launches"] == 1
+    assert prov.stats["sha256_launches"] == 1
     assert prov.stats["ed25519_launches"] == 1
     assert prov.stats["tree_kernel_launches"] == 0
     p_items = [it for i, it in enumerate(items) if i % 3 != 2]
@@ -816,8 +821,9 @@ def test_bn254_coop_selftest_matches_plain(dev):
 
 def test_bn254_msm_matches_plain_and_ints(dev):
     """The MSM entry on 8-bit scalars (k = 0, Q + (-Q), Q + Q lanes)
-    against its plain version on the card and the host MSM; full-width
-    scalars (r - 1, the subgroup lane's 6x^2) against the host MSM."""
+    against its plain version (the chain, g2_msm_chain) on the card limb
+    for limb and the host MSM; full-width scalars (r - 1, the subgroup
+    lane's 6x^2) against the host MSM."""
     import random
 
     from fabric_tpu_torch.ops import bn254
@@ -836,7 +842,7 @@ def test_bn254_msm_matches_plain_and_ints(dev):
     before = bn254.msm_launches
     got = bn254.g2_msm(kw.to(dev), *[a.to(dev) for a in q], nbits=8)
     assert bn254.msm_launches == before + 1
-    plain = bn254.g2_msm_plain(bn254.words_to_bits(kw.to(dev), 8),
+    plain = bn254.g2_msm_chain(bn254.words_to_bits(kw.to(dev), 8),
                                *[a.to(dev) for a in q])
     for (ga, gb), (pa, pb) in zip(got, plain):
         assert torch.equal(ga, bn254.F.canonical(pa))
@@ -849,6 +855,52 @@ def test_bn254_msm_matches_plain_and_ints(dev):
     out = bn254.g2_msm(torch.as_tensor(kw.view(np.int32)).to(dev),
                        *[torch.as_tensor(a).to(dev) for a in qf])
     assert bn254.read_g2_msm(out) == [bref.g2_msm(lane) for lane in full]
+
+
+def test_bn254_msm_warps_match_chain(dev):
+    """Warps of mixed lanes (three scalars, one scalar of each length,
+    all zero) in a random order and in the provider's class order
+    (bn254.msm_order), 8-bit scalars over 200 lanes and five terms over
+    70 (two joint tables): a warp starts at its longest lane and skips
+    the additions none of its lanes needs, and each lane still equals the
+    plain chain limb for limb (its leading steps keep infinity as it
+    is)."""
+    import random
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    rng = random.Random(98)
+    g2 = (bref.G2_X, bref.G2_Y)
+    pts = [bref.g2_mul_fast(rng.randrange(2, 1 << 30), g2) for _ in range(4)]
+    def scalars(kind, nterms):
+        if kind == 0:                               # every term
+            return [rng.randrange(1 << 8) for _ in range(nterms)]
+        if kind == 1:                               # one, of any length
+            return [rng.randrange(1 << rng.randrange(1, 9))] + [0] * (
+                nterms - 1)
+        if kind == 2:                               # all zero
+            return [0] * nterms
+        return [0, rng.randrange(1 << 4)] + [0] * (nterms - 2)
+
+    for nterms, n in ((3, 200), (5, 70)):
+        lanes = [[(k, pts[(i + t) % 4]) for t, k in enumerate(
+            scalars(rng.randrange(4), nterms))] for i in range(n)]
+        for order in (np.arange(n), None):
+            kw, qf = bn254.stage_g2_msm_words(lanes)
+            if order is None:
+                order = bn254.msm_order(kw)
+            kt = torch.as_tensor(np.ascontiguousarray(kw[order]).view(
+                np.int32)).to(dev)
+            qt = [torch.as_tensor(np.ascontiguousarray(a[order])).to(dev)
+                  for a in qf]
+            got = bn254.g2_msm(kt, *qt, nbits=8)
+            plain = bn254.g2_msm_chain(bn254.words_to_bits(kt, 8), *qt)
+            for g_, p_ in zip(got, plain):
+                for a, b in zip(g_, p_):
+                    assert torch.equal(bn254.F.canonical(a),
+                                       bn254.F.canonical(b))
+        want = [bref.g2_msm(lanes[i]) for i in order.tolist()]
+        assert bn254.read_g2_msm(got) == want
 
 
 def test_provider_pairing_methods_match_sw(dev):

@@ -98,6 +98,48 @@ def test_device_busy_matches_reference():
     assert got[0][3] == {}              # zero-length window
 
 
+class _Event:
+    """A stand-in CUDA event: `t` ms on the card's clock, done or not."""
+
+    def __init__(self, t: float, done: bool = True):
+        self.t, self.done = t, done
+
+    def query(self) -> bool:
+        return self.done
+
+    def elapsed_time(self, end) -> float:
+        assert self.done and end.done
+        return end.t - self.t
+
+
+def test_device_busy_event_pairs_book_once_completed():
+    """A noted event pair is booked by the first drain after its end
+    completes (totals and ratios drain first), once, with `then` called
+    on the pair and its seconds; an unfinished pair stays pending and
+    keeps its place before later pairs."""
+    clock = _Clock(0.0)
+    busy = dc.DeviceBusy(clock)
+    booked = []
+
+    def then(start, end, s):
+        booked.append((start.t, end.t, s))
+
+    late = _Event(30.0, done=False)
+    busy.note_events(0, _Event(0.0), _Event(250.0), then)
+    busy.note_events(1, _Event(10.0), late, then)
+    busy.note_events(0, _Event(300.0), _Event(550.0), then)
+    assert booked == []
+    assert busy.totals() == {0: 0.5}
+    assert booked == [(0.0, 250.0, 0.25), (300.0, 550.0, 0.25)]
+    busy.drain()
+    assert len(booked) == 2             # nothing booked twice
+    late.done = True
+    clock.advance(2.0)
+    assert busy.ratios() == {0: 0.25, 1: 0.01}
+    assert booked[-1] == (10.0, 30.0, 0.02)
+    assert busy.totals() == {0: 0.5, 1: 0.02}
+
+
 # -- CompileRecorder --
 
 def _run_sequence(mod, cache_dir, clock, steps, threshold=5.0):

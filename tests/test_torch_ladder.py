@@ -4,9 +4,10 @@ The plain torch Shamir ladder (`p256.double_scalar_mul`, `verify_core`,
 `verify.verify_pipeline`) is held to Python ints (`cadd_int`,
 `scalar_mul_int`) and to the port's sw provider; the provider's routing
 by distinct key count is told apart by its stats; the kernel's lane
-bodies (csrc/ladder.cuh), built by the host compiler behind
-tests/cuda_host/cuda_runtime.h, are held to the sw provider and Python
-ints. Tolerance: exact (verdicts, affine points). Batches stay at 8 lanes
+body (csrc/ladder.cuh), built by the host compiler behind
+tests/cuda_host/cuda_runtime.h, is held to the sw provider and Python
+ints, message lanes hashed first as the card's message entry hashes
+them. Tolerance: exact (verdicts, affine points). Batches stay at 8 lanes
 or fewer a ladder call: the plain ladder is ~5 s of eager torch a call on
 one CPU thread. The JAX package's jitted `verify_core` is the `slow`
 oracle.
@@ -181,23 +182,16 @@ HARNESS = r"""
 #include "cuda_runtime.h"
 #include "ladder.cuh"
 
-extern "C" void h_ladder(const uint32_t* blocks, const int* nblocks,
-                         const uint32_t* digests, const uint8_t* has_digest,
-                         const uint8_t* q8, const uint8_t* r8,
-                         const uint8_t* rpn8, const uint8_t* w8,
-                         const uint8_t* premask, uint8_t* out, int B,
-                         int NB) {
-  for (int b = 0; b < B; ++b)
-    ladder_lane(b, blocks, NB, nblocks, digests, has_digest, q8, r8, rpn8,
-                w8, premask, out);
-}
-
+// the lane body over lanes 0..B-1, with the G column the kernel keeps in
+// shared memory
 extern "C" void h_ladder_digest(const uint32_t* digests, const uint8_t* q8,
                                 const uint8_t* r8, const uint8_t* rpn8,
                                 const uint8_t* w8, const uint8_t* premask,
                                 uint8_t* out, int B) {
+  Pt gtab[4];
+  for (int k = 0; k < 4; ++k) gtab[k] = ladder_g_entry(k);
   for (int b = 0; b < B; ++b)
-    ladder_digest_lane(b, digests, q8, r8, rpn8, w8, premask, out);
+    ladder_digest_lane(b, gtab, digests, q8, r8, rpn8, w8, premask, out);
 }
 """
 
@@ -231,12 +225,13 @@ def _construct(q, u1, u2):
 
 
 def test_lane_bodies_match_plain_and_ints(lanes_lib, signed):
-    """The kernel's two lane bodies on 8 signed lanes (message and
-    digest) and 6 edge lanes: u1 = 0 (digest n), R at infinity (Q = G,
-    u2 = -u1), x(R) given as rpn beside a wrong r, Q = -G and Q = G
-    (table entries at infinity and doublings), premask off. Verdicts
-    equal the sw provider's and Python ints (the plain version is held to
-    the same sw verdicts above)."""
+    """The kernel's lane body on 8 signed lanes (message lanes hashed
+    first by `verify.message_digests`, as the card's message entry does,
+    and digest lanes) and 6 edge lanes: u1 = 0 (digest n), R at infinity
+    (Q = G, u2 = -u1), x(R) given as rpn beside a wrong r, Q = -G and
+    Q = G (table entries at infinity and doublings), premask off.
+    Verdicts equal the sw provider's and Python ints (the plain version is
+    held to the same sw verdicts above); the hashed words equal hashlib's."""
     items, want = signed
     rng = np.random.default_rng(4)
 
@@ -279,17 +274,22 @@ def test_lane_bodies_match_plain_and_ints(lanes_lib, signed):
     want_all = want + [ok for *_, ok in edges]
     nblocks = np.where(has, 0, nblocks).astype(np.int32)
     rows = [np.ascontiguousarray(a) for a in (q8, r8, rpn8, w8, premask)]
+    # message lanes: hashed first, as the card's message entry does (the
+    # SHA kernel's plain version here), a lane's own digest where it has
+    # one; then the lane body on the digests
+    words = verify.message_digests(
+        _t(blocks.view(np.int32)), _t(nblocks), _t(dig.view(np.int32)),
+        _t(has.astype(bool))).numpy()
     out = np.zeros(B, np.uint8)
-    lanes_lib.h_ladder(*(ctypes.c_void_p(a.ctypes.data) for a in (
-        blocks, nblocks, dig, has, *rows, out)), ctypes.c_int(B),
-        ctypes.c_int(4))
+    lanes_lib.h_ladder_digest(*(ctypes.c_void_p(a.ctypes.data) for a in (
+        np.ascontiguousarray(words), *rows, out)), ctypes.c_int(B))
     assert out.astype(bool).tolist() == want_all
-    # the digest-lanes body: every lane's digest (the message lanes'
-    # hashed here)
+    # the digest lanes as the host hashes them: the same words
     dg = dig.copy()
     for i, it in enumerate(items):
         if it.digest is None:
             dg[i] = np.frombuffer(hashlib.sha256(it.message).digest(), ">u4")
+    np.testing.assert_array_equal(words.view(np.uint32), dg)
     out_d = np.zeros(B, np.uint8)
     lanes_lib.h_ladder_digest(*(ctypes.c_void_p(a.ctypes.data) for a in (
         dg, *rows, out_d)), ctypes.c_int(B))

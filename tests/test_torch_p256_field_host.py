@@ -10,7 +10,9 @@ semi-reduced limbs on edge operands (0, 1, p - 1, p, p + 1, 2^256 - 1,
 random ones, and RCB15 Alg. 4 against p256.cadd_int on P + P, P + (-P),
 P + inf and inf + inf, and the ladder's doubling (pt_dbl, RCB15 Alg. 6)
 against p256.cdbl_int on G, -G, inf, a point with Y = 0 and seeded random
-points. Tolerance: exact words. The nvcc build of the same
+points; every pair of the carry-edge operands (ptree.CARRY_EDGES), where
+the card's PTX carry chains carry through every word. Tolerance: exact
+words. The nvcc build of the same
 header is held to the same ints on the card (tests/test_torch_cuda.py,
 chip_smoke.py field_vs_ints).
 """
@@ -120,6 +122,27 @@ def test_ops_match_ints(core):
         want = [a % P, (a + b) % P, (a - b) % P, a * b % P]
         assert got == want, (hex(a), hex(b))
     # the self-test's plain version is the same Python ints
+    plain_ops, _ = ptree.field_selftest_plain(
+        torch.as_tensor(a13), torch.as_tensor(b13),
+        torch.zeros((0, 60), dtype=torch.int32),
+        torch.zeros((0, 60), dtype=torch.int32))
+    np.testing.assert_array_equal(plain_ops.numpy(), out.astype(np.int64))
+
+
+def test_carry_edges_match_ints(core):
+    """Every pair of ptree.CARRY_EDGES (words of all ones at each
+    position, all ones above each word boundary, p - 1, 2^256 - 1, d and
+    its small multiples), the operands where the card's PTX carry chains
+    carry or borrow through every word: mod p, add, sub and mul against
+    Python ints and the self-test's plain version."""
+    edges = ptree.CARRY_EDGES
+    pairs = [(a, b) for a in edges for b in edges]
+    a13 = limb.ints_to_limbs([a for a, _ in pairs])
+    b13 = limb.ints_to_limbs([b for _, b in pairs])
+    out = _run(core.field_ops, a13, b13, 32)
+    for (a, b), row in zip(pairs, out):
+        assert _ints(row) == [a % P, (a + b) % P, (a - b) % P, a * b % P], (
+            hex(a), hex(b))
     plain_ops, _ = ptree.field_selftest_plain(
         torch.as_tensor(a13), torch.as_tensor(b13),
         torch.zeros((0, 60), dtype=torch.int32),
