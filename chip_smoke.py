@@ -216,9 +216,12 @@ Phases, one JSON line each; any failure exits non-zero:
   ed25519_vs_plain the Ed25519 kernel against ed25519.verify_core on the
                    card over 4,096 lanes, the first of them edges (S = 0,
                    k = 0, RFC 8032 test 1, identity operands, a dead lane,
-                   R off by one point), Python ints on those, the expected
-                   bitmap beyond; then at the 32,768-lane bucket, its time
-                   against ed25519_bound.
+                   R off by one point, k whose signed digits are -8, 7 or
+                   carry into the top digit, L - 1, an identity R), Python
+                   ints on those, the expected bitmap beyond; then its
+                   time at the 32,768-lane bucket and at 2,048 lanes
+                   against ed25519_bound (the lanes' least products and
+                   the executed ones, the 2-bit ladder's beside them).
   idemix_block     the idemix checks of a block from --seed (BASELINE.json
                    config 4): 10,240 PS-shaped 2-term pairing products, one
                    per creator, e(sigma1, q) e(-sigma2, G2) with sigma1 =
@@ -264,7 +267,11 @@ Phases, one JSON line each; any failure exits non-zero:
                    the block's 20,480 live lanes in the provider's class
                    order (beside it, padded_ms: 32,768 lanes with the
                    block's order and all-zero pads, as the provider
-                   launched them before it launched live lanes only).
+                   launched them before it launched live lanes only);
+                   then 64 lanes each of 9 and 17 terms (past the local
+                   joint tables: the scratch-table kernel) against
+                   bn254_ref.g2_msm, and on 8-bit scalars against the
+                   chain, with their times.
                    The pairing and MSM entries' times: CUDA events
                    against a bound
                    from the least Fp products of each function (live
@@ -285,8 +292,8 @@ Phases, one JSON line each; any failure exits non-zero:
                    aggregate True; one message swapped for b"forged", the
                    aggregate plus a point off the subgroup, and one key off
                    the subgroup False; each call counted (valid and forged:
-                   one Miller, log2(bucket) reduce and one final-exp
-                   launch; the gated cases none); the sw provider's
+                   one Miller, one reduce and one final-exp launch; the
+                   gated cases none); the sw provider's
                    verdicts equal on every case up to 31 keys and on the
                    valid 1,023-key span (in the pool meanwhile). Per
                    width: steady seconds, host staging seconds, the card's
@@ -1764,13 +1771,25 @@ LADDER_LANE_IMAD = (257 * DBL_IMAD + 138 * CADD_IMAD + CHECK_IMAD
                     + 3 * MODN_MUL_OPS)
 # Ed25519 (csrc/ed25519.cuh): a product of 2^255 - 19 is 8 x 8 partial
 # products (a low and a high IMAD each) plus the fold of the high half by
-# 38 (8 more, low and high); a lane needs 31 additions for [S]B (9
-# products each), T of -A, one doubling and one addition for the 4-entry
-# table, 128 steps of two doublings (8) and one addition, the final
-# addition and the check's two products
+# 38 (8 more, low and high); a squaring 36 partial products (28 cross
+# products, doubled, and 8 squares) and the same fold. A lane (ref10's
+# split representations): the cached table of 0..8 * (-A), 65 products
+# (T of -A, seven cached additions to P3, eight 2dT); [k](-A) on 64 signed
+# radix-16 digits, the top digit's entry a P2 for free, then per lower
+# digit three doublings to P2 (4 squarings, 3 products) and one to P3
+# (4 and 4), and one cached addition to P2 (7), and the last T (1); [S]B
+# by 32 Niels additions (7 each, the last 3); the check's 2. An addition
+# of a zero digit or of a zero window adds the identity: the least count
+# takes those off (ed_lane_products), ED_ADD products each.
 F25_MUL_IMAD = 2 * 8 * 8 + 2 * 8
-ED_LANE_PRODUCTS = 31 * 9 + 1 + 8 + 9 + 128 * (2 * 8 + 9) + 9 + 2
-ED_TABLE_BYTES = 8192 * 4 * 8 * 4
+F25_SQR_IMAD = 2 * 36 + 2 * 8
+ED_ADD = 7
+ED_LANE_MULS = 65 + 63 * (3 * 3 + 4 + ED_ADD) + 1 + 32 * ED_ADD - 4 + 2
+ED_LANE_SQRS = 63 * 4 * 4
+# what the earlier kernel design ran (extended coordinates, [k](-A) by a
+# 2-bit ladder): the old bound's count, printed beside the new one
+ED_LADDER_LANE_PRODUCTS = 31 * 9 + 1 + 8 + 9 + 128 * (2 * 8 + 9) + 9 + 2
+ED_TABLE_BYTES = 8192 * 3 * 8 * 4
 
 
 def ladder_bound(live: int, live_blocks: int,
@@ -1785,11 +1804,32 @@ def ladder_bound(live: int, live_blocks: int,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def ed25519_bound(live: int, B: int) -> tuple[float, str]:
-    """Least time for the Ed25519 kernel (ms): the IMAD of the `live`
-    lanes, or the bytes of six 32-byte rows and a premask byte a lane,
-    the verdicts and the table read once, whichever is larger."""
-    ops = live * ED_LANE_PRODUCTS * F25_MUL_IMAD
+def ed_lane_products(s8, k8, premask) -> tuple[int, int, int]:
+    """(least products, squarings, executed products) over the lanes of
+    `stage_rows`' s8, k8 (B, 32) and premask: a live lane executes
+    ED_LANE_MULS products and ED_LANE_SQRS squarings; its least takes off
+    the additions of its zero signed digits below the top (k + 0x88...8's
+    nibbles of 8) and of its zero bytes of S. Premask-off lanes compute
+    nothing."""
+    live = np.asarray(premask, bool)
+    k = np.asarray(k8)[live]
+    s = np.asarray(s8)[live]
+    n = int(live.sum())
+    bias = int("88" * 32, 16)
+    kb = [int.from_bytes(row.tobytes(), "big") + bias for row in k]
+    zero_digits = sum(sum(((v >> (4 * i)) & 15) == 8 for i in range(63))
+                      for v in kb)
+    zero_windows = int((s == 0).sum())
+    return (n * ED_LANE_MULS - ED_ADD * (zero_digits + zero_windows),
+            n * ED_LANE_SQRS, n * ED_LANE_MULS)
+
+
+def ed25519_bound(muls: int, sqrs: int, B: int) -> tuple[float, str]:
+    """Least time for the Ed25519 kernel (ms): the IMAD of `muls` products
+    and `sqrs` squarings, or the bytes of six 32-byte rows and a premask
+    byte a lane, the verdicts and the table read once, whichever is
+    larger."""
+    ops = muls * F25_MUL_IMAD + sqrs * F25_SQR_IMAD
     nbytes = B * (6 * 32 + 2) + ED_TABLE_BYTES
     t_ops, t_bytes = ops / INT32_IMAD_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -2234,12 +2274,24 @@ def _ed_int_chunk(jobs):
     return [_ed_int(*j) for j in jobs]
 
 
+# k whose signed radix-16 digits (the kernel's: k + 0x88...8 nibble by
+# nibble, less 8, in [-8, 7]) hit the edges: -8 and 1 alternating (the
+# table's 8 * (-A)), 7 and 1 alternating, a carry through every digit into
+# the top one (2^252 - 1), L - 1. A digit of +8 does not occur.
+ED_EDGE_K = {"k_digits_m8": int("08" * 31, 16),
+             "k_digits_7": int("0F" * 31, 16),
+             "k_top_carry": (1 << 252) - 1,
+             "k_l_minus_1": 2 ** 252 + 27742317777372353535851937790883648492}
+
+
 def ed25519_edges(rng):
     """Edge operand rows (kind, (s, k, neg_ax, ay, rx, ry) or None,
     premask): S = 0 and k = 0 with R made to match (accept), RFC 8032
     test 1 (accept), all-identity operands with premask on (accept), a
     dead lane (identity operands, premask off), an R off by one point
-    (reject); each twice but the vector."""
+    (reject), the signed digits' edge scalars ED_EDGE_K as k with R made
+    to match (accept), an identity R (S = k a for A = a B: accept); each
+    twice but the vector."""
     from fabric_tpu_torch.bccsp import ed25519_host as edh
     P, Bp = edh.P, edh.from_affine(edh.BX, edh.BY)
     rows = []
@@ -2262,6 +2314,14 @@ def ed25519_edges(rng):
         rows.append(("dead", (0, 0, 0, 1, 0, 1), False))
         r = edh.to_affine(edh.pt_add(edh.scalar_mult(s, Bp), Bp))
         rows.append(("r_off", (s, 0, *neg_a, *r), True))
+        for kind, ke in ED_EDGE_K.items():
+            r = edh.pt_add(edh.scalar_mult(s, Bp), edh.scalar_mult(
+                ke, edh.from_affine(*neg_a)))
+            rows.append((kind, (s, ke, *neg_a, *edh.to_affine(r)), True))
+        a_s = int.from_bytes(rng.bytes(32), "little") % edh.L
+        neg_a = edh.to_affine(edh.scalar_mult(edh.L - a_s, Bp))
+        rows.append(("identity_r", (a_s * k % edh.L, k, *neg_a, 0, 1),
+                     True))
     return rows
 
 
@@ -2284,11 +2344,16 @@ def ed_rows(eblk, pool, nproc, bucket: int, edges=()):
     return rows
 
 
+ED_SMALL_LANES = 2048            # a layout's second width
+
+
 def ed25519_vs_plain(eblk, prov, card, pool, nproc):
     """The Ed25519 kernel against ed25519.verify_core's plain version on
     the card over EDGE_LANES lanes (edge rows first), Python ints on the
-    edge lanes and the expected bitmap beyond; then the device time at
-    the block's bucket against its bound."""
+    edge lanes and the expected bitmap beyond; then its device time at
+    the block's bucket and at ED_SMALL_LANES lanes, against the bound at
+    the lanes' least products and, beside it, at the products the kernel
+    executes and at the earlier 2-bit ladder's schedule."""
     import torch
 
     from fabric_tpu_torch.ops import ed25519
@@ -2335,15 +2400,30 @@ def ed25519_vs_plain(eblk, prov, card, pool, nproc):
     live = int(rows[6].sum())
     # milliseconds a call: events time the card (see ladder_vs_plain)
     ms = cuda_ms(lambda: ed25519.ed25519_verify(ktab, *t), 5)
-    bound_ms, bound_by = ed25519_bound(live, B)
+    small = [a[:ED_SMALL_LANES].contiguous() for a in t]
+    small_ms = cuda_ms(lambda: ed25519.ed25519_verify(ktab, *small), 10)
+    muls, sqrs, ex_muls = ed_lane_products(rows[0], rows[1], rows[6])
+    bound_ms, bound_by = ed25519_bound(muls, sqrs, B)
+    ex_ms, ex_by = ed25519_bound(ex_muls, sqrs, B)
+    ladder_ms, _ = ed25519_bound(live * ED_LADDER_LANE_PRODUCTS, 0, B)
+    sm_bound, sm_by = ed25519_bound(*ed_lane_products(
+        rows[0][:ED_SMALL_LANES], rows[1][:ED_SMALL_LANES],
+        rows[6][:ED_SMALL_LANES])[:2], ED_SMALL_LANES)
     res = dict(max_abs_err=err, ms=ms,
                plain_ms=e0.elapsed_time(e1), bound_ms=bound_ms,
-               bound_by=bound_by, share_of_bound=bound_ms / ms)
+               bound_by=bound_by, share_of_bound=bound_ms / ms,
+               products=muls + sqrs, squarings=sqrs,
+               executed_bound_ms=ex_ms, executed_bound_by=ex_by,
+               executed_share=ex_ms / ms, products_executed=ex_muls + sqrs,
+               ladder_schedule_bound_ms=ladder_ms,
+               ptxas=ptxas_of("ed25519_verify", "ed25519_verify_kernel"))
     emit({"phase": "ed25519_vs_plain", "ok": True, "card": card,
           "lanes_vs_plain": EDGE_LANES,
           "edge_lanes": {f"{k}_{i}": bool(v) for i, ((k, _, _), v)
                          in enumerate(zip(edges, want))},
-          "lanes_timed": B, "live_lanes": live, **res})
+          "lanes_timed": B, "live_lanes": live,
+          "small_lanes": ED_SMALL_LANES, "small_ms": small_ms,
+          "small_bound_ms": sm_bound, "small_bound_by": sm_by, **res})
     return res
 
 
@@ -2364,9 +2444,9 @@ PAIRING_SAMPLE = 256            # lanes held to the sw provider, at least
 # squarings (25 Fp products), the mixed addition of the joint tables 13
 # Fp2 products, the projective addition of the chain 14 (`msm_products`
 # runs the kernel's warps over the launch order); the BLS12-381 reduce's
-# dense Fp12 product 81. These give `executed_bound_ms`, the reading
-# "products executed".
-F12_MUL_FP = 81
+# from its schedule (ops/bls12_381_kernel.py reduce_products: the loads,
+# a cooperative Karatsuba Fp12 product a tree node, the store). These give
+# `executed_bound_ms`, the reading "products executed".
 G2_DBL_FP = 7 * 3 + 2 * 2
 G2_MIXED_FP = 13 * 3
 G2_ADDP_FP = 14 * 3
@@ -2892,7 +2972,7 @@ def pairing_vs_plain(iblk, prov, card, pool, nproc):
     return res
 
 
-def msm_vs_plain(iblk, prov, card):
+def msm_vs_plain(iblk, prov, card, pool, nproc):
     """The MSM entry against its plain version on the card at full length
     (254-bit scalars): PAIRING_LANES lanes, the edges of msm_edges first,
     held limb for limb to the chain's plain version (g2_msm_chain); the
@@ -2962,10 +3042,74 @@ def msm_vs_plain(iblk, prov, card):
         **bn_reading(ms, least, executed,
                      Bm * (3 * 32 + 12 * L * 4 + 6 * L * 4)))
     res.update(ms_from="cuda_events", ptxas=ptxas_of(*BN_KERNELS["msm", 1]))
+    res["long_lanes"] = msm_long_lanes(dev, pool, nproc)
     emit({"phase": "msm_vs_plain", "entry": "msm", "ok": True,
           "threads_a_lane": 1, "card": card,
           "edge_lanes": [k for k, _ in medges], **res})
     return res
+
+
+MSM_LONG_TERMS = (9, 17)        # past the kernel's local joint tables
+MSM_LONG_LANES = 64
+
+
+def msm_long_lanes(dev, pool, nproc) -> dict:
+    """Lanes of more terms than the MSM kernel's local joint tables hold
+    (its scratch-table instance, g2_msm_kernel<0>): MSM_LONG_LANES lanes of
+    each of MSM_LONG_TERMS terms, an entry at infinity (T + (-T)) and an
+    all-zero lane among them; on full-width scalars equal as points to
+    bn254_ref.g2_msm (in the pool, meanwhile), with the kernel's time; on
+    the same lanes' scalars cut to 8 bits limb for limb the plain chain
+    (its eager steps cost the same at any lane count, so the full width
+    would take minutes)."""
+    import random
+
+    import torch
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as b
+    rng = random.Random(4711)
+    g2 = (b.G2_X, b.G2_Y)
+    T = b.g2_mul_fast(31337, g2)
+    pts = [g2, T, b.g2_neg_tw(T)]
+    out, by_terms = {}, {}
+    for nterms in MSM_LONG_TERMS:
+        lanes = [[(rng.randrange(b.R), pts[(i + t) % 3])
+                  for t in range(nterms)] for i in range(MSM_LONG_LANES - 2)]
+        lanes.append([(5, T), (5, b.g2_neg_tw(T))]
+                     + [(0, None)] * (nterms - 3) + [(1, g2)])
+        lanes.append([(0, None)] * nterms)
+        by_terms[nterms] = (lanes, pool.map_async(_msm_ref_chunk, [
+            lanes[i::nproc] for i in range(nproc)]))
+
+    def put(lanes):
+        kw, qf = bn254.stage_g2_msm_words(lanes)
+        return (torch.as_tensor(kw.view(np.int32)).to(dev),
+                [torch.as_tensor(a).to(dev) for a in qf])
+    for nterms, (lanes, ref_async) in by_terms.items():
+        kt, qt = put(lanes)
+        before = bn254.msm_launches
+        got = bn254.g2_msm(kt, *qt)
+        check(bn254.msm_launches == before + 1,
+              f"MSM of {nterms} terms: not one launch")
+        pts_got = bn254.read_g2_msm(got)
+        want = [None] * len(lanes)
+        for i, part in enumerate(ref_async.get()):
+            want[i::nproc] = part
+        check(pts_got == want, f"MSM of {nterms} terms != bn254_ref.g2_msm")
+        check(pts_got[-2] == g2 and pts_got[-1] is None,
+              f"MSM of {nterms} terms: edge lanes")
+        k8, q8 = put([[(k & 255, q) for k, q in ln] for ln in lanes])
+        got8 = bn254.g2_msm(k8, *q8, nbits=8)
+        plain = bn254.g2_msm_chain(bn254.words_to_bits(k8, 8), *q8)
+        mk = torch.stack([c for p in got8 for c in p])
+        mp = bn254.F.canonical(torch.stack([c for p in plain for c in p]))
+        err = int((mk - mp).abs().max())
+        check(err == 0, f"MSM of {nterms} terms: kernel != plain")
+        out[str(nterms)] = dict(lanes=len(lanes), max_abs_err=err,
+                                ms=cuda_ms(lambda: bn254.g2_msm(kt, *qt), 3))
+    out["ptxas"] = ptxas_of("g2_msm", "g2_msm_kernel<0>")
+    return out
 
 
 # each BN254 entry's wrapper and the JAX function it replaces
@@ -3172,8 +3316,8 @@ def bls_aggregate_path(span, prov, card, pool, nproc):
     aggregate (True), one message swapped for b"forged" (False), the
     aggregate plus a point off the subgroup (False) and one key off the
     subgroup (False), each counted (every kernel count 0 before; valid and
-    forged one Miller, log2(bucket) reduce and one final-exp launch,
-    the gated cases none); the sw provider's verdicts on every case up to
+    forged one Miller, one reduce and one final-exp launch, the gated
+    cases none); the sw provider's verdicts on every case up to
     BLS_SW_ALL keys and on the valid 1,023-key span (run in the pool
     meanwhile) equal. Per width: the steady seconds of a valid call, the
     host staging seconds (gates, H(m_i), limbs), one valid call under the
@@ -3213,7 +3357,7 @@ def bls_aggregate_path(span, prov, card, pool, nproc):
                 prov, f"bls {case} k={k}", BLS_KERNELS if device else (),
                 lambda: prov.verify_aggregate(ks, msgs, sig))
             check(out is want, f"bls k={k} {case}: {out}, not {want}")
-            per = {BLS_MILLER: 1, BLS_REDUCE: bucket.bit_length() - 1,
+            per = {BLS_MILLER: 1, BLS_REDUCE: 1,
                    BLS_FINAL_EXP: 1} if device else dict.fromkeys(
                        BLS_KERNELS, 0)
             for kk, v in per.items():
@@ -3331,7 +3475,10 @@ def bls_vs_plain(span, prov, card, pool):
     miller_ref = pool.map_async(_bls_miller_ref_chunk, [
         [(v, *lanes[i])] for v, i in zip(vals, look)])
 
+    r0 = blsk.reduce_launches
     r_k = tower.flat_from_f12(blsk.product_reduce(tower.f12_from_flat(f_k)))
+    reduce_calls = blsk.reduce_launches - r0
+    check(reduce_calls == 1, f"BLS reduce: {reduce_calls} launches a call")
     e0.record()
     r_p = blsk.product_reduce_plain(tower.f12_from_flat(f_p))
     e1.record()
@@ -3400,9 +3547,12 @@ def bls_vs_plain(span, prov, card, pool):
         small_lanes=n4, small_ms=ms4, small_bound_ms=b4, small_bound_by=by4,
         small_us_per_chained_product=ms4 * 1e3 / chain)
     ms = cuda_ms(lambda: blsk.product_reduce(f_s), 3)
-    res["reduce"].update(lanes_timed=B, **bn_reading(
-        ms, (B - 1) * F12_MUL_MIN, (B - 1) * F12_MUL_FP,
-        (B + 1) * 12 * blsk.L * 4, BLS_MUL_IMAD))
+    chain, executed = blsk.reduce_products(B)
+    res["reduce"].update(
+        lanes_timed=B, launches_a_call=reduce_calls, **bn_reading(
+            ms, (B - 1) * F12_MUL_MIN, executed,
+            (B + 1) * 12 * blsk.L * 4, BLS_MUL_IMAD),
+        chain_products=chain, us_per_chained_product=ms * 1e3 / chain)
     one_lane = r_s.contiguous()
     ms = cuda_ms(lambda: blsk._final_exp_kernel(one_lane, prog), 10)
     chain, executed = blsk.final_exp_products(prog)
@@ -3676,6 +3826,8 @@ def field_vs_ints(card, seed: int) -> None:
                                                            size=61)]
     e_cases = [(p, q) for p in e_pts[:3] for q in e_pts[:3]] + list(
         zip(e_pts, e_pts[::-1]))
+    # q affine (Z = 1): the self-test takes q's Niels form from (X, Y)
+    e_cases = [(p, edh.from_affine(*edh.to_affine(q))) for p, q in e_cases]
 
     def ed_words(ps):
         return torch.as_tensor(np.array(
@@ -3687,7 +3839,7 @@ def field_vs_ints(card, seed: int) -> None:
     want_e = ed25519.ed_selftest_plain(ep, eq)
     torch.cuda.synchronize()
     bad_e = int((got_e.cpu() != want_e).any(dim=1).sum())
-    check(bad_e == 0, f"ed_add/ed_dbl != ed25519_host on {bad_e} cases")
+    check(bad_e == 0, f"Ed25519 group law != Python ints on {bad_e} cases")
 
     # BN254's core and tower (csrc/bn254_field.cuh, bn254_tower.cuh)
     from fabric_tpu_torch.ops import bn254
@@ -3902,7 +4054,7 @@ def drive(args, pool, nproc, card):
     provp = factory.new_bccsp({"Default": "CUDA"})
     cp, cp_layouts = pairing_path(iblk, provp, card, pool, nproc)
     pvp = pairing_vs_plain(iblk, provp, card, pool, nproc)
-    pvp["msm", 1] = msm_vs_plain(iblk, provp, card)
+    pvp["msm", 1] = msm_vs_plain(iblk, provp, card, pool, nproc)
     # BLS12-381: an orderer's span of block signatures, aggregated
     span = make_bls_span(args.seed, pool, nproc)
     emit({"phase": "bls_span", "ok": True, "signatures": max(BLS_WIDTHS),
@@ -3919,9 +4071,8 @@ def drive(args, pool, nproc, card):
             ("ladder", provl, ("batchprep", "ladder")),
             ("pairing", provp, ("bn254_pairing", "g2_msm")),
             ("bls", provb, ("bls12_381_pairing",)))}})
-    # launches a call on the 1,023-key span: log2(bucket) reduce levels
-    per_call = dict(zip(BLS_KERNELS, (
-        1, cbw[max(BLS_WIDTHS)]["bucket"].bit_length() - 1, 1)))
+    # launches a call on the 1,023-key span: one of each entry
+    per_call = dict.fromkeys(BLS_KERNELS, 1)
 
     def n(counts, k):
         return sum(c[k] for c in counts.values())

@@ -69,9 +69,10 @@ BLS12-381 aggregates (the orderer's span of block signatures,
 fabric_tpu/orderer/blockwriter.py 131-170): `verify_aggregate` gates and
 stages the call on the host (`bls12_381.stage_pairs`: the signature's and
 keys' subgroup checks, H(m_i)), pads its pairs to a power-of-two bucket
-(masked filler lanes) and runs one Miller launch over every pair,
-log2(bucket) reduce launches and one final-exp launch on the product's
-lane (csrc/bls12_381_pairing.cu, `ops/bls12_381_kernel.py`): one verdict.
+(masked filler lanes) and runs one Miller launch over every pair, one
+reduce launch (the lanes' product) and one final-exp launch on the
+product's lane (csrc/bls12_381_pairing.cu, `ops/bls12_381_kernel.py`):
+one verdict.
 Pair lists under `max(2, MinBatch // 4)`, and every call with the
 `BLSPairing` knob off (on by default for a CUDA device), take the staged
 host path (`bls12_381.miller_products`, `check_products`): routing by
@@ -993,8 +994,8 @@ class CUDAProvider(api.BCCSP):
     @tracing.traced("tpu.bls_pairing")
     def _dispatch_bls_pairing(self, pairs) -> bool:
         """Pad the pairs to a power-of-two bucket (masked filler lanes
-        contribute Fp12 one), stage them, and run one Miller, log2(bucket)
-        reduce and one final-exp launch; one verdict comes back."""
+        contribute Fp12 one), stage them, and run one Miller, one reduce
+        and one final-exp launch; one verdict comes back."""
         n = len(pairs)
         staged = blsk.stage_pairs(pairs, pad_to=_pow2(n))
         start = self._mark()

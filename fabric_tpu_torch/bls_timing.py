@@ -11,7 +11,8 @@ fabric_tpu_torch/_build/, so that runs on several checkouts time the same
 pairs):
 
   * the Miller entry at 4 lanes (the k = 3 bucket) and at 1,024 (the span,
-    k = 1,023) and the final-exp entry on one lane (the span's product),
+    k = 1,023), the reduce over those 4 and 1,024 lanes (its launches a
+    call beside) and the final-exp entry on one lane (the span's product),
     each `--reps` calls back to back between two CUDA events after one
     warm-up call: ms a call; and the final-exp entry on short programs
     (no row; the easy part; the easy part then 64 squarings, or 64
@@ -24,8 +25,8 @@ pairs):
 
 Beside them: the library's build seconds and whether nvcc wrote it (cold:
 the first run on a checkout), ptxas' registers, stack and spills of the
-Miller and final-exp kernels, and the sha256 of the entries' canonical
-outputs (runs on two checkouts must print the same). Running it on two
+Miller, reduce and final-exp kernels, and the sha256 of the entries'
+canonical outputs (runs on two checkouts must print the same). Running it on two
 checkouts in turns (for example a parent commit unpacked with `git
 archive` into the git-ignored `chip_tree/`: parent, change, change,
 parent) compares them on one card. Prints one JSON line; needs a CUDA
@@ -140,7 +141,8 @@ def main() -> int:
     out = {"root": root, "card": torch.cuda.get_device_name(0),
            "build_s": time.perf_counter() - t0, "build_cold": cold,
            "ptxas": {k: v for k, v in kernels.ptxas_summary(lib).items()
-                     if "miller" in k or "final_exp" in k},
+                     if "miller" in k or "final_exp" in k
+                     or "reduce" in k},
            "reps": args.reps}
 
     dev = torch.device("cuda:0")
@@ -158,6 +160,15 @@ def main() -> int:
         f = tower.flat_from_f12(miller())
         entries[f"miller_{lanes}"] = dict(
             ms=_events_ms(miller, args.reps), sha256=_sha(f))
+    # the reduce over the span's lanes and over k = 3's 4: ms a call and
+    # its launches (one since the one-launch design, log2(B) before)
+    for lanes in (4, f.shape[1]):
+        fl = tower.f12_from_flat(f[:, :lanes].contiguous())
+        r0 = blsk.reduce_launches
+        red = tower.flat_from_f12(blsk.product_reduce(fl))
+        entries[f"reduce_{lanes}"] = dict(
+            launches=blsk.reduce_launches - r0, sha256=_sha(red),
+            ms=_events_ms(lambda fl=fl: blsk.product_reduce(fl), args.reps))
     prod = tower.flat_from_f12(blsk.product_reduce(
         tower.f12_from_flat(f))).contiguous()
     prog = blsk._FINAL_EXP_PROGRAM

@@ -12,9 +12,11 @@
 //     (218 words, BlsConsts), out (12, B, 30), B, the loop's bits after
 //     its leading one as two 32-bit halves (lo, hi) and their count
 //     (1..64).
-//   bls_reduce_launch: f (12, B, 30) in place, consts, B, half: for
-//     i < half, f[i] = f[i] * f[i + half] (one level of the halving
-//     product; the wrapper launches log2(B) levels).
+//   bls_reduce_launch: f (12, B, 30) in place, consts, nodes (B - 1
+//     Fp12 values of 144 words: the tree's inner nodes), cnt (B ints,
+//     zero; the launch leaves them zero), B (a power of two, at least 2):
+//     the halving product of the B lanes into lane 0, canonical, in one
+//     launch.
 //   bls_final_exp_launch: f (12, B, 30), consts, the program (rows, 4)
 //     int32, its row count and the row from which its squarings are
 //     cyclotomic, gt (12, B, 30), ok (B,) bool, B. The provider runs it
@@ -40,19 +42,18 @@
 // |x| = 0xd201000000010000 is 63 doubling steps (f^2 by the complex
 // method: 12 Fp2 products; the tangent step: 16; f^2 times the sparse
 // line: 13) and 5 addition steps (19 and 13): 8,247 Fp products as
-// executed (ops/bls12_381_kernel.py miller_products). A level of the
-// reduce is one Fp12 product a lane (81). The final exponentiation is 1/f
+// executed (ops/bls12_381_kernel.py miller_products). The reduce is B - 1
+// Fp12 products (54 Fp products each), log2(B) of them in series. The
+// final exponentiation is 1/f
 // (the adjoint in Fp6 products, a binary Euclid inverse in Fp), then the
 // program's rows: a cyclotomic squaring 27 Fp products, a product 54, a
 // Frobenius 18. Operands and results are ~2 KB a lane, so bytes do not
 // bound them (chip_smoke.py bls_vs_plain: bn_reading at BLS_MUL_IMAD).
 //
-// The design. The reduce is a simple first kernel, bn254_pairing.cu's:
-// one thread a lane, the field on 12 x 32-bit words
-// (bls12_381_field.cuh: CIOS, lazy reduction below 2p), the tower's
-// products as calls over operands in local memory (bls12_381_tower.cuh).
-// The Miller and final-exp entries run a lane over a warp, one lane a
-// block, on pairing_coop.cuh: the lane's Fp12 values in shared memory,
+// The design. Every entry runs on the field of 12 x 32-bit words
+// (bls12_381_field.cuh: CIOS, lazy reduction below 2p) and a lane over a
+// warp, one lane a block, on pairing_coop.cuh: the lane's Fp12 values in
+// shared memory,
 // each operation's Fp2 products as rounds of one Fp product a thread
 // (three a product), its additions in short rounds of one formula each,
 // rounds separated by __syncwarp(); the Miller loop branches on its bits
@@ -60,9 +61,13 @@
 // same for every lane. Its chain: 337 Fp products in series a Miller
 // lane, 404 a final exponentiation (the schedules' counts,
 // miller_products and final_exp_products), against 14,177 and 29,181
-// for one thread a lane. The constants sit in shared memory. Later speed
-// work (ROADMAP queue 2): PTX carry chains, a one-launch reduce on the
-// cooperative product.
+// for one thread a lane. The reduce is one launch of B / 2 warps, a warp
+// a node of the product tree (pairing_coop.cuh reduce_group): a node's
+// Fp12 product is cooperative (54 Fp products in rounds of up to 32: 2
+// on the chain, against 54 in series on one thread), and the warp that
+// reaches a node second carries on to its parent, so a call's chain is
+// log2(B) cooperative products in one launch (ops/bls12_381_kernel.py
+// reduce_products). The constants sit in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,7 +78,7 @@ namespace {
 
 using namespace bls381;
 
-constexpr int THREADS = 32;   // the serial entries: one thread a lane
+constexpr int THREADS = 32;   // the serial self-tests: one thread a case
 constexpr int GROUP = 32;     // the cooperative entries: a warp a lane
 
 // a lane a block of one warp
@@ -91,15 +96,17 @@ bls_miller_kernel(const int* __restrict__ pts,
                                bits_hi, nbits, k, out);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// a node of the product tree's first level a block of one warp
+__global__ void __launch_bounds__(GROUP)
 bls_reduce_kernel(int* __restrict__ f, const uint32_t* __restrict__ consts,
-                  int B, int half) {
+                  uint32_t* __restrict__ nodes, int* __restrict__ cnt,
+                  int B) {
   __shared__ BlsConsts k;
+  __shared__ ReduceState st;
   consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= half) return;
-  reduce_lane(f, B, i, half, k);
+  const coop::Group g{static_cast<int>(threadIdx.x), GROUP, false};
+  reduce_group(g, st, f, nodes, cnt, B, blockIdx.x, k);
 }
 
 __global__ void __launch_bounds__(GROUP)
@@ -173,12 +180,12 @@ extern "C" int bls_miller_launch(const void* pts, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bls_reduce_launch(void* f, const void* consts, int B,
-                                 int half, void* stream) {
-  if (half <= 0 || 2 * half > B) return static_cast<int>(cudaErrorInvalidValue);
-  bls_reduce_kernel<<<blocks(half), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(f), static_cast<const uint32_t*>(consts), B, half);
+extern "C" int bls_reduce_launch(void* f, const void* consts, void* nodes,
+                                 void* cnt, int B, void* stream) {
+  if (B < 2 || (B & (B - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  bls_reduce_kernel<<<B / 2, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(f), static_cast<const uint32_t*>(consts),
+      static_cast<uint32_t*>(nodes), static_cast<int*>(cnt), B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,10 @@
 // on the cooperative layer (pairing_coop.cuh over bls12_381_tower.cuh's
 // formulas): coop::miller_group and coop::final_exp_group, instantiated
 // for BlsTower by the kernels.
-// reduce_lane: one level of fabric_tpu's _product_reduce for lane i < half:
-//   f[i] = f[i] * f[i + half] in the (12, B, 30) buffer, canonical; one
-//   thread a lane on the serial tower.
+// reduce_group: fabric_tpu's _product_reduce in one launch, a group (a
+//   warp) a node of the product tree, the second group to reach a node
+//   carrying on to its parent (pairing_coop.cuh reduce_group); the
+//   product lands in lane 0 of the (12, B, 30) buffer, canonical.
 // coop_selftest_group: the self-test of the cooperative layer and of the
 //   serial formulas it distributes, one case a group (pairing_coop.cuh
 //   selftest_group).
@@ -25,13 +26,14 @@
 namespace {
 namespace bls381 {
 
-__device__ __forceinline__ void reduce_lane(int* f, int B, int i, int half,
-                                            const BlsConsts& k) {
-  Fp12 a, b;
-  f12_load(a, f, B, i, k);
-  f12_load(b, f, B, i + half, k);
-  f12_mul(a, a, b, k);
-  f12_store(f, B, i, a, k);
+using ReduceState = coop::ReduceState<BlsTower>;
+
+__device__ __forceinline__ void reduce_group(const coop::Group& g,
+                                             ReduceState& st, int* f,
+                                             uint32_t* nodes, int* cnt,
+                                             int B, int w,
+                                             const BlsConsts& k) {
+  coop::reduce_group<BlsTower>(g, st, f, nodes, cnt, B, w, k);
 }
 
 // the cooperative layer's self-test (pairing_coop.cuh selftest_group) on

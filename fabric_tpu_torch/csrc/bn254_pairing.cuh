@@ -27,8 +27,10 @@
 //   gt (12, B, 20): register 0, canonical; ok[lane] = gt is the identity.
 // bn_msm_thread / bn_msm_lane: per lane sum_t k_t Q_t (fabric_tpu/ops/
 //   bn254.py g2_msm_scan's points), one thread a lane: scalars k (B, T, 8)
-//   little-endian words, points q (4T, B, 20); the terms' joint tables
-//   (a window of three terms: its 7 subset sums), then from infinity
+//   little-endian words, points q (4T, B, 20), any T >= 1; the terms'
+//   joint tables (a window of three terms: its 7 subset sums; one window
+//   in local memory, more in a scratch buffer the caller gives,
+//   MsmTab<0>), then from infinity
 //   (0, 1, 0) per bit one complete doubling and per window one complete
 //   projective addition of the entry the window's bits index, kept where
 //   the index is nonzero; the chain of ops/bn254.py g2_msm_chain, which
@@ -50,8 +52,6 @@
 
 namespace {
 namespace bn254 {
-
-constexpr int BN_MSM_MAX_TERMS = 8;
 
 // The same two lanes on one thread, on the serial formulas (the serial
 // entries: one thread a lane).
@@ -122,8 +122,40 @@ __device__ __forceinline__ void bn_final_exp_lane(
 // the set bits t of e of Q_t).
 constexpr int BN_MSM_WINDOW = 3;
 constexpr int BN_MSM_ENTRIES = (1 << BN_MSM_WINDOW) - 1;
-constexpr int BN_MSM_MAX_WINDOWS =
-    (BN_MSM_MAX_TERMS + BN_MSM_WINDOW - 1) / BN_MSM_WINDOW;
+
+__host__ __device__ __forceinline__ constexpr int bn_msm_windows(int nterms) {
+  return (nterms + BN_MSM_WINDOW - 1) / BN_MSM_WINDOW;
+}
+
+// The scratch a call of B lanes of `nterms` terms needs, in G2P entries:
+// none for one window (its table sits in local memory), else every
+// window's table of every lane.
+__host__ __device__ __forceinline__ constexpr long long bn_msm_scratch_entries(
+    int B, int nterms) {
+  return nterms <= BN_MSM_WINDOW ? 0
+                                 : static_cast<long long>(
+                                       bn_msm_windows(nterms)) *
+                                       BN_MSM_ENTRIES * B;
+}
+
+// A lane's joint tables: NW windows in local memory (NW known to the
+// compiler, so its loops unroll; the kernel takes NW = 1), or, for NW =
+// 0, any number of windows in a scratch buffer of G2P entries, entry (w,
+// e) of lane `lane` at (w * BN_MSM_ENTRIES + e) * B + lane.
+template <int NW>
+struct MsmTab {
+  G2P t[NW][BN_MSM_ENTRIES];
+  __device__ __forceinline__ G2P& at(int w, int e) { return t[w][e]; }
+};
+
+template <>
+struct MsmTab<0> {
+  G2P* base;
+  int B, lane;
+  __device__ __forceinline__ G2P& at(int w, int e) {
+    return base[(static_cast<size_t>(w) * BN_MSM_ENTRIES + e) * B + lane];
+  }
+};
 
 // The highest set bit below nbits of the lane's scalars, -1 if all zero.
 __device__ __forceinline__ int bn_msm_top(const uint32_t* kl, int nterms,
@@ -148,13 +180,14 @@ __device__ __forceinline__ int bn_msm_top(const uint32_t* kl, int nterms,
 // addition is skipped when none of them needs it, so a warp of lanes with
 // one scalar (the subgroup lanes) adds only at its set bits.
 template <int NW>
-__device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
+__device__ __forceinline__ void bn_msm_lane(MsmTab<NW>& tab,
+                                            const uint32_t* kw,
                                             const int* q, int B, int nterms,
                                             int start, unsigned work,
                                             int lane, const BnConsts& k,
                                             int* out) {
-  G2P tab[NW][BN_MSM_ENTRIES];
-  for (int w = 0; w < NW; ++w) {
+  const int nw = NW ? NW : bn_msm_windows(nterms);
+  for (int w = 0; w < nw; ++w) {
     const int lo = w * BN_MSM_WINDOW;
     const int nt = min(BN_MSM_WINDOW, nterms - lo);
     for (int e = 1; e < (1 << nt); ++e) {
@@ -166,10 +199,11 @@ __device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
                       fp_load(q, B, 4 * (lo + t) + 3, lane, k)}};
       const int rest = e & (e - 1);
       if (rest == 0) {
-        tab[w][e - 1] = {Q.x, Q.y, f2_one(k)};
+        tab.at(w, e - 1) = {Q.x, Q.y, f2_one(k)};
       } else {
-        tab[w][e - 1] = tab[w][rest - 1];
-        g2_add_mixed(tab[w][e - 1], Q, k);
+        G2P& entry = tab.at(w, e - 1);
+        entry = tab.at(w, rest - 1);
+        g2_add_mixed(entry, Q, k);
       }
     }
   }
@@ -177,7 +211,7 @@ __device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
   G2P acc = {f2_zero(), {k.one, fp_zero()}, f2_zero()}, sum;
   for (int i = start; i >= 0; --i) {
     g2_dbl(acc, k);
-    for (int w = 0; w < NW; ++w) {
+    for (int w = 0; w < nw; ++w) {
       const int lo = w * BN_MSM_WINDOW;
       const int nt = min(BN_MSM_WINDOW, nterms - lo);
       int idx = 0;
@@ -186,7 +220,7 @@ __device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
                    (__ldg(kl + 8 * (lo + t) + (i >> 5)) >> (i & 31)) & 1u)
                << t;
       if (!__any_sync(work, idx != 0)) continue;
-      g2_add(sum, acc, tab[w][max(idx, 1) - 1], k);
+      g2_add(sum, acc, tab.at(w, max(idx, 1) - 1), k);
       if (idx) acc = sum;
     }
   }
@@ -198,13 +232,17 @@ __device__ __forceinline__ void bn_msm_lane(const uint32_t* kw,
 // One thread's part of the MSM entry (lanes past B store nothing): every
 // thread of the warp takes part in its vote and its reduction, a lane
 // whose scalars are all zero writes infinity (0, 1, 0) at once, and the
-// others run from the highest top bit among the warp's lanes.
+// others run from the highest top bit among the warp's lanes. NW > 0: the
+// tables of up to 3 * NW terms in local memory; NW = 0: any number of
+// terms, the tables in `scratch` (bn_msm_scratch_entries(B, nterms)
+// entries; unused otherwise).
 template <int NW>
 __device__ __forceinline__ void bn_msm_thread(const uint32_t* kw,
                                               const int* q, int B,
                                               int nterms, int nbits,
                                               int lane, const BnConsts& k,
-                                              int* out) {
+                                              int* out,
+                                              G2P* scratch = nullptr) {
   const bool live = lane < B;
   const int top = live ? bn_msm_top(kw + static_cast<size_t>(lane) *
                                              nterms * 8,
@@ -219,7 +257,9 @@ __device__ __forceinline__ void bn_msm_thread(const uint32_t* kw,
     for (int i = 0; i < 6; ++i) fp_store(out, B, i, lane, *c[i], k);
     return;
   }
-  bn_msm_lane<NW>(kw, q, B, nterms, start, work, lane, k, out);
+  MsmTab<NW> tab;
+  if constexpr (NW == 0) tab = {scratch, B, lane};
+  bn_msm_lane<NW>(tab, kw, q, B, nterms, start, work, lane, k, out);
 }
 
 // the cooperative layer's self-test on this tower: bn254_pairing.cu's

@@ -9,25 +9,33 @@
 //
 //   ed25519_verify_launch: s8, k8, anx8, ay8, rx8, ry8 (B, 32) uint8
 //     big-endian rows (ops/ed25519.py stage_rows), premask (B,) bool, tab
-//     (8192, 4, 8) 32-bit words (ops/ed25519.py kernel_table) -> out (B,)
-//     bool.
+//     (8192, 3, 8) 32-bit words (ops/ed25519.py kernel_table: the B table
+//     in Niels form) -> out (B,) bool. k8 must be below L, as prep_verify
+//     reduces it: the signed digits' bias (ed25519.cuh ed_digit_bias)
+//     carries out of 256 bits above about 2^254.9, and such a k would
+//     give another verdict than verify_core, which walks all 256 bits.
 //
 // What bounds it on this card: 32-bit integer multiply-adds. A lane does
-// [S]B's 31 additions (9 products each), [k](-A)'s table (T, a doubling
-// and an addition) and 128 steps of two doublings (8 products) and one
-// addition, the final addition and the check: 3,508 products of 64
-// partial-product IMAD pairs and a fold by 38 (8 more pairs), against
-// ~230 bytes of operands and 4 KiB of table rows (chip_smoke.py
-// ed25519_bound).
+// 2,556 field products (ed25519.cuh: [k](-A) on signed radix-16 digits
+// with its cached table of 0..8 * (-A), [S]B by 32 mixed additions of
+// Niels entries, the check), 1,008 of them squarings: a product is 64
+// partial products (a low and a high IMAD each) and the fold by 38 (8
+// more), a squaring 36 and the same fold; against ~230 bytes of operands
+// and 3 KiB of table rows (chip_smoke.py ed25519_bound, which also counts
+// the additions of zero digits and windows the data lets a lane skip).
 //
-// The design, a simple first kernel: one thread per lane, the field on
-// 32-bit limbs in registers (fe25519.cuh: weak reduction by 38, canonical
-// form only for the compare), the lane body of ed25519.cuh. The fixed-base
-// table (1 MiB) is read through L1 and L2 with 16-byte loads; the 4-entry
-// ladder table is indexed by the data and sits in local memory. A
-// premask-off lane returns at once. Later speed work (ROADMAP queue 2):
-// affine or Niels-form table entries, PTX carry chains, several threads a
-// lane.
+// The design: one thread a lane, the field on 32-bit limbs in registers
+// with PTX carry chains by columns and a squaring of its own
+// (fe25519.cuh: weak reduction by 38, canonical form only for the
+// compare), the lane body of ed25519.cuh on ref10's split representations
+// (a doubling another doubling follows skips T), the cached table of
+// -A's multiples in local memory (indexed by the digits: the 1,280-byte
+// stack). The fixed-base table (768 KiB) is read through L1 and L2 with
+// 16-byte loads. A premask-off lane returns at once. A lane over 2 or 4
+// threads of a warp (each product's rows split, the partials summed by
+// shuffles, every other step done by each thread) was measured and
+// dropped: 1.9x and 4.7x slower at 32,768 lanes, 1-8% slower at 2,048
+// (NVIDIA H100 80GB HBM3 at 700 W, fabric_tpu_torch/ed_timing.py; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,7 +46,9 @@ namespace {
 
 constexpr int THREADS = 64;
 
-__global__ void __launch_bounds__(THREADS)
+// one block of THREADS an SM at least: ptxas may give a thread every
+// register it asks for (without the minimum it settled at 128 and spilled)
+__global__ void __launch_bounds__(THREADS, 1)
 ed25519_verify_kernel(const uint8_t* __restrict__ s8,
                       const uint8_t* __restrict__ k8,
                       const uint8_t* __restrict__ anx8,

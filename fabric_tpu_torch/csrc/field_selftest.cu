@@ -15,10 +15,13 @@
 // Z3 of RCB15 Alg. 6, canonical words.
 // f25_selftest_launch, the field mod 2^255 - 19 (fe25519.cuh;
 // ops/ed25519.py f25_selftest): a, b (n, 8) 32-bit little-endian words ->
-// out (n, 32) uint32: a mod p, a + b, a - b, a * b (canonical words).
+// out (n, 40) uint32: a mod p, a + b, a - b, a * b, a^2 (canonical
+// words).
 // ed_selftest_launch, Ed25519's group law (fe25519.cuh; ops/ed25519.py
-// ed_selftest): p, q (n, 32) words of extended points -> out (n, 64)
-// uint32: ed_add(p, q), ed_dbl(p) (canonical words).
+// ed_selftest): p, q (n, 32) words of extended points (q affine, Z = 1)
+// -> out (n, 128) uint32: p + q by the cached addition, 2p by the P2
+// doubling, p + q by the Niels mixed addition, p - q (canonical P3
+// words).
 // modn_selftest_launch, the mod-n core (modn32.cuh; ops/fused_verify.py
 // modn_selftest): e (n, 8) 32-bit big-endian words, r8 and w8 (n, 32)
 // uint8 big-endian rows -> out (n, 16) uint32: u1 = e*w and u2 = r*w mod n.
@@ -71,7 +74,8 @@ f25_selftest_kernel(const uint32_t* __restrict__ a,
                     const uint32_t* __restrict__ b, int n,
                     uint32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) f25_selftest_ops(a + 8 * i, b + 8 * i, out + 32 * i);
+  if (i < n)
+    f25_selftest_ops(a + 8 * i, b + 8 * i, out + F25_SELFTEST_OUT * i);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -79,7 +83,8 @@ ed_selftest_kernel(const uint32_t* __restrict__ p,
                    const uint32_t* __restrict__ q, int n,
                    uint32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) ed_selftest(p + 32 * i, q + 32 * i, out + 64 * i);
+  if (i < n)
+    ed_selftest(p + 32 * i, q + 32 * i, out + ED_SELFTEST_OUT * i);
 }
 
 }  // namespace

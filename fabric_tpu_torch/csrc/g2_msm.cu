@@ -8,8 +8,11 @@
 //
 //   g2_msm_launch: k (B, T, 8) little-endian 32-bit scalar words, q (4T, B,
 //     20) int32 limbs of the affine points (ops/bn254.py
-//     stage_g2_msm_words), consts (148 words, BnConsts), out (6, B, 20): the
-//     projective sum (X, Y, Z), canonical; any B, T (1..8), nbits (1..256).
+//     stage_g2_msm_words), consts (148 words, BnConsts), scratch (the
+//     joint tables of lanes of more than three terms, g2_msm_scratch_bytes
+//     (B, T) bytes; for T <= 3 none, may be null), out (6, B, 20): the
+//     projective sum (X, Y, Z), canonical; any B, T >= 1, nbits (1..256).
+//   g2_msm_scratch_bytes(B, T): the scratch a call needs, 0 for T <= 3.
 //
 // What bounds it on this card: 32-bit integer multiply-adds. Per bit one
 // complete doubling (9 Fp2 products: 25 field products) and, per window of
@@ -32,7 +35,10 @@
 // (__reduce_max_sync) and skips an addition no lane of it needs
 // (__any_sync), which makes the subgroup lanes' warps (one 127-bit scalar
 // of weight 70, the same for every lane) run 127 doublings and 70
-// additions.
+// additions. Up to three terms (one window: the idemix lanes) the table
+// sits in local memory (g2_msm_kernel<1>); a lane of more terms takes
+// g2_msm_kernel<0>, the same chain with its tables in the scratch buffer
+// the wrapper allocates, so any term count runs on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,13 +54,13 @@ constexpr int THREADS = 64;
 template <int NW>
 __global__ void __launch_bounds__(THREADS)
 g2_msm_kernel(const uint32_t* __restrict__ kw, const int* __restrict__ q,
-              const uint32_t* __restrict__ consts, int* __restrict__ out,
-              int B, int nterms, int nbits) {
+              const uint32_t* __restrict__ consts, G2P* __restrict__ scratch,
+              int* __restrict__ out, int B, int nterms, int nbits) {
   __shared__ BnConsts k;
   consts_load(k, consts, threadIdx.x, blockDim.x);
   __syncthreads();
   bn_msm_thread<NW>(kw, q, B, nterms, nbits,
-                    blockIdx.x * blockDim.x + threadIdx.x, k, out);
+                    blockIdx.x * blockDim.x + threadIdx.x, k, out, scratch);
 }
 
 }  // namespace
@@ -62,9 +68,9 @@ g2_msm_kernel(const uint32_t* __restrict__ kw, const int* __restrict__ q,
 // Enqueues the kernel on `stream` and returns cudaGetLastError() (or
 // cudaErrorInvalidValue for a term count or width it does not take).
 extern "C" int g2_msm_launch(const void* kw, const void* q,
-                             const void* consts, void* out, int B,
-                             int nterms, int nbits, void* stream) {
-  if (nterms < 1 || nterms > BN_MSM_MAX_TERMS || nbits < 1 || nbits > 256)
+                             const void* consts, void* scratch, void* out,
+                             int B, int nterms, int nbits, void* stream) {
+  if (nterms < 1 || nbits < 1 || nbits > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   const int grid = (B + THREADS - 1) / THREADS;
@@ -73,21 +79,20 @@ extern "C" int g2_msm_launch(const void* kw, const void* q,
   const int* pts = static_cast<const int*>(q);
   const uint32_t* c = static_cast<const uint32_t*>(consts);
   int* o = static_cast<int*>(out);
-  // the joint tables' windows: one for the three terms of the idemix lanes
-  switch ((nterms + BN_MSM_WINDOW - 1) / BN_MSM_WINDOW) {
-    case 1:
-      g2_msm_kernel<1><<<grid, THREADS, 0, s>>>(k, pts, c, o, B, nterms,
-                                                nbits);
-      break;
-    case 2:
-      g2_msm_kernel<2><<<grid, THREADS, 0, s>>>(k, pts, c, o, B, nterms,
-                                                nbits);
-      break;
-    default:
-      g2_msm_kernel<BN_MSM_MAX_WINDOWS><<<grid, THREADS, 0, s>>>(
-          k, pts, c, o, B, nterms, nbits);
-  }
+  if (nterms <= BN_MSM_WINDOW)
+    g2_msm_kernel<1><<<grid, THREADS, 0, s>>>(k, pts, c, nullptr, o, B,
+                                              nterms, nbits);
+  else
+    g2_msm_kernel<0><<<grid, THREADS, 0, s>>>(
+        k, pts, c, static_cast<G2P*>(scratch), o, B, nterms, nbits);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" long long g2_msm_scratch_bytes(int B, int nterms) {
+  return B > 0 && nterms > 0
+             ? bn_msm_scratch_entries(B, nterms) *
+                   static_cast<long long>(sizeof(G2P))
+             : 0;
 }
 
 extern "C" const char* g2_msm_error_string(int err) {

@@ -61,6 +61,8 @@
 //   final_exp_group: the product of the lane's terms, 1/f, then the
 //     register-machine program row by row, every `mul(d, a, a)` from row
 //     `cyc_from` on a cyclotomic squaring;
+//   reduce_group: the lanes' product tree in one launch, a group a node,
+//     the second group to reach a node carrying on to its parent;
 //   selftest_group: the layer's self-test, and the serial formulas'.
 
 #pragma once
@@ -695,6 +697,81 @@ __device__ __forceinline__ void final_exp_group(
     bool all = true;
     for (int i = 0; i < 12; ++i) all = all && st.flag[i];
     if (lane < B) ok[lane] = all ? 1 : 0;
+  });
+}
+
+// -- the product reduce: a lane's product tree in one launch --
+//
+// fabric_tpu's _product_reduce over f (12, B, L), B a power of two: level
+// 0 has B/2 nodes, node j = f[j] * f[j + B/2]; level l + 1 has half as
+// many, node j = node j of level l times node j + (its width / 2). Group
+// w computes node w of level 0, then climbs: it publishes its node (the
+// Fp12 words in `nodes`, node (l, j) at index B - (B >> l) + j: B - 1
+// nodes), fences, and bumps the parent's counter in `cnt` (B ints, zero
+// before a launch); the group that arrives second at a parent sets the
+// counter back to 0 (so the counters are zero again after the launch and
+// serve the next one), reads its sibling's node (loads that bypass L1:
+// another SM wrote it) and computes the parent; the first stops. So the chain is log2(B) products
+// whatever order the groups run in, and the root's group writes the
+// product to lane 0 of f, canonical. Each product is lo * hi, as the
+// halving product's.
+template <class Tw>
+struct ReduceState {
+  typename Tw::Fp12 v[2];     // this group's node, its sibling's
+  Scratch<Tw> s;
+  int go;
+};
+
+template <class Tw>
+__device__ __forceinline__ void reduce_group(const Group& g,
+                                             ReduceState<Tw>& st, int* f,
+                                             uint32_t* nodes, int* cnt,
+                                             int B, int w,
+                                             const typename Tw::Consts& k) {
+  constexpr int WORDS = 12 * Tw::NW;
+  const int half = B / 2;
+  g.each(24, [&](int i) {
+    auto& c = f12_slot(st.v[i / 12], (i % 12) / 2);
+    (i & 1 ? c.c1 : c.c0) = fp_load(f, B, i % 12, w + (i / 12) * half, k);
+  });
+  g.sync();
+  mul<Tw>(g, st.v[0], st.v[0], st.v[1], st.s, k);
+  int j = w;
+  for (int n = half; n > 1; n /= 2) {       // n: this level's nodes
+    const int base = B - 2 * n;             // this level's first node
+    g.each(12, [&](int i) {
+      const auto& c = f12_slot(st.v[0], i / 2);
+      const auto& x = i & 1 ? c.c1 : c.c0;
+      uint32_t* dst = nodes + static_cast<size_t>(base + j) * WORDS +
+                      i * Tw::NW;
+      for (int q = 0; q < Tw::NW; ++q) dst[q] = x.w[q];
+      __threadfence();
+    });
+    g.sync();
+    const int up = j & (n / 2 - 1);         // the parent
+    g.each(1, [&](int) {
+      st.go = atomicAdd(cnt + base + n + up, 1);
+      if (st.go) cnt[base + n + up] = 0;   // both arrived: reset for reuse
+      __threadfence();
+    });
+    g.sync();
+    if (st.go == 0) return;                 // the sibling carries on
+    const int sib = j ^ (n / 2);
+    g.each(12, [&](int i) {
+      auto& c = f12_slot(st.v[1], i / 2);
+      auto& x = i & 1 ? c.c1 : c.c0;
+      const uint32_t* src = nodes + static_cast<size_t>(base + sib) * WORDS +
+                            i * Tw::NW;
+      for (int q = 0; q < Tw::NW; ++q) x.w[q] = __ldcg(src + q);
+    });
+    g.sync();
+    if (j < sib) mul<Tw>(g, st.v[0], st.v[0], st.v[1], st.s, k);
+    else mul<Tw>(g, st.v[0], st.v[1], st.v[0], st.s, k);
+    j = up;
+  }
+  g.each(12, [&](int i) {
+    const auto& c = f12_slot(st.v[0], i / 2);
+    fp_store(f, B, i, 0, i & 1 ? c.c1 : c.c0, k);
   });
 }
 

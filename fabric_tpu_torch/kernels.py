@@ -111,8 +111,8 @@ KERNELS = {
     "bls12_381_pairing": ("bls12_381_pairing.cu", {
         # pts, mask, consts, out, B, bits_lo, bits_hi, nbits, stream
         "bls_miller_launch": ([_VOIDP] * 4 + [_INT] * 4 + [_VOIDP], _INT),
-        # f (in place), consts, B, half, stream
-        "bls_reduce_launch": ([_VOIDP] * 2 + [_INT] * 2 + [_VOIDP], _INT),
+        # f (in place), consts, nodes, cnt, B, stream
+        "bls_reduce_launch": ([_VOIDP] * 4 + [_INT] + [_VOIDP], _INT),
         # f, consts, prog, nrows, cyc_from, gt, ok, B, stream
         "bls_final_exp_launch": ([_VOIDP] * 3 + [_INT] * 2 + [_VOIDP] * 2
                                  + [_INT, _VOIDP], _INT),
@@ -128,8 +128,10 @@ KERNELS = {
         "bls12_381_pairing_error_string": ([_INT], ctypes.c_char_p),
     }),
     "g2_msm": ("g2_msm.cu", {
-        # k words, q, consts, out, B, nterms, nbits, stream
-        "g2_msm_launch": ([_VOIDP] * 4 + [_INT] * 3 + [_VOIDP], _INT),
+        # k words, q, consts, scratch, out, B, nterms, nbits, stream
+        "g2_msm_launch": ([_VOIDP] * 5 + [_INT] * 3 + [_VOIDP], _INT),
+        # B, nterms -> the bytes of the scratch g2_msm_launch takes
+        "g2_msm_scratch_bytes": ([_INT, _INT], ctypes.c_longlong),
         "g2_msm_error_string": ([_INT], ctypes.c_char_p),
     }),
 }
@@ -373,14 +375,15 @@ def check_args(ref, want, what: str, aligned=()) -> None:
 
 
 def launch(dev, name: str, fn: str, *args) -> None:
-    """Call library `name`'s `fn` with the tensors' pointers and the ints,
-    on `dev`'s current stream; raise if the launch was refused."""
+    """Call library `name`'s `fn` with the tensors' pointers (None: a null
+    pointer) and the ints, on `dev`'s current stream; raise if the launch
+    was refused."""
     import torch
 
     lib = load(name)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cargs = [ctypes.c_int(a) if isinstance(a, int) else a.data_ptr()
-             for a in args]
+    cargs = [ctypes.c_int(a) if isinstance(a, int)
+             else None if a is None else a.data_ptr() for a in args]
     with torch.cuda.device(dev):
         err = getattr(lib, fn)(*cargs, ctypes.c_void_p(stream))
     if err:

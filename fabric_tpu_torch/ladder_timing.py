@@ -56,11 +56,13 @@ import time
 import numpy as np
 
 SMI_FIELDS = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+# a probe kernel over one of the root's field headers: header, element
+# type, expression of a[i] and b[i]
 PROBE = r"""
-#include "p256_field.cuh"
-extern "C" __global__ void fe_mul_probe(const Fe* a, const Fe* b, Fe* out) {
+#include "%s"
+extern "C" __global__ void probe(const %s* a, const %s* b, %s* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  out[i] = fe_mul(a[i], b[i]);
+  out[i] = %s;
 }
 """
 
@@ -143,8 +145,10 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fe_mul_sass(root: str) -> dict:
-    """The probe kernel's SASS instruction count and its opcode mix."""
+def probe_sass(root: str, header: str, elem: str, expr: str) -> dict:
+    """The SASS instruction count and opcode mix of a probe kernel that
+    stores `expr` (of a[i], b[i], `elem` values) over the root's
+    csrc/`header`."""
     from fabric_tpu_torch import kernels
 
     nvcc = kernels.nvcc_path()
@@ -153,7 +157,7 @@ def fe_mul_sass(root: str) -> dict:
     with tempfile.TemporaryDirectory() as d:
         src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "p.cubin")
         with open(src, "w") as f:
-            f.write(PROBE)
+            f.write(PROBE % (header, elem, elem, elem, expr))
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-std=c++17", "-O3", "-cubin", "-I", csrc, "-o",
                         cubin, src], check=True, capture_output=True,
@@ -169,6 +173,11 @@ def fe_mul_sass(root: str) -> dict:
     mix.pop("NOP", None)
     return {"instructions": sum(mix.values()),
             "mix": dict(sorted(mix.items(), key=lambda kv: -kv[1]))}
+
+
+def fe_mul_sass(root: str) -> dict:
+    """The probe `fe_mul`'s SASS instruction count and its opcode mix."""
+    return probe_sass(root, "p256_field.cuh", "Fe", "fe_mul(a[i], b[i])")
 
 
 def main() -> int:

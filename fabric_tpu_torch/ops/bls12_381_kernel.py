@@ -33,15 +33,16 @@ lane's threads in rounds):
         tensors: the Miller entry, one launch (`miller_launches`), a warp
         a lane, which writes one on masked lanes;
     product_reduce(f)
-        CPU: the plain version; CUDA: the reduce entry, one launch a level,
-        log2(B) a call (`reduce_launches`);
+        CPU: the plain version; CUDA: the reduce entry, one launch a call
+        (`reduce_launches`; none for one lane), a warp a node of the
+        product tree, the warp that reaches a node second carrying on;
     final_exp_batch(f, program)
         CPU: the plain version; CUDA: the final-exp entry, one launch
         (`final_exp_launches`), a warp a lane: the provider gives it one
         lane, the product of every pair; both square cyclotomically from
         `cyclotomic_row(program)` on;
     pairs_product_is_one(xP, yP, qx0, qx1, qy0, qy1, mask, loop)
-        the three in a row: one Miller, log2(B) reduce and one final-exp
+        the three in a row: one Miller, one reduce and one final-exp
         launch, and the verdict the final-exp entry writes.
 
 Anything else raises; nothing falls back. The kernels take and return the
@@ -184,11 +185,27 @@ def product_reduce_plain(f):
     return f
 
 
+# (device, stream) -> the reduce entry's arrival counters: zeroed once,
+# and the launch leaves them zero, so every call on that stream reuses them
+_reduce_counters: dict = {}
+
+
+def _counters(dev, n: int):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    cnt = _reduce_counters.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = _reduce_counters[key] = torch.zeros(n, dtype=torch.int32,
+                                                  device=dev)
+    return cnt
+
+
 def product_reduce(f):
     """The lanes' product as one lane, by halving: the plain version on
-    CPU tensors; on CUDA tensors the reduce entry, one launch a level
-    (log2(B) in all) on a copy of the lanes. Returns nested tuples of
-    (1, L) tensors."""
+    CPU tensors; on CUDA tensors the reduce entry, one launch a call (none
+    for one lane) on a copy of the lanes, with the tree's inner nodes in a
+    scratch buffer allocated here and its arrival counters in the
+    stream's cached buffer (`_counters`). Returns nested tuples of (1, L)
+    tensors."""
     global reduce_launches
     flat = tower.flat_from_f12(f)
     B = flat.shape[1]
@@ -198,13 +215,13 @@ def product_reduce(f):
     if flat.device.type == "cpu":
         return product_reduce_plain(f)
     buf = flat.clone(memory_format=torch.contiguous_format)
-    consts = kernel_consts(flat.device)
-    half = B // 2
-    while half:
-        kernels.launch(flat.device, _LIB, "bls_reduce_launch", buf, consts,
-                       B, half)
+    if B > 1:
+        nodes = torch.empty((B - 1, 12 * NW), dtype=torch.int32,
+                            device=flat.device)
+        kernels.launch(flat.device, _LIB, "bls_reduce_launch", buf,
+                       kernel_consts(flat.device), nodes,
+                       _counters(flat.device, B), B)
         reduce_launches += 1
-        half //= 2
     return tower.f12_from_flat(buf[:, :1].contiguous())
 
 
@@ -312,8 +329,8 @@ def pairs_product_is_one(xP, yP, qx0, qx1, qy0, qy1, mask,
     Montgomery limbs (B a power of two; padded lanes hold any valid
     points with mask False and contribute one), mask (B,) bool. Returns a
     (1,) bool. CPU tensors: the plain version; CUDA tensors: one Miller
-    launch, log2(B) reduce launches and one final-exp launch on the
-    product's one lane, whose verdict is the result."""
+    launch, one reduce launch (none for one lane) and one final-exp
+    launch on the product's one lane, whose verdict is the result."""
     _check_pow2(xP.shape[0], "BLS12-381 pairs product")
     if xP.device.type == "cpu":
         return pairs_product_is_one_plain(xP, yP, qx0, qx1, qy0, qy1, mask,
@@ -570,3 +587,15 @@ def final_exp_products(program=_FINAL_EXP_PROGRAM, group: int = GROUP
     """(chain, executed) Fp products of a final-exp lane on the entry's
     group (tower.coop_final_exp_products, one term)."""
     return tower.coop_final_exp_products(program, 1, group)
+
+
+def reduce_products(B: int, group: int = GROUP) -> tuple[int, int]:
+    """(chain, executed) Fp products of the reduce entry over B lanes
+    (tower.coop_cost): each group's loads of its two lanes, the tree's
+    B - 1 cooperative Fp12 products (log2(B) of them in series) and the
+    root's store."""
+    load = tower.coop_cost(((1,) * 24,), group)
+    mul = tower.coop_cost((tower.COOP_ROW_ROUNDS["mul"],), group)
+    store = tower.coop_cost(((1,) * 12,), group)
+    return (load[0] + (B.bit_length() - 1) * mul[0] + store[0],
+            B // 2 * load[1] + (B - 1) * mul[1] + store[1])

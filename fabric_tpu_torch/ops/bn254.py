@@ -43,7 +43,10 @@ products spread over the group in rounds), `layout(B)` threads a lane:
         Miller entry once);
     g2_msm(k_words, *Q_flat)
         CPU: `g2_msm_chain`; CUDA: the MSM entry (`msm_launches`), which
-        reads the 254-bit scalars as 32-bit words. `g2_msm_scan`, the JAX
+        reads the 254-bit scalars as 32-bit words and takes any number
+        of terms (above MSM_WINDOW the lanes' joint tables go to a
+        scratch buffer this wrapper allocates, of the size the library's
+        g2_msm_scratch_bytes gives). `g2_msm_scan`, the JAX
         package's signature over bool columns, is the plain scan alone:
         on the card the columns would only be packed back into words.
         `msm_order` is the launch order the provider gives the lanes.
@@ -486,9 +489,12 @@ def g2_msm(k_words, *Q_flat, nbits: int = NBITS_R):
     if k_words.device.type == "cpu":
         return g2_msm_chain(words_to_bits(k_words, nbits), *Q_flat)
     out = torch.empty((6, B, L), dtype=torch.int32, device=k_words.device)
+    nbytes = kernels.load("g2_msm").g2_msm_scratch_bytes(B, nterms)
+    scratch = torch.empty(nbytes, dtype=torch.uint8,
+                          device=k_words.device) if nbytes else None
     kernels.launch(k_words.device, "g2_msm", "g2_msm_launch", k_words,
-                   torch.stack(Q_flat), kernel_consts(k_words.device), out,
-                   B, nterms, nbits)
+                   torch.stack(Q_flat), kernel_consts(k_words.device),
+                   scratch, out, B, nterms, nbits)
     msm_launches += 1
     return ((out[0], out[1]), (out[2], out[3]), (out[4], out[5]))
 

@@ -16,14 +16,17 @@ points of `b_tables`, a tree of additions), [k](-A) by a 2-bit ladder
         the card entry: a tensor on the CPU runs `verify_core`, the plain
         version (tab = b_tables(), the JAX layout); a CUDA tensor
         launches the hand-written kernel in csrc/ed25519_verify.cu (tab =
-        kernel_table(...), its own layout: plain-domain values in 32-bit
-        words) and adds one to `launches`; anything else raises. Nothing
-        falls back. `device_table` gives the table a device's path takes.
+        kernel_table(...), its own layout: the entries in Niels form,
+        plain-domain values in 32-bit words) and adds one to `launches`;
+        anything else raises. Nothing falls back.
+        `device_table` gives the table a device's path takes.
 
-The kernel sums [S]B's 32 points one after another where the plain
-version adds them as a tree, and works on other representatives of the
-same points; the check compares X3 = rx*Z3 and Y3 = ry*Z3 in canonical
-form, which is invariant under projective scaling, so the verdicts agree.
+The kernel computes [k](-A) on signed radix-16 digits and then adds
+[S]B's 32 points one after another, where the plain version runs a 2-bit
+ladder and adds [S]B as a tree; it works on other representatives of the
+same points, and its check compares x and y of the sum with R's in
+canonical form (X = rx*Z and Y = ry*T on the completed point), which is
+invariant under projective scaling, so the verdicts agree.
 """
 
 from __future__ import annotations
@@ -190,11 +193,16 @@ def b_tables() -> np.ndarray:
 
 
 def kernel_table(tab: torch.Tensor) -> torch.Tensor:
-    """The kernel's layout of the B table: (NWIN*NENT, 4, 8) int32, each
-    coordinate's canonical plain-domain value (mont^-1 of the entry:
-    one REDC product by 1) as 8 little-endian 32-bit words. tab: the
-    b_tables() layout (NWIN*NENT, 4, L) int32, on any device."""
-    x = FED.canonical(FED.mul(tab, _c(_ONE, tab))).to(torch.int64)
+    """The kernel's layout of the B table: (NWIN*NENT, 3, 8) int32, each
+    entry (x, y) in Niels form (y + x, y - x, 2d*x*y), each coordinate's
+    canonical plain-domain value (mont^-1: one REDC product by 1) as 8
+    little-endian 32-bit words; the identity is (1, 1, 0). tab: the
+    b_tables() layout (NWIN*NENT, 4, L) int32 (Z = mont(1), T = X*Y), on
+    any device."""
+    X, Y, T = tab[:, 0], tab[:, 1], tab[:, 3]
+    niels = torch.stack([FED.add(Y, X), FED.sub(Y, X),
+                         FED.mul(T, _c(_D2_M, T))], dim=1)
+    x = FED.canonical(FED.mul(niels, _c(_ONE, niels))).to(torch.int64)
     words = []
     for k in range(8):                      # word k: bits [32k, 32k + 32)
         v = torch.zeros_like(x[..., 0])
@@ -346,11 +354,13 @@ def ed25519_verify(tab, s8, k8, anx8, ay8, rx8, ry8, premask):
     s8, k8, anx8, ay8, rx8, ry8 (B, 32) uint8 big-endian rows, premask
     (B,) bool -> (B,) bool. tab is `device_table(device)`: b_tables() on
     the CPU, where the plain version runs; kernel_table(...) on the card,
-    where csrc/ed25519_verify.cu runs."""
+    where csrc/ed25519_verify.cu runs. k must be below L, as
+    `prep_verify` makes it: the kernel's signed digits take k below
+    about 2^254.9 only, where `verify_core` walks all 256 bits."""
     global launches
     B = s8.shape[0]
     cuda = s8.device.type == "cuda"
-    tab_shape = (NWIN * NENT, 4, 8 if cuda else L)
+    tab_shape = (NWIN * NENT, 3, 8) if cuda else (NWIN * NENT, 4, L)
     rows = (("s8", s8), ("k8", k8), ("anx8", anx8), ("ay8", ay8),
             ("rx8", rx8), ("ry8", ry8))
     kernels.check_args(
@@ -373,27 +383,77 @@ def ed25519_verify(tab, s8, k8, anx8, ay8, rx8, ry8, premask):
 
 def f25_selftest_plain(a, b):
     """Python ints, the reference of csrc/fe25519.cuh: a, b (n, 8)
-    little-endian 32-bit words (any value below 2^256) -> (n, 32) int64
-    canonical words of a mod p, a + b, a - b and a * b (mod 2^255 - 19)."""
+    little-endian 32-bit words (any value below 2^256) -> (n, 40) int64
+    canonical words of a mod p, a + b, a - b, a * b and a^2 (mod
+    2^255 - 19)."""
     P = P_ED
     rows = []
     for ra, rb in zip(a.tolist(), b.tolist()):
         x, y = limb.words_to_ints(ra)[0], limb.words_to_ints(rb)[0]
         rows.append(limb.ints_to_words([x % P, (x + y) % P, (x - y) % P,
-                                        x * y % P]))
-    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 32)
+                                        x * y % P, x * x % P]))
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 40)
+
+
+# The kernel's group law (csrc/fe25519.cuh) in Python ints, step for step:
+# points as tuples of ints mod p (P3 (X, Y, Z, T), P2 (X, Y, Z), completed
+# P1 (X, Z, Y, T) as the kernel's (X, Y, Z, T) fields, cached (Y + X,
+# Y - X, 2Z, 2dT), Niels (y + x, y - x, 2dxy)).
+
+def cached_int(p):
+    X, Y, Z, T = p
+    return ((Y + X) % P_ED, (Y - X) % P_ED, 2 * Z % P_ED, T * edh.D2 % P_ED)
+
+
+def niels_int(x, y):
+    return ((y + x) % P_ED, (y - x) % P_ED, x * y * edh.D2 % P_ED)
+
+
+def _sum_int(pp, mm, tt, zz, neg):
+    a, b = (zz + tt) % P_ED, (zz - tt) % P_ED
+    return ((pp - mm) % P_ED, (pp + mm) % P_ED) + ((b, a) if neg else (a, b))
+
+
+def add_cached_int(p, q, neg=False):
+    X, Y, Z, T = p
+    ypx, ymx, z2, t2d = q
+    if neg:
+        ypx, ymx = ymx, ypx
+    return _sum_int((Y + X) * ypx, (Y - X) * ymx, T * t2d, Z * z2, neg)
+
+
+def madd_int(p, q):
+    X, Y, Z, T = p
+    ypx, ymx, xy2d = q
+    return _sum_int((Y + X) * ypx, (Y - X) * ymx, T * xy2d, 2 * Z, False)
+
+
+def dbl_int(p):
+    X, Y, Z = p[:3]
+    y, z = (Y * Y + X * X) % P_ED, (Y * Y - X * X) % P_ED
+    return (((X + Y) ** 2 - y) % P_ED, y, z, (2 * Z * Z - z) % P_ED)
+
+
+def p1_to_p3_int(p):
+    X, Y, Z, T = p
+    return (X * T % P_ED, Y * Z % P_ED, Z * T % P_ED, X * Y % P_ED)
 
 
 def ed_selftest_plain(p, q):
-    """Python ints (ed25519_host's group law): p, q (n, 32) words of
-    extended points (X, Y, Z, T) -> (n, 64) int64 canonical words of
-    pt_add(p, q) then pt_double(p)."""
+    """Python ints (the kernel's formulas above): p, q (n, 32) words of
+    extended points (X, Y, Z, T; q affine, Z = 1) -> (n, 128) int64
+    canonical P3 words of p + q (cached addition), 2p (doubling of p's
+    P2), p + q (mixed addition of q's Niels form) and p - q."""
     rows = []
     for rp, rq in zip(p.tolist(), q.tolist()):
         pp, qq = tuple(limb.words_to_ints(rp)), tuple(limb.words_to_ints(rq))
-        rows.append(limb.ints_to_words(
-            [c % P_ED for c in edh.pt_add(pp, qq) + edh.pt_double(pp)]))
-    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 64)
+        qc = cached_int(qq)
+        outs = [add_cached_int(pp, qc), dbl_int(pp),
+                madd_int(pp, niels_int(qq[0], qq[1])),
+                add_cached_int(pp, qc, neg=True)]
+        rows.append(limb.ints_to_words([c for o in outs
+                                        for c in p1_to_p3_int(o)]))
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 128)
 
 
 def _selftest(fn: str, plain, width: int, x, y):
@@ -413,11 +473,11 @@ def f25_selftest(a, b):
     """The 2^255 - 19 core on the cases of f25_selftest_plain (a, b (n,
     8) int32 words): CPU tensors run the plain version, CUDA tensors
     csrc/field_selftest.cu's entry (the nvcc build of fe25519.cuh)."""
-    return _selftest("f25_selftest_launch", f25_selftest_plain, 32, a, b)
+    return _selftest("f25_selftest_launch", f25_selftest_plain, 40, a, b)
 
 
 def ed_selftest(p, q):
-    """ed_add and ed_dbl of csrc/fe25519.cuh on the cases of
+    """The group law of csrc/fe25519.cuh on the cases of
     ed_selftest_plain (p, q (n, 32) int32 words): CPU tensors run the
     plain version, CUDA tensors csrc/field_selftest.cu's entry."""
-    return _selftest("ed_selftest_launch", ed_selftest_plain, 64, p, q)
+    return _selftest("ed_selftest_launch", ed_selftest_plain, 128, p, q)

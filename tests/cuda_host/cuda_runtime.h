@@ -62,6 +62,21 @@ inline unsigned int __ballot_sync(unsigned int, int pred) {
 
 inline int __reduce_max_sync(unsigned int, int v) { return v; }
 
+// one host thread runs the groups one after another: a fence has nothing
+// to order, an atomic nothing to race, and a load has no L1 to bypass
+inline void __threadfence() {}
+
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+
 // leading zero bits of a 32-bit word (32 for zero)
 inline int __clz(unsigned int x) { return x ? __builtin_clz(x) : 32; }
 

@@ -6,12 +6,13 @@ BLS12-381's p on 12 x 32-bit words), bls12_381_tower.cuh (Fp2/Fp6/Fp12,
 Frobenius, inversions, the RCB15 twist steps and their M-type lines, and
 the formulas the cooperative layer distributes: the complex squaring, the
 sparse line product, the cyclotomic squaring), pairing_coop.cuh (a lane
-over a group of threads) and bls12_381_pairing.cuh (the reduce lane and
-the cooperative self-test) are portable C++ behind CUDA's execution-space
-keywords, so the host compiler builds them here behind the stand-in
-tests/cuda_host/cuda_runtime.h, as tests/test_torch_bn254_field_host.py
-does for BN254. The host runs a group's rounds on one thread, each round's jobs
-first to last and last to first (`rev`): both orders must give the plain
+over a group of threads) and bls12_381_pairing.cuh (the one-launch
+reduce's groups and the cooperative self-test) are portable C++ behind
+CUDA's execution-space keywords, so the host compiler builds them here
+behind the stand-in tests/cuda_host/cuda_runtime.h, as
+tests/test_torch_bn254_field_host.py does for BN254. The host runs a
+group's rounds on one thread, each round's jobs first to last and last
+to first (`rev`): both orders must give the plain
 values, which a round reading another job's output of the same round
 would not. Held to Python ints and to the plain torch versions
 (ops/bls12_381_kernel.py): the field ops on edge operands (0, 1, p - 1, p,
@@ -22,8 +23,9 @@ group law); the serial formulas and the group's Fp12 squaring, sparse
 line product, cyclotomic squaring, product, inverse and Frobenius, and
 the binary Euclid inverse on the edge operands; the Miller body at a
 truncated loop against the plain version and, over the full |x|, against
-bls12_381_ref.miller_loop up to an Fp2 * w^(3k) monomial; the reduce lane
-against the plain halving product; the final-exp body on the FULL program
+bls12_381_ref.miller_loop up to an Fp2 * w^(3k) monomial; the reduce's
+groups (groups and jobs in both orders) against the plain halving product
+at 2, 4 and 8 lanes; the final-exp body on the FULL program
 against bls12_381_ref.final_exponentiation_chain, with its identity
 verdict on a product that is one. Tolerance: exact words and limbs. The
 nvcc build is held to the same on the card (tests/test_torch_cuda.py,
@@ -102,10 +104,18 @@ extern "C" void h_coop(const uint32_t* cases, const uint32_t* c, int n,
                         out + (NW * COOP_OUT + COOP_CYCLES) * i);
 }
 
-extern "C" void h_reduce(int* f, const uint32_t* c, int B) {
+// the reduce entry's B / 2 groups one after another, first to last or
+// (order) last to first; each round's jobs in the order rev gives; cnt
+// the caller's B counters
+extern "C" void h_reduce(int* f, const uint32_t* c, int* cnt, int B, int rev,
+                         int order) {
   const BlsConsts k = consts_of(c);
-  for (int half = B / 2; half; half /= 2)
-    for (int i = 0; i < half; ++i) reduce_lane(f, B, i, half, k);
+  static ReduceState st;
+  const coop::Group g{0, 1, rev != 0};
+  uint32_t* nodes = new uint32_t[(B - 1) * 12 * NW];
+  for (int i = 0; i < B / 2; ++i)
+    reduce_group(g, st, f, nodes, cnt, B, order ? B / 2 - 1 - i : i, k);
+  delete[] nodes;
 }
 
 extern "C" void h_final_exp(const int* f, const uint32_t* c, const int* prog,
@@ -300,15 +310,33 @@ def _check_full_miller(core, rev):
 
 
 def test_reduce_lane_matches_plain(core):
-    rng = random.Random(384)
-    B = 8
+    """The one-launch reduce's groups on 8 lanes against the plain halving
+    product, limb for limb after canonical."""
+    _check_reduce(core, 8, 0, 0)
+
+
+@pytest.mark.parametrize("B", [2, 4, 8])
+@pytest.mark.parametrize("rev,order", [(0, 0), (1, 1)])
+def test_reduce_groups_in_any_order(core, B, rev, order):
+    """The one-launch reduce's groups (a node of the product tree each, the
+    second to reach a node carrying on) against the plain halving product,
+    limb for limb after canonical: groups first to last with each round's
+    jobs in order, and groups last to first with the jobs reversed; the
+    arrival counters are zero again afterwards, ready for the next call."""
+    _check_reduce(core, B, rev, order)
+
+
+def _check_reduce(core, B, rev, order):
+    rng = random.Random(384 + B)
     f = np.stack([np.stack([dev.F.to_mont(rng.randrange(P))
                             for _ in range(B)]) for _ in range(12)])
     buf = np.ascontiguousarray(f.astype(np.int32))
-    _call(core.h_reduce, buf, CONSTS, B)
+    cnt = np.zeros(B, np.int32)
+    _call(core.h_reduce, buf, CONSTS, cnt, B, rev, order)
     plain = dev.product_reduce(tower.f12_from_flat(torch.as_tensor(f)))
     np.testing.assert_array_equal(
         buf[:, :1], dev.F.canonical(tower.flat_from_f12(plain)).numpy())
+    assert not cnt.any()            # left zero for the next launch
 
 
 def test_final_exp_lane_full_program_matches_chain(core):

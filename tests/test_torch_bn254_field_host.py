@@ -134,16 +134,20 @@ extern "C" void h_final_exp_serial(const int* f, const uint32_t* c,
 }
 
 // the MSM entry's threads for lanes 0..B (lane B a pad lane), each lane
-// a warp of its own (it starts at its own top bit)
+// a warp of its own (it starts at its own top bit), on the kernel's two
+// instances: up to three terms the table in local memory, more in a
+// scratch buffer of bn_msm_scratch_entries(B, T) entries
 extern "C" void h_msm(const uint32_t* kw, const int* q, const uint32_t* c,
                       int* out, int B, int nterms, int nbits) {
   const BnConsts k = consts_of(c);
+  G2P* scratch = new G2P[bn_msm_scratch_entries(B, nterms)];
   for (int i = 0; i <= B; ++i) {
     if (nterms <= BN_MSM_WINDOW)
       bn_msm_thread<1>(kw, q, B, nterms, nbits, i, k, out);
     else
-      bn_msm_thread<2>(kw, q, B, nterms, nbits, i, k, out);
+      bn_msm_thread<0>(kw, q, B, nterms, nbits, i, k, out, scratch);
   }
+  delete[] scratch;
 }
 """
 
@@ -545,6 +549,30 @@ def test_msm_lane_matches_plain_and_ints(core):
     got = _msm_points(out)
     assert got == [ref.g2_msm(lane) for lane in lanes]
     assert got[3] is None and got[4] is None and got[8] is None
+
+
+@pytest.mark.parametrize("nterms", [9, 17])
+def test_msm_lane_beyond_local_tables(core, nterms):
+    """Lanes of more terms than the kernel's local joint tables hold (the
+    scratch-table instance): word for word against the plain chain and
+    as points against bn254_ref.g2_msm on 8-bit scalars, with an entry
+    at infinity (Q + (-Q) in one window) and an all-zero lane."""
+    rng = random.Random(96 + nterms)
+    T = ref.g2_mul_fast(2718, G2)
+    pts = [G2, T, ref.g2_neg_tw(T)]
+    lanes = [[(rng.randrange(1 << 8), pts[t % 3]) for t in range(nterms)]
+             for _ in range(2)]
+    lanes.append([(7, T), (7, ref.g2_neg_tw(T))]
+                 + [(0, None)] * (nterms - 3) + [(1, G2)])
+    lanes.append([(0, None)] * nterms)
+    kw, qf, out = _msm_host(core, lanes, 8)
+    plain = dev.g2_msm(torch.as_tensor(kw.view(np.int32)),
+                       *[torch.as_tensor(a) for a in qf], nbits=8)
+    flat = torch.stack([c for p in plain for c in p])
+    np.testing.assert_array_equal(out, dev.F.canonical(flat).numpy())
+    got = _msm_points(out)
+    assert got == [ref.g2_msm(lane) for lane in lanes]
+    assert got[2] == G2 and got[3] is None
 
 
 def test_msm_lane_two_windows_and_subgroup(core):

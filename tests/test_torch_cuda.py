@@ -571,7 +571,8 @@ def test_dbl_and_f25_cores_match_ints(dev):
     got = ed25519.f25_selftest(a.to(dev), b.to(dev))
     assert torch.equal(got.cpu(), ed25519.f25_selftest_plain(a, b))
     Bp = edh.from_affine(edh.BX, edh.BY)
-    eps = [Bp, edh._IDENT, (0, PE - 1, 1, 0), edh.scalar_mult(77, Bp)]
+    eps = [Bp, edh._IDENT, (0, PE - 1, 1, 0),
+           edh.from_affine(*edh.to_affine(edh.scalar_mult(77, Bp)))]
     cases = [(p, q) for p in eps for q in eps]
     ep = words([[c % PE for c in p] for p, _ in cases])
     eq = words([[c % PE for c in q] for _, q in cases])
@@ -620,9 +621,10 @@ def test_ladder_kernel_matches_plain_and_ints(dev):
 
 def test_ed25519_kernel_matches_plain_and_ints(dev):
     """The Ed25519 kernel on chip_smoke's edge rows (S = 0, k = 0, RFC
-    8032 test 1, identity operands, a dead lane, R off by one point) and
-    signed lanes: kernel = ed25519.verify_core on every lane = Python
-    ints / ed25519_host.verify."""
+    8032 test 1, identity operands, a dead lane, R off by one point, k
+    whose signed digits hit -8, 7 and a carried top digit, an identity
+    R) and signed lanes: kernel = ed25519.verify_core on every lane =
+    Python ints / ed25519_host.verify."""
     import chip_smoke as cs
 
     from fabric_tpu_torch.bccsp import ed25519_host as edh
@@ -641,7 +643,8 @@ def test_ed25519_kernel_matches_plain_and_ints(dev):
         signed.append((edh.prep_verify(pk, sig, msg),
                        edh.verify(pk, sig, msg)))
     ops = [op for _, op, _ in edges] + [p for p, _ in signed]
-    rows = ed25519.stage_rows(ops, 32)
+    n = 64
+    rows = ed25519.stage_rows(ops, n)
     rows[6][:len(edges)] = [pm for _, _, pm in edges]
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in rows]
     ktab = ed25519.device_table(dev)
@@ -653,7 +656,7 @@ def test_ed25519_kernel_matches_plain_and_ints(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, plain)
     want = [cs._ed_int(*op, pm) for _, op, pm in edges] + [
-        v for _, v in signed] + [False] * (32 - len(ops))
+        v for _, v in signed] + [False] * (n - len(ops))
     assert got.cpu().numpy().tolist() == want
 
 
@@ -857,6 +860,42 @@ def test_bn254_msm_matches_plain_and_ints(dev):
     assert bn254.read_g2_msm(out) == [bref.g2_msm(lane) for lane in full]
 
 
+@pytest.mark.parametrize("nterms", [9, 17])
+def test_provider_g2_msm_beyond_local_tables(dev, nterms):
+    """CUDAProvider.g2_msm_batch on lanes of more terms than the kernel's
+    local joint tables hold (its scratch-table instance) against
+    bn254_ref.g2_msm, full-width scalars, with an entry at infinity and
+    an all-zero lane; and the entry itself limb for limb against the
+    plain chain on 8-bit scalars."""
+    import random
+
+    from fabric_tpu_torch.ops import bn254
+    from fabric_tpu_torch.ops import bn254_ref as bref
+    rng = random.Random(99 + nterms)
+    g2 = (bref.G2_X, bref.G2_Y)
+    T = bref.g2_mul_fast(4243, g2)
+    pts = [g2, T, bref.g2_neg_tw(T)]
+    lanes = [[(rng.randrange(bref.R), pts[t % 3]) for t in range(nterms)]
+             for _ in range(3)]
+    lanes.append([(5, T), (5, bref.g2_neg_tw(T))]
+                 + [(0, None)] * (nterms - 3) + [(1, g2)])
+    lanes.append([(0, None)] * nterms)
+    prov = factory.new_bccsp({"Default": "CUDA", "CUDA": {"MinBatch": 4}})
+    assert prov.g2_msm_batch(lanes) == [bref.g2_msm(lane) for lane in lanes]
+    assert prov.stats["g2_msm_launches"] == 1
+    small = [[(rng.randrange(1 << 8), pts[t % 3]) for t in range(nterms)]
+             for _ in range(40)]
+    kw, qf = bn254.stage_g2_msm_words(small)
+    kt = torch.as_tensor(kw.view(np.int32)).to(dev)
+    qt = [torch.as_tensor(a).to(dev) for a in qf]
+    got = bn254.g2_msm(kt, *qt, nbits=8)
+    plain = bn254.g2_msm_chain(bn254.words_to_bits(kt, 8), *qt)
+    for g_, p_ in zip(got, plain):
+        for a, b in zip(g_, p_):
+            assert torch.equal(a, bn254.F.canonical(b))
+    assert bn254.read_g2_msm(got) == [bref.g2_msm(lane) for lane in small]
+
+
 def test_bn254_msm_warps_match_chain(dev):
     """Warps of mixed lanes (three scalars, one scalar of each length,
     all zero) in a random order and in the provider's class order
@@ -1011,8 +1050,8 @@ def test_bls12_381_coop_layer_matches_plain(dev):
 def test_bls12_381_entries_match_plain(dev):
     """The Miller entry at a truncated loop (a masked lane among them),
     the reduce and the final-exp entry on a short program against their
-    plain versions on the card (canonical limbs equal), each one launch
-    (the reduce one a level); the full Miller loop, reduce and program
+    plain versions on the card (canonical limbs equal), each one launch;
+    the full Miller loop, reduce and program
     against bls12_381_ref on a product that is one."""
     from fabric_tpu_torch.ops import bls12_381 as blsagg
     from fabric_tpu_torch.ops import bls12_381_kernel as blsk
@@ -1043,7 +1082,7 @@ def test_bls12_381_entries_match_plain(dev):
     want = blsk.final_exp_plain(tower.f12_from_flat(want), A.program())
     assert torch.equal(gt, blsk.F.canonical(tower.flat_from_f12(want)))
     assert (blsk.miller_launches - m0, blsk.reduce_launches - r0,
-            blsk.final_exp_launches - f0) == (1, 3, 1)
+            blsk.final_exp_launches - f0) == (1, 1, 1)
     sk, pk = lref.bls_keygen(b"card")
     msgs = [b"x", b"y", b"z"]
     agg = lref.bls_aggregate([lref.bls_sign(sk, m) for m in msgs])
@@ -1053,9 +1092,29 @@ def test_bls12_381_entries_match_plain(dev):
     assert blsk.verify_pairs(pairs, device=dev) is False
 
 
+def test_bls12_381_reduce_one_launch(dev):
+    """The reduce entry at 2 ... 1,024 lanes: one launch a call, limb for
+    limb the plain halving product (canonical), on seeded random Fp12
+    lanes."""
+    from fabric_tpu_torch.ops import bls12_381_kernel as blsk
+    from fabric_tpu_torch.ops import tower
+    import random
+    rng = random.Random(101)
+    for B in (2, 4, 8, 64, 1024):
+        f = torch.as_tensor(np.stack([np.stack([
+            blsk.F.to_mont(rng.randrange(blsk.ref.P)) for _ in range(B)])
+            for _ in range(12)])).to(dev)
+        before = blsk.reduce_launches
+        got = tower.flat_from_f12(blsk.product_reduce(tower.f12_from_flat(f)))
+        assert blsk.reduce_launches == before + 1
+        want = tower.flat_from_f12(blsk.product_reduce_plain(
+            tower.f12_from_flat(f)))
+        assert torch.equal(got, blsk.F.canonical(want)), B
+
+
 def test_provider_verify_aggregate_on_the_card(dev):
     """A valid 7-key aggregate and a forged one through CUDAProvider on the
-    card, against the sw provider; one Miller, log2(8) = 3 reduce and one
+    card, against the sw provider; one Miller, one reduce and one
     final-exp launch a call."""
     from fabric_tpu_torch.bccsp import bccsp as api
     csp = sw.SWProvider()
@@ -1071,5 +1130,5 @@ def test_provider_verify_aggregate_on_the_card(dev):
         assert csp.verify_aggregate(pubs, m, agg) is want
     assert (prov.stats["bls_miller_launches"],
             prov.stats["bls_reduce_launches"],
-            prov.stats["bls_final_exp_launches"]) == (2, 6, 2)
+            prov.stats["bls_final_exp_launches"]) == (2, 2, 2)
     assert prov.stats["pairing_pairs"] == 16

@@ -112,25 +112,28 @@ def test_b_tables_byte_identical_to_jax(tmp_path, monkeypatch):
 
 
 def test_kernel_table_matches_ints():
-    """The kernel's layout: every entry of every coordinate equals
-    mont^-1 of the B table's limbs, as 8 little-endian 32-bit words."""
+    """The kernel's layout: every entry (x, y) of the B table in Niels form
+    (y + x, y - x, 2dxy) of the B table's affine values (mont^-1 of its
+    limbs), as 8 little-endian 32-bit words a coordinate."""
     tab = ed25519.b_tables()
     kt = ed25519.kernel_table(torch.as_tensor(tab)).numpy()
-    assert kt.shape == (8192, 4, 8) and kt.dtype == np.int32
+    assert kt.shape == (8192, 3, 8) and kt.dtype == np.int32
     rinv = pow(ed25519.FED.R, -1, P)
     words = kt.astype(np.int64) & 0xFFFFFFFF
     weights = [1 << (32 * i) for i in range(8)]
     for e in range(tab.shape[0]):
-        for c in range(4):
-            want = limb.limbs_to_int(tab[e, c]) * rinv % P
+        x, y = (limb.limbs_to_int(tab[e, c]) * rinv % P for c in (0, 1))
+        want = ((y + x) % P, (y - x) % P, 2 * edh.D * x * y % P)
+        for c in range(3):
             assert sum(int(w) * s for w, s in zip(words[e, c], weights)) \
-                == want, (e, c)
-    # entry (i, j) is j * 2^(8i) * B with Z = 1
+                == want[c], (e, c)
+    # entry (i, j) is j * 2^(8i) * B; entry 0 the identity (1, 1, 0)
     x, y = edh.to_affine(edh.scalar_mult(5 << 16, edh.from_affine(
         edh.BX, edh.BY)))
-    assert [sum(int(w) << (32 * i) for i, w in enumerate(words[2 * 256 + 5,
-                                                               c]))
-            for c in range(4)] == [x, y, 1, x * y % P]
+    got = [[sum(int(w) << (32 * i) for i, w in enumerate(words[e, c]))
+            for c in range(3)] for e in (2 * 256 + 5, 0)]
+    assert got == [[(y + x) % P, (y - x) % P, 2 * edh.D * x * y % P],
+                   [1, 1, 0]]
 
 
 def _mont(pt):
