@@ -8,8 +8,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
   device           the card (and nvidia-smi's name and power limit);
                    no CUDA device -> exit 2, nothing printed
-  build            the host's native batch prep (csrc/batchprep.cpp, g++:
-                   native_build_s), then every kernel under
+  build            the host's native prep (csrc/batchprep.cpp and
+                   csrc/blockprep.cpp, one g++ library: native_build_s),
+                   then every kernel under
                    fabric_tpu_torch/csrc, one nvcc per source, started
                    together, all through the build seam into one recorder
                    (each library's seconds from its own nvcc's start and
@@ -130,7 +131,7 @@ Phases, one JSON line each; any failure exits non-zero:
                    the memory, busy-ratio, compile and launch gauges; (h)
                    the commit path's steady median with tracing on, with
                    it off, and with it off and the busy events stubbed
-                   out, in turns, 60 calls each: on within 5% or 0.10 ms
+                   out, in turns, 240 calls each: on within 5% or 0.10 ms
                    of each of the others.
   warm_restart     the Q16 table's lifecycle across a restart, on the org
                    block's key set (3 keys, K = 4), with a temporary
@@ -152,6 +153,31 @@ Phases, one JSON line each; any failure exits non-zero:
                    fails and the set is rebuilt, q16_builds 1). Every
                    bitmap equals the cold leg's, the expected one and sw on
                    the sample.
+  envelope_block   the peer's block fast path from envelope bytes to
+                   verdicts: a block of --txs ENDORSER_TRANSACTION
+                   envelopes on one channel written by
+                   fabric_tpu_torch/protoutil.py (make_envelope_block): 3
+                   org users create, 2 of 3 org peers endorse (prp ||
+                   endorser), self-signed X.509 identities, 6 P-256 keys,
+                   write sets of the asset-transfer sample's shape (1-4
+                   keys); ~1% bad lanes of five kinds (a payload byte
+                   flipped after signing, an endorsement over another
+                   tx's prp, high S, bad DER, the endorser field swapped),
+                   4 txs with an unknown field (BP_NEEDS_PYTHON), 1 on
+                   another channel, 1 with its first endorser repeated.
+                   core.fastvalidate.signature_phase on a fresh q16
+                   provider (native.block_prep: csrc/blockprep.cpp, the
+                   lanes, verify_prepared_start), then its resolve: the
+                   statuses, every creator and endorsement flag and the
+                   rerouted txs equal the ones known by construction, sw
+                   on >= 2,048 lanes holding every bad one; the steady
+                   calls counted (stage A's digest-lanes entry and the
+                   tree, one launch a chunk a call). Prints the block's
+                   bytes, block_prep_s (median of 5 calls), and, medians
+                   of 5 steady calls, lane_assembly_s, dispatch_s,
+                   resolve_wait_s, block_to_flags_s and the card's busy
+                   ms from the provider's CUDA events, beside the org
+                   block's verify_prepared on ready arrays.
   kernel_vs_plain  both entries of the tree kernel against their plain
                    torch versions on the card at the main path's shape
                    (the block's 32,768-lane bucket, M = 32 and 64, windows
@@ -329,6 +355,8 @@ Then one line {"kernels": [...]}, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import base64
+import functools
 import hashlib
 import json
 import multiprocessing as mp
@@ -470,6 +498,10 @@ def _chunks(seq, n):
 
 
 def pool_map(pool, fn, jobs, nproc):
+    """fn over `jobs` in the pool's processes (in this one with no
+    pool), the results in the jobs' order."""
+    if pool is None:
+        return fn(jobs)
     out = []
     for part in pool.map(fn, _chunks(jobs, nproc * 4)):
         out.extend(part)
@@ -602,6 +634,392 @@ def make_block(seed: int, txs: int, pool, nproc, clients: int = 0):
                 kind_of=kind_of, pubs=pubs, sigs=sigs, digests=digests,
                 key_of=key_of, sign_s=sign_s, prep_s=prep_s,
                 prep_python_s=prep_python_s, rng=rng, msgs=msgs, ds=ds)
+
+
+# -- the peer's block fast path: a block of Fabric envelopes --
+
+ENV_CHANNEL = "mychannel"
+ENV_CC = "assetcc"
+ENV_ORGS = 3                    # an org peer endorses, an org user creates
+# the channel's MSP ids, one an org
+ENV_MSPIDS = tuple(f"Org{o + 1}MSP" for o in range(ENV_ORGS))
+ENV_BAD_KINDS = ("payload_flipped", "other_prp", "high_s", "bad_der",
+                 "endorser_swapped")
+ENV_NEEDS_PYTHON = 4            # txs with an unknown envelope field
+ENV_WRONG_CHANNEL = 1
+ENV_DUP_ENDORSER = 1
+ENV_REPS = 5                    # steady calls of the block's path
+# TxValidationCode.BAD_CHANNEL_HEADER: the wrong channel's native verdict
+BAD_CHANNEL_HEADER = 20
+# ecdsa-with-SHA256 (1.2.840.10045.4.3.2) and commonName (2.5.4.3)
+_ECDSA_SHA256 = bytes.fromhex("300a06082a8648ce3d040302")
+_CN = bytes.fromhex("0603550403")
+
+
+def _tlv(tag: int, content: bytes) -> bytes:
+    n = len(content)
+    head = bytes([n]) if n < 0x80 else (
+        bytes([0x80 | ((n.bit_length() + 7) // 8)])
+        + n.to_bytes((n.bit_length() + 7) // 8, "big"))
+    return bytes([tag]) + head + content
+
+
+def x509_der(d: int, cn: str, serial: int) -> bytes:
+    """A self-signed X.509 v3 certificate (DER) for P-256 key d: subject
+    and issuer CN=cn, ten years from 2026, the key's SPKI, signed over its
+    tbsCertificate with ecdsa-with-SHA256. The block's identities carry
+    it; nothing validates its chain."""
+    from fabric_tpu_torch.bccsp import p256_host, utils
+
+    name = _tlv(0x30, _tlv(0x31, _tlv(0x30, _CN + _tlv(0x0C, cn.encode()))))
+    validity = _tlv(0x30, _tlv(0x17, b"260101000000Z")
+                    + _tlv(0x17, b"360101000000Z"))
+    spki = p256_host.encode_spki(*p256_host.derive_public(d))
+    tbs = _tlv(0x30, _tlv(0xA0, _tlv(0x02, b"\x02"))
+               + _tlv(0x02, serial.to_bytes((serial.bit_length() + 8) // 8,
+                                            "big")) + _ECDSA_SHA256
+               + name + validity + name + spki)
+    r, s = p256_host.sign(d, hashlib.sha256(tbs).digest())
+    sig = utils.marshal_signature(r, utils.to_low_s(s))
+    return _tlv(0x30, tbs + _ECDSA_SHA256 + _tlv(0x03, b"\x00" + sig))
+
+
+def pem_cert(der: bytes) -> bytes:
+    b64 = base64.b64encode(der)
+    return (b"-----BEGIN CERTIFICATE-----\n"
+            + b"".join(b64[i:i + 64] + b"\n" for i in range(0, len(b64), 64))
+            + b"-----END CERTIFICATE-----\n")
+
+
+def org_identities(rng) -> dict:
+    """ENV_ORGS orgs' peer (endorser) and user (creator) identities:
+    P-256 keys from `rng`, self-signed certificates, SerializedIdentity
+    bytes ({"peer": [(d, sid)], "user": [(d, sid)]})."""
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.bccsp import p256_host
+
+    out: dict = {"peer": [], "user": []}
+    for o in range(ENV_ORGS):
+        for role in ("peer", "user"):
+            d = int.from_bytes(rng.bytes(32), "big") % (p256_host.N - 1) + 1
+            cn = (f"peer0.org{o + 1}.example.com" if role == "peer"
+                  else f"User1@org{o + 1}.example.com")
+            cert = x509_der(d, cn, 1000 + 2 * o + (role == "user"))
+            out[role].append((d, protoutil.serialized_identity(
+                ENV_MSPIDS[o], pem_cert(cert))))
+    return out
+
+
+def asset_tx(rng, t: int) -> tuple[list, bytes]:
+    """The chaincode args and the rwset (ChaincodeAction.results) of tx
+    `t` in the shape of the asset-transfer sample chaincode
+    (fabric_tpu/examples/assetcc.py): 1 + t % 4 keys, a `put` of one
+    asset record, else a chain of `transfer`s over 2-4 assets, each key
+    read at its committed version and written with its new amount."""
+    from fabric_tpu_torch import protoutil as pu
+
+    k = 1 + t % 4
+    keys = [f"asset{int(rng.integers(1 << 24)):07d}" for _ in range(k)]
+    if k == 1:
+        value = (b'{"color":"blue","size":%d,"owner":"org%d",'
+                 b'"appraised":%d}' % (int(rng.integers(1, 100)), t % 3 + 1,
+                                       int(rng.integers(1, 10 ** 6))))
+        args = [b"put", keys[0].encode(), value]
+        rw = pu.kv_rwset(writes=[pu.kv_write(keys[0], value)])
+    else:
+        amts = [str(int(rng.integers(0, 10 ** 6))).encode() for _ in keys]
+        args = [b"transfer", *[key.encode() for key in keys],
+                str(int(rng.integers(1, 1000))).encode()]
+        rw = pu.kv_rwset(
+            reads=[pu.kv_read(key, pu.version(int(rng.integers(1, 10 ** 5)),
+                                              int(rng.integers(0, 500))))
+                   for key in keys],
+            writes=[pu.kv_write(key, a) for key, a in zip(keys, amts)])
+    return args, pu.tx_rwset([pu.ns_rwset(ENV_CC, rw)])
+
+
+def make_envelope_block(seed: int, txs: int, pool, nproc) -> dict:
+    """A block of `txs` ENDORSER_TRANSACTION envelopes on ENV_CHANNEL,
+    written by fabric_tpu_torch/protoutil.py: each tx's creator (an org
+    user) signs its payload and 2 of the 3 org peers endorse prp ||
+    endorser, over 6 P-256 keys, so 3 signature lanes a tx. About 1% of
+    the lanes are bad, one per tx, of ENV_BAD_KINDS: a payload byte
+    flipped after the creator signed (in the committed proposal payload,
+    which no endorser signs), an endorsement over another tx's prp, a
+    high S, bad DER, an endorsement whose endorser field names the peer
+    that did not sign it. Besides: ENV_NEEDS_PYTHON txs with an unknown
+    envelope field (BP_NEEDS_PYTHON: no lanes), ENV_WRONG_CHANNEL on
+    another channel (BP_FAIL_BASE + BAD_CHANNEL_HEADER: no lanes) and
+    ENV_DUP_ENDORSER with its first endorsement repeated (the copy's slot
+    deduplicated: no lane). The expected verdicts, by tx and slot, follow
+    by construction."""
+    from fabric_tpu_torch import native, protoutil as pu
+    from fabric_tpu_torch.bccsp import p256_host, utils
+    from fabric_tpu_torch.core import fastvalidate
+
+    rng = np.random.default_rng(seed)
+    ids = org_identities(rng)
+    t0 = time.perf_counter()
+    order = rng.permutation(txs)
+    npy = order[:ENV_NEEDS_PYTHON]
+    wrong = order[ENV_NEEDS_PYTHON:ENV_NEEDS_PYTHON + ENV_WRONG_CHANNEL]
+    dup = order[ENV_NEEDS_PYTHON + ENV_WRONG_CHANNEL:][:ENV_DUP_ENDORSER]
+    rest = order[ENV_NEEDS_PYTHON + ENV_WRONG_CHANNEL + ENV_DUP_ENDORSER:]
+    n_bad = max(len(ENV_BAD_KINDS), 3 * txs // 100)
+    bad = {}                    # tx -> (kind, slot)
+    for j, t in enumerate(rest[:n_bad].tolist()):
+        kind = ENV_BAD_KINDS[j % len(ENV_BAD_KINDS)]
+        slot = (0 if kind == "payload_flipped"
+                else 1 + int(rng.integers(2))
+                if kind in ("other_prp", "endorser_swapped")
+                else int(rng.integers(3)))
+        bad[t] = (kind, slot)
+
+    tx = []
+    for t in range(txs):
+        o = t % ENV_ORGS
+        peers = rng.choice(ENV_ORGS, 2, replace=False).tolist()
+        args, results = asset_tx(rng, t)
+        nonce = rng.bytes(24)
+        creator = ids["user"][o][1]
+        cc_input = pu.chaincode_invocation_spec(ENV_CC, args)
+        prp = pu.proposal_response_payload(
+            hashlib.sha256(nonce + creator + cc_input).digest(),
+            pu.chaincode_action(results, response=pu.response(pu.SUCCESS),
+                                chaincode_id=pu.chaincode_id(ENV_CC, "1.0")))
+        tx.append(dict(o=o, peers=peers, args=args, nonce=nonce,
+                       cc_input=cc_input, prp=prp, ts=1_790_000_000_000_000_000
+                       + t * 1000))
+    # the endorsements, signed in the pool
+    jobs = []
+    for t, x in enumerate(tx):
+        for j, p in enumerate(x["peers"]):
+            signed = x["prp"]
+            if bad.get(t) == ("other_prp", 1 + j):
+                signed = tx[(t + 1) % txs]["prp"]
+            jobs.append((ids["peer"][p][0], hashlib.sha256(
+                signed + ids["peer"][p][1]).digest()))
+    esigs = pool_map(pool, _sign_chunk, jobs, nproc)
+
+    def mangle(sig, kind):
+        if kind == "high_s":
+            r, s = utils.unmarshal_signature(sig)
+            return utils.marshal_signature(r, p256_host.N - s)
+        return b"\x31" + sig[1:]            # bad_der
+
+    payloads = []
+    for t, x in enumerate(tx):
+        kind, slot = bad.get(t, (None, None))
+        ends = []
+        for j, p in enumerate(x["peers"]):
+            sig = esigs[2 * t + j]
+            endorser = ids["peer"][p][1]
+            if slot == 1 + j and kind in ("high_s", "bad_der"):
+                sig = mangle(sig, kind)
+            elif slot == 1 + j and kind == "endorser_swapped":
+                other = ({0, 1, 2} - set(x["peers"])).pop()
+                endorser = ids["peer"][other][1]
+            ends.append(pu.endorsement(endorser, sig))
+        if t in dup:
+            ends.append(ends[0])
+        x["n_end"] = len(ends)
+        x["ends"] = ends
+        payloads.append(pu.endorser_tx_payload(
+            "otherchannel" if t in wrong else ENV_CHANNEL,
+            ids["user"][x["o"]][1], x["nonce"], x["cc_input"], x["prp"],
+            ends, timestamp=x["ts"],
+            extension=pu.chaincode_header_extension(ENV_CC)))
+    csigs = pool_map(pool, _sign_chunk,
+                     [(ids["user"][x["o"]][0], hashlib.sha256(p).digest())
+                      for x, p in zip(tx, payloads)], nproc)
+    sign_s = time.perf_counter() - t0
+
+    envs = []
+    creator_exp = np.zeros(txs, dtype=bool)
+    e_exp = np.zeros((txs, fastvalidate.MAX_E), dtype=bool)
+    for t, (x, payload, sig) in enumerate(zip(tx, payloads, csigs)):
+        kind, slot = bad.get(t, (None, None))
+        if kind == "payload_flipped":
+            args = list(x["args"])
+            a = bytearray(args[1])
+            a[int(rng.integers(len(a)))] ^= 0x01
+            args[1] = bytes(a)
+            payload = pu.endorser_tx_payload(
+                ENV_CHANNEL, ids["user"][x["o"]][1], x["nonce"],
+                pu.chaincode_invocation_spec(ENV_CC, args), x["prp"],
+                x["ends"], timestamp=x["ts"],
+                extension=pu.chaincode_header_extension(ENV_CC))
+        elif slot == 0:
+            sig = mangle(sig, kind)
+        env = pu.envelope(payload, sig)
+        if t in npy:
+            env += b"\x38\x01"             # unknown field 7, a varint
+        envs.append(env)
+        if t in npy or t in wrong:
+            continue
+        creator_exp[t] = slot != 0
+        e_exp[t, :2] = [slot != 1, slot != 2]
+    status = np.full(txs, native.BP_OK_ENDORSER, dtype=np.int32)
+    status[npy] = native.BP_NEEDS_PYTHON
+    status[wrong] = native.BP_FAIL_BASE + BAD_CHANNEL_HEADER
+    ok = status == native.BP_OK_ENDORSER
+    return dict(envs=envs, n=txs, lanes=3 * int(ok.sum()),
+                creator_exp=creator_exp, e_exp=e_exp, status=status,
+                npy=npy, wrong=wrong, dup=dup, bad=bad, ids=ids,
+                sign_s=sign_s, rng=rng)
+
+
+def envelope_lane_sigs(ph, envs) -> list:
+    """Each lane's DER signature, in `signature_phase`'s lane order."""
+    bp = ph.bp
+    sigs = [bp.slice(int(i), bp.csig_off, bp.csig_len) for i in ph.ci]
+    for i, j in zip(ph.ei.tolist(), ph.ej.tolist()):
+        o = int(bp.e_sig_off[i, j])
+        sigs.append(envs[i][o:o + int(bp.e_sig_len[i, j])])
+    return sigs
+
+
+def check_envelope_flags(label, eblk, ph, creator, e_flag) -> None:
+    """The flags against the verdicts known by construction; the
+    rerouted txs are the BP_NEEDS_PYTHON ones."""
+    for what, got, want in (("creator", creator, eblk["creator_exp"]),
+                            ("endorsement", e_flag, eblk["e_exp"])):
+        bad = np.argwhere(got != want)
+        check(not len(bad), f"{label}: {what} flags != expected at "
+              f"{bad[:10].tolist()}")
+    want = np.zeros(eblk["n"], dtype=bool)
+    want[eblk["npy"]] = True
+    check(np.array_equal(ph.reroute, want),
+          f"{label}: rerouted txs {np.nonzero(ph.reroute)[0][:10].tolist()}")
+
+
+def envelope_block(eblk, prov, blk, prov16, card, pool, nproc) -> dict:
+    """The peer's block fast path on the card: `fastvalidate.
+    signature_phase` over the envelope block's bytes on a fresh q16
+    provider, then its resolve. Returns the kernel counts of the counted
+    steady calls."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.core import fastvalidate
+    from fabric_tpu_torch.msp import identity
+
+    envs, n = eblk["envs"], eblk["n"]
+    resolver = functools.partial(identity.resolve, mspids=ENV_MSPIDS)
+    prep_s = []
+    for _ in range(ENV_REPS):
+        t0 = time.perf_counter()
+        bp = native.block_prep(envs, ENV_CHANNEL, fastvalidate.MAX_E)
+        prep_s.append(time.perf_counter() - t0)
+    check(np.array_equal(bp.status, eblk["status"]),
+          f"envelope block: statuses {np.unique(bp.status).tolist()}")
+    for t in eblk["dup"].tolist():
+        check(bp.e_count[t] == 3 and bp.e_uid[t, 2] == bp.e_uid[t, 0],
+              f"envelope block: tx {t}'s repeated endorser")
+    check(bp.n_unique == 2 * ENV_ORGS,
+          f"envelope block: {bp.n_unique} unique identities")
+
+    def run():
+        ph = fastvalidate.signature_phase(envs, ENV_CHANNEL, prov,
+                                          resolver)
+        return ph, ph.resolve()
+
+    t0 = time.perf_counter()
+    ph, (creator, e_flag) = run()
+    first_s = time.perf_counter() - t0
+    check_envelope_flags("envelope block (first call)", eblk, ph, creator,
+                         e_flag)
+    check(len(ph.lanes["der_ok"]) == eblk["lanes"],
+          f"envelope block: {len(ph.lanes['der_ok'])} lanes, "
+          f"{eblk['lanes']} made")
+
+    # the steady calls, counted, each split at the native prep and the
+    # provider's dispatch; the card's busy time from its CUDA events
+    stamps: dict = {}
+
+    def stamped(key, fn):
+        def run_stamped(*a, **k):
+            stamps[key + "0"] = time.perf_counter()
+            out = fn(*a, **k)
+            stamps[key + "1"] = time.perf_counter()
+            return out
+        return run_stamped
+
+    rows = []
+    busy = prov.device_cost.busy
+
+    def steady():
+        for _ in range(ENV_REPS):
+            before = busy.totals().get(0, 0.0)
+            t0 = time.perf_counter()
+            ph = fastvalidate.signature_phase(envs, ENV_CHANNEL, prov,
+                                              resolver)
+            t1 = time.perf_counter()
+            creator, e_flag = ph.resolve()
+            t2 = time.perf_counter()
+            check_envelope_flags("envelope block", eblk, ph, creator, e_flag)
+            rows.append({
+                "block_prep_in_call_s": stamps["bp1"] - stamps["bp0"],
+                "lane_assembly_s": stamps["vps0"] - stamps["bp1"],
+                "dispatch_s": stamps["vps1"] - stamps["vps0"],
+                "resolve_wait_s": t2 - t1, "block_to_flags_s": t2 - t0,
+                "busy_ms": (busy.totals().get(0, 0.0) - before) * 1e3})
+        return ph, creator, e_flag
+
+    real_prep = native.block_prep
+    native.block_prep = stamped("bp", real_prep)
+    prov.verify_prepared_start = stamped("vps", prov.verify_prepared_start)
+    try:
+        (ph, creator, e_flag), counts, _, _ = counted(
+            prov, "envelope_block", (TREE, SHA), steady)
+    finally:
+        native.block_prep = real_prep
+        prov.__dict__.pop("verify_prepared_start", None)
+    chunks = -(-prov._bucket(eblk["lanes"]) // prov._chunk)
+    for k in (SHA, TREE):
+        check(counts[k] == ENV_REPS * chunks,
+              f"envelope block: {k} {counts[k]}, not one per chunk a call "
+              f"({ENV_REPS} x {chunks})")
+
+    # the port's sw provider on a sample of lanes holding every bad one
+    nc = len(ph.ci)
+    pos = {("c", int(t)): k for k, t in enumerate(ph.ci.tolist())}
+    pos.update({(int(i), int(j)): nc + k for k, (i, j) in enumerate(
+        zip(ph.ei.tolist(), ph.ej.tolist()))})
+    bad_lanes = [pos[("c", t)] if slot == 0 else pos[(t, slot - 1)]
+                 for t, (_, slot) in eblk["bad"].items()]
+    rng = eblk["rng"]
+    nl = len(ph.lanes["der_ok"])
+    sample = np.array(sorted(set(bad_lanes) | set(rng.choice(
+        nl, min(2048, nl), replace=False).tolist())))
+    sigs = envelope_lane_sigs(ph, envs)
+    keys = [ph.idents[int(u)].key for u in ph.lanes["key_idx"][sample]]
+    jobs = [(k.x, k.y, sigs[i], bytes(ph.lanes["digests"][i]))
+            for k, i in zip(keys, sample.tolist())]
+    sw_bits = np.array(pool_map(pool, _sw_chunk, jobs, nproc), dtype=bool)
+    flags = np.concatenate([creator[ph.ci], e_flag[ph.ei, ph.ej]])
+    check(bool((flags[sample] == sw_bits).all()),
+          "envelope block: flags != sw on the sample")
+    check(not flags[bad_lanes].any(), "envelope block: a bad lane passed")
+
+    org = []
+    for _ in range(ENV_REPS):
+        t0 = time.perf_counter()
+        prov16.verify_prepared(**blk["prepared"])
+        org.append(time.perf_counter() - t0)
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    emit({"phase": "envelope_block", "ok": True, "card": card, "txs": n,
+          "lanes": eblk["lanes"], "keys": 2 * ENV_ORGS,
+          "block_bytes": sum(len(e) for e in envs),
+          "bad_lanes": {k: sum(1 for v, _ in eblk["bad"].values() if v == k)
+                        for k in ENV_BAD_KINDS},
+          "needs_python_txs": len(eblk["npy"]),
+          "wrong_channel_txs": len(eblk["wrong"]),
+          "dup_endorser_txs": len(eblk["dup"]), "sample_vs_sw": len(sample),
+          "sign_s": eblk["sign_s"], "block_prep_s": statistics.median(prep_s),
+          "block_prep_all_s": prep_s, "first_block_to_flags_s": first_s,
+          "table_build_s": prov.stats["table_build_s"],
+          **med, "steady_all": rows, "launches": counts,
+          "org_verify_prepared_s": statistics.median(org)})
+    return counts
 
 
 # -- main path --
@@ -982,6 +1400,8 @@ def telemetry(blk, prov16, sw_bits, sample, card, libs) -> None:
           "trace_captures": captures, "gauges": gauges,
           "tracing_on_median_ms": on_ms, "tracing_off_median_ms": off_ms,
           "spans_and_events_off_median_ms": bare_ms,
+          "on_minus_bare_ms": on_ms - bare_ms,
+          "on_minus_bare_limit_ms": max(0.05 * bare_ms, 0.10),
           "commit_path_all_ms": {a: [x * 1e3 for x in t]
                                  for a, t in times.items()}})
 
@@ -4022,6 +4442,10 @@ def drive(args, pool, nproc, card):
                      batch_need=(DIGEST, TREE), **route)
     telemetry(blk, prov16, sw_bits, sample, card, args.build_libs)
     warm_restart(blk, sw_bits, sample, card)
+    # the peer's block fast path: envelope bytes to verdicts
+    eblk = make_envelope_block(args.seed, args.txs, pool, nproc)
+    provenv = factory.new_bccsp({"Default": "CUDA"})
+    cenv = envelope_block(eblk, provenv, blk, prov16, card, pool, nproc)
 
     tree32 = kernel_vs_plain(prov16, blk, 32, card, pool, nproc)
     tree64 = kernel_vs_plain(prov8, blk, 64, card, pool, nproc)
@@ -4068,6 +4492,7 @@ def drive(args, pool, nproc, card):
             ("q16", prov16, Q16_LIBS + ("ed25519_verify",)),
             ("q8", prov8, Q16_LIBS + ("fused_resident",)),
             ("device_sha", provsha, Q16_LIBS),
+            ("envelope", provenv, ("ptree", "sha_windows")),
             ("ladder", provl, ("batchprep", "ladder")),
             ("pairing", provp, ("bn254_pairing", "g2_msm")),
             ("bls", provb, ("bls12_381_pairing",)))}})
@@ -4081,7 +4506,7 @@ def drive(args, pool, nproc, card):
     return [
         dict(name="ptree.tree_verify_windows (M=32)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
-             launches=n(c16, TREE), **tree32),
+             launches=n(c16, TREE) + cenv[TREE], **tree32),
         dict(name="ptree.tree_verify_windows (M=64)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
              launches=n(c8, TREE) + n(csha, TREE), **tree64),
@@ -4096,7 +4521,8 @@ def drive(args, pool, nproc, card):
         dict(name="fused_verify.digest_windows (16/16, digest lanes)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/comb.py:376",
-             launches=c16["verify_prepared"][SHA], **sha["digest_lanes_16"]),
+             launches=c16["verify_prepared"][SHA] + cenv[SHA],
+             **sha["digest_lanes_16"]),
         dict(name="fused_verify.digest_windows (8/8, digest lanes)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/comb.py:376",

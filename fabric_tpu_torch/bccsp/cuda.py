@@ -41,11 +41,13 @@ A batch holding a message over `MaxBlocks` SHA blocks is hashed on the
 host (`host_hash_fallbacks`): routing by size, as the reference does.
 
 A P-256 batch over more than `MaxKeys` distinct keys has no comb tables:
-the whole batch takes the Shamir ladder (`ladder_batches`), one kernel
-launch a chunk (csrc/ladder.cu, `ops/verify.py`) — message lanes with
-SHA-256 inside the kernel, digest lanes (`verify_prepared`, a batch
-hashed on the host) on its digest-lanes entry — as fabric_tpu's
-`_dispatch_arrays` sends such a batch to `_pipeline`.
+the whole batch takes the Shamir ladder (`ladder_batches`), one ladder
+launch a chunk (csrc/ladder.cu, `ops/verify.py`) — message lanes first
+hashed on the card by the digest-only SHA-256 kernel (one more launch a
+chunk), then every lane on the ladder's one digest-lanes entry, as
+digest lanes (`verify_prepared`, a batch hashed on the host) go straight
+there — as fabric_tpu's `_dispatch_arrays` sends such a batch to
+`_pipeline`.
 
 Ed25519 lanes: host gates and the SHA-512 challenge per lane
 (`ed25519_host.prep_verify`), then one kernel launch a chunk
@@ -214,9 +216,11 @@ class CUDAProvider(api.BCCSP):
                  fused_verify: bool | None = None,
                  max_blocks: int = 64, ed25519_enabled: bool = True,
                  bls_pairing: bool | None = None,
-                 warm_keys_dir: str | None = None):
+                 warm_keys_dir: str | None = None, keystore=None):
         self.device = torchenv.resolve_device(device)
-        self._sw = swmod.SWProvider()
+        # every non-batch method (keys, signing) is the sw provider's, its
+        # keys in `keystore` when one is given (bccsp/keystore.py)
+        self._sw = swmod.SWProvider(keystore)
         self._min_batch = min_batch
         self._max_keys = max_keys       # comb path cutoff (distinct keys)
         self._chunk = chunk             # lanes per kernel launch
@@ -798,11 +802,12 @@ class CUDAProvider(api.BCCSP):
     def _dispatch_ladder(self, bucket, key_map, key_idx, r8, rpn8, w8,
                          premask, digests, message=None):
         """The Shamir ladder for a batch over more than `MaxKeys` keys
-        (fabric_tpu's `_dispatch_arrays` ladder branch), one launch a
-        chunk: each lane's key goes to the card as 64 bytes (x then y,
+        (fabric_tpu's `_dispatch_arrays` ladder branch), one ladder launch
+        a chunk: each lane's key goes to the card as 64 bytes (x then y,
         big-endian). With `message` = (blocks, nblocks, has_digest) the
-        message entry hashes the lanes without a digest inside the
-        kernel; without it every lane is a digest lane."""
+        lanes without a digest are first hashed on the card by the
+        digest-only SHA-256 kernel (`verify.ladder_verify`: one more
+        launch a chunk); without it every lane is a digest lane."""
         self.stats["ladder_batches"] += 1
         qk = np.zeros((len(key_map), 64), dtype=np.uint8)
         for kb, j in key_map.items():

@@ -1,11 +1,14 @@
 """BCCSP factory for the port: config-driven provider selection.
 
 The counterpart of fabric_tpu/bccsp/factory.py. `BCCSP.Default` chooses
-"CUDA" (the card) or "SW" (the port's pure-Python P-256 provider); the
-`CUDA:` block carries the knobs the slice has, named as in the JAX
-package's `TPU:` block (`TpuOpts`):
+"CUDA" (the card) or "SW" (the port's pure-Python provider); the `SW:`
+block carries the reference's software options (`SwOpts`) and the
+`CUDA:` block the knobs the port has, named as in the JAX package's
+`TPU:` block (`TpuOpts`):
 
     {"Default": "CUDA",
+     "SW": {"Hash": "SHA2", "Security": 256,
+            "FileKeyStore": {"KeyStore": "/var/hyperledger/keystore"}},
      "CUDA": {"Device": "cuda:0" | "cpu", "MinBatch": 16, "MaxKeys": 16,
               "Chunk": 32768, "UseG16": true, "TableCacheMB": 6144,
               "HashOnHost": true, "FusedVerify": true, "MaxBlocks": 64,
@@ -17,6 +20,12 @@ absent; "cpu" runs the plain torch versions (the tests' choice).
 WarmKeysDir (unset: no persistence) is where the provider keeps the key
 sets it built Q tables for and those tables' bytes, which
 `CUDAProvider.prewarm()` restores in a restarted process.
+SW.FileKeyStore.KeyStore (unset: keys in memory only) is the directory of
+`bccsp/keystore.py`'s FileKeyStore, in the reference's file format; the
+software provider of either default writes its non-ephemeral ECDSA keys
+there and `get_key` reads it first. SW.Hash and SW.Security are read and
+kept as the reference keeps them: SHA2 at 256 bits is what both
+packages implement.
 """
 
 from __future__ import annotations
@@ -25,6 +34,13 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from fabric_tpu_torch.bccsp.bccsp import BCCSP
+
+
+@dataclass
+class SwOpts:
+    hash_family: str = "SHA2"
+    security: int = 256
+    keystore_path: Optional[str] = None
 
 
 @dataclass
@@ -56,15 +72,22 @@ class CudaOpts:
 @dataclass
 class FactoryOpts:
     default: str = "SW"
+    sw: SwOpts = field(default_factory=SwOpts)
     cuda: CudaOpts = field(default_factory=CudaOpts)
 
     @classmethod
     def from_config(cls, cfg: dict) -> "FactoryOpts":
         """Build from a core.yaml-style `BCCSP:` mapping."""
         cfg = cfg or {}
+        s = cfg.get("SW") or {}
         c = cfg.get("CUDA") or {}
         return cls(
             default=(cfg.get("Default") or "SW").upper(),
+            sw=SwOpts(
+                hash_family=s.get("Hash", "SHA2"),
+                security=int(s.get("Security", 256)),
+                keystore_path=(s.get("FileKeyStore") or {}).get(
+                    "KeyStore") or None),
             cuda=CudaOpts(
                 device=c.get("Device") or None,
                 min_batch=int(c.get("MinBatch", 16)),
@@ -89,9 +112,13 @@ def new_bccsp(opts) -> BCCSP:
     """A provider from FactoryOpts or from a `BCCSP:` config mapping."""
     if isinstance(opts, dict):
         opts = FactoryOpts.from_config(opts)
+    ks = None
+    if opts.sw.keystore_path:
+        from fabric_tpu_torch.bccsp.keystore import FileKeyStore
+        ks = FileKeyStore(opts.sw.keystore_path)
     if opts.default == "SW":
         from fabric_tpu_torch.bccsp.sw import SWProvider
-        return SWProvider()
+        return SWProvider(ks)
     if opts.default == "CUDA":
         from fabric_tpu_torch.bccsp.cuda import CUDAProvider
         c = opts.cuda
@@ -104,5 +131,6 @@ def new_bccsp(opts) -> BCCSP:
                             max_blocks=c.max_blocks,
                             ed25519_enabled=c.ed25519,
                             bls_pairing=c.bls_pairing,
-                            warm_keys_dir=c.warm_keys_dir)
+                            warm_keys_dir=c.warm_keys_dir,
+                            keystore=ks)
     raise ValueError(f"unknown BCCSP default {opts.default!r}")

@@ -291,7 +291,11 @@ class SWProvider(api.BCCSP):
     """CPU provider (reference: `bccsp/sw/new.go`): ECDSA on P-224,
     P-256, P-384 and P-521, Ed25519 and BLS12-381."""
 
-    def __init__(self):
+    def __init__(self, keystore=None):
+        # a file keystore (bccsp/keystore.py FileKeyStore) that every
+        # non-ephemeral ECDSA key is written to and get_key reads first;
+        # None keeps keys in memory only
+        self._ks = keystore
         # non-ephemeral keys by SKI, so get_key(ski) resolves them (the
         # reference's in-memory keystore, bccsp/sw/dummyks.go)
         self._mem: dict[bytes, api.Key] = {}
@@ -302,6 +306,9 @@ class SWProvider(api.BCCSP):
         existing = self._mem.get(key.ski())
         if existing is None or not existing.private() or key.private():
             self._mem[key.ski()] = key
+        if self._ks is not None and isinstance(
+                key, (ECDSAPrivateKey, ECDSAPublicKey)):
+            self._ks.store_key(key)
 
     def key_gen(self, opts) -> api.Key:
         if isinstance(opts, api.Ed25519KeyGenOpts):
@@ -344,6 +351,11 @@ class SWProvider(api.BCCSP):
         return key
 
     def get_key(self, ski: bytes) -> api.Key:
+        if self._ks is not None:
+            try:
+                return self._ks.get_key(ski)
+            except KeyError:
+                pass
         key = self._mem.get(ski)
         if key is None:
             raise KeyError(f"key {ski.hex()} not found")

@@ -15,6 +15,7 @@ exact equality. The provider, on every message route, on the commit path
 and on the BLS12-381 aggregate path, to its sw provider.
 """
 
+import functools
 import hashlib
 
 import numpy as np
@@ -1132,3 +1133,40 @@ def test_provider_verify_aggregate_on_the_card(dev):
             prov.stats["bls_reduce_launches"],
             prov.stats["bls_final_exp_launches"]) == (2, 2, 2)
     assert prov.stats["pairing_pairs"] == 16
+
+
+def test_envelope_block_flags_card_equal_cpu(dev):
+    """The peer's block fast path (`core.fastvalidate.signature_phase`)
+    over chip_smoke's envelope block (40 txs: bad lanes of every kind, the
+    BP_NEEDS_PYTHON, wrong-channel and repeated-endorser txs): the flags
+    on the card, on the q8 route and on the default (q16) one, equal the
+    CPU provider's (plain versions, the card's Q8 table copied over) and
+    the verdicts known by construction."""
+    import chip_smoke as cs
+    from fabric_tpu_torch.core import fastvalidate
+    from fabric_tpu_torch.msp import identity
+
+    eblk = cs.make_envelope_block(7, 40, None, 1)
+    resolver = functools.partial(identity.resolve, mspids=cs.ENV_MSPIDS)
+    runs = {}
+    provs = {"q8": factory.new_bccsp({"Default": "CUDA", "CUDA": {
+                 "UseG16": False}}),
+             "q16": factory.new_bccsp({"Default": "CUDA"})}
+    for name, prov in provs.items():
+        ph = fastvalidate.signature_phase(eblk["envs"], cs.ENV_CHANNEL, prov,
+                                          resolver)
+        runs[name] = ph, ph.resolve()
+        assert prov.stats["tree_kernel_launches"] >= 1, name
+    cpu = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "Device": "cpu", "MinBatch": 4, "UseG16": False}})
+    cpu._q8_cache.update({k: t.cpu()
+                          for k, t in provs["q8"]._q8_cache.items()})
+    ph = fastvalidate.signature_phase(eblk["envs"], cs.ENV_CHANNEL, cpu,
+                                      resolver)
+    creator, e_flag = ph.resolve()
+    assert cpu.stats["comb_batches"] == 1 and cpu.stats["q8_builds"] == 0
+    cs.check_envelope_flags("cpu", eblk, ph, creator, e_flag)
+    for name, (ph_card, (c_card, e_card)) in runs.items():
+        assert np.array_equal(c_card, creator), name
+        assert np.array_equal(e_card, e_flag), name
+        assert np.array_equal(ph_card.reroute, ph.reroute), name

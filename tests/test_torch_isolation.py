@@ -1,11 +1,12 @@
-"""The port imports neither jax nor anything of fabric_tpu.
+"""The port imports neither jax nor anything of fabric_tpu, nor the
+`protobuf` and `cryptography` packages the card's host does not have.
 
-In a fresh interpreter whose import system refuses `jax`, `fabric_tpu`
-and their submodules (an exact-name match, not a prefix:
-fabric_tpu_torch shares the prefix), every module of fabric_tpu_torch
-and chip_smoke.py must import, and the native batch prep must build
-from the port's own source (csrc/batchprep.cpp), never the root's
-native/.
+In a fresh interpreter whose import system refuses `jax`, `fabric_tpu`,
+`google.protobuf`, `cryptography` and their submodules (an exact-name
+match, not a prefix: fabric_tpu_torch shares the prefix), every module of
+fabric_tpu_torch and chip_smoke.py must import, and the native prep must
+build from the port's own sources (csrc/batchprep.cpp and
+csrc/blockprep.cpp), never the root's native/.
 """
 
 import os
@@ -17,7 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = r"""
 import importlib, importlib.abc, os, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "fabric_tpu")
+BLOCKED = ("jax", "jaxlib", "fabric_tpu", "google.protobuf",
+           "cryptography")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -40,12 +42,14 @@ for name in names:
 for name in ("ops.verify", "ops.mont", "ops.ed25519", "bccsp.ed25519_host",
              "ops.tower", "ops.bn254", "ops.bn254_ref", "ops.bls12_381_ref",
              "ops.bls12_381", "ops.bls12_381_kernel", "native",
-             "bccsp.ec_host"):
+             "bccsp.ec_host", "bccsp.keystore", "protoutil",
+             "msp.identity", "core.fastvalidate"):
     assert "fabric_tpu_torch." + name in names, name
-# the native prep builds the port's own source, not the root's native/
+# the native prep builds the port's own sources, not the root's native/
 from fabric_tpu_torch import native
-assert native.SOURCE == os.path.join(root, "fabric_tpu_torch", "csrc",
-                                     "batchprep.cpp"), native.SOURCE
+assert native.SOURCES == tuple(
+    os.path.join(root, "fabric_tpu_torch", "csrc", f)
+    for f in ("batchprep.cpp", "blockprep.cpp")), native.SOURCES
 importlib.import_module("chip_smoke")
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -56,6 +60,13 @@ except ImportError:
     pass
 else:
     raise AssertionError("the blocker let fabric_tpu through")
+for name in ("google.protobuf", "cryptography"):
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        pass
+    else:
+        raise AssertionError(f"the blocker let {name} through")
 print("imported", len(names), "modules")
 """
 
@@ -71,6 +82,7 @@ def test_port_imports_without_jax_or_fabric_tpu():
     # __init__, kernels, stage_a_timing, ladder_timing, common.torchenv,
     # ops.{limb,p256,comb,ptree,sha256,fused_verify,verify,mont,ed25519,
     # tower,bn254,bn254_ref,bls12_381_ref,bls12_381,bls12_381_kernel},
-    # bccsp.{bccsp,utils,p256_host,ec_host,ed25519_host,sw,cuda,factory},
-    # native and the subpackages
-    assert n >= 32, out.stdout
+    # bccsp.{bccsp,utils,p256_host,ec_host,ed25519_host,sw,cuda,factory,
+    # keystore}, native, protoutil, msp.identity, core.fastvalidate and
+    # the subpackages
+    assert n >= 38, out.stdout
