@@ -133,6 +133,24 @@ Phases, one JSON line each; any failure exits non-zero:
                    it off, and with it off and the busy events stubbed
                    out, in turns, 240 calls each: on within 5% or 0.10 ms
                    of each of the others.
+  mesh             the org block on a two-position mesh on cuda:0
+                   (CUDAProvider(mesh=[cuda:0] * 2), the q16 provider's
+                   tables handed over): verify_prepared (stage A's
+                   digest-lanes entry and the tree, one launch of each a
+                   position a chunk) and verify_batch (the fused tier),
+                   counted; bitmaps equal the q16 provider's, the expected
+                   one and sw on the sample; the steady verify_prepared
+                   median of the mesh beside the q16 provider's, 20 calls
+                   each in turns; the last call's per-position transfer
+                   and ready seconds and skew; the drill
+                   (DeviceHealth.cooldown_s 1 s): `tpu.device_lost` armed
+                   on position 1 raises DeviceLostError from that batch,
+                   health() reads device;degraded_mesh:1/2, the survivor
+                   serves the next batch (all lanes on one position), and
+                   after the cooldown the next call's probe readmits
+                   position 1 and the one after it serves on both; its
+                   times (quarantine, survivor, probe, readmit). The
+                   kernels line adds its launches (mesh_launches).
   warm_restart     the Q16 table's lifecycle across a restart, on the org
                    block's key set (3 keys, K = 4), with a temporary
                    WarmKeysDir under fabric_tpu_torch/_build/ (removed at
@@ -1404,6 +1422,135 @@ def telemetry(blk, prov16, sw_bits, sample, card, libs) -> None:
           "on_minus_bare_limit_ms": max(0.05 * bare_ms, 0.10),
           "commit_path_all_ms": {a: [x * 1e3 for x in t]
                                  for a, t in times.items()}})
+
+
+# -- the batch mesh: two positions on the one card --
+
+MESH_TURNS = 20                 # steady commit-path calls an arm, in turns
+MESH_COOLDOWN_S = 1.0           # DeviceHealth.cooldown_s of the drill
+
+
+def mesh_phase(blk, prov16, sw_bits, sample, card) -> dict:
+    """The org block on a two-position mesh on cuda:0 (prov16's Q16
+    tables handed over, so nothing is rebuilt): verify_prepared and
+    verify_batch counted, bitmaps equal prov16's, the expected one and
+    sw's sample; the steady commit-path medians of the mesh and of prov16
+    in turns; the last batch's per-position transfer, ready and skew;
+    then the drill: `tpu.device_lost` armed on position 1 raises
+    DeviceLostError from that batch, health() reads degraded_mesh:1/2,
+    the survivor serves the next batch, and after the cooldown a probe
+    readmits position 1 and the mesh serves on both again. Returns the
+    counts by path."""
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+    from fabric_tpu_torch.common import faults
+    from fabric_tpu_torch.common.devicehealth import (
+        DeviceHealthConfig,
+        DeviceLostError,
+    )
+
+    t_phase = time.perf_counter()
+    pr = blk["prepared"]
+    dev = prov16.device
+    prov = CUDAProvider(mesh=[dev, dev], device_health=DeviceHealthConfig(
+        cooldown_s=MESH_COOLDOWN_S))
+    with prov16._q16_lock:
+        prov._q16_cache.update(prov16._q16_cache)
+        prov._q16_bytes = prov16._q16_bytes
+        prov._q8_cache.update(prov16._q8_cache)
+    single = prov16.verify_prepared(**pr)
+    check_bits("mesh: single-device verify_prepared", single, blk, sw_bits,
+               sample)
+    counts = {}
+    got, counts["verify_prepared"], _, first_s = counted(
+        prov, "mesh verify_prepared", (TREE, SHA),
+        lambda: prov.verify_prepared(**pr))
+    check_bits("mesh verify_prepared", got, blk, sw_bits, sample)
+    check(got == single, "mesh verify_prepared != the single device's")
+    bucket = prov._bucket(blk["n"])
+    chunks = -(-bucket // prov._mesh_chunk(bucket))
+    for k in (SHA, TREE):
+        check(counts["verify_prepared"][k] == 2 * chunks,
+              f"mesh verify_prepared: {k} {counts['verify_prepared'][k]}, "
+              f"not one a position a chunk ({2 * chunks})")
+    got, counts["verify_batch"], delta, batch_s = counted(
+        prov, "mesh verify_batch", (SHA, TREE),
+        lambda: prov.verify_batch(blk["items"]))
+    check_bits("mesh verify_batch", got, blk, sw_bits, sample)
+    check(delta["fused_batches"] == 1 and delta["host_hashed_lanes"] == 0,
+          f"mesh verify_batch: not the fused tier ({delta})")
+    # the commit path's steady median on the mesh and on one position,
+    # in turns
+    times: dict = {"single": [], "mesh": []}
+    for i in range(MESH_TURNS):
+        for arm in ("single", "mesh")[::1 - 2 * (i % 2)]:
+            p = prov16 if arm == "single" else prov
+            t0 = time.perf_counter()
+            out = p.verify_prepared(**pr)
+            times[arm].append(time.perf_counter() - t0)
+            check(out == single, f"mesh turns: the {arm} bitmap moved")
+    shard = dict(prov.shard_stats)
+    skew = prov.stats["shard_skew_s"]
+    # the drill
+    faults.arm("tpu.device_lost", mode="error", count=1, arg=1)
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        prov.verify_prepared(**pr)
+    except DeviceLostError as e:
+        raised = e.device
+    finally:
+        faults.clear()
+    t_q = time.perf_counter()           # the position is out by now
+    quarantine_s = t_q - t0
+    health_degraded = prov.health()
+    check(raised == 1, f"drill: the armed batch raised for {raised}")
+    check(health_degraded == "device;degraded_mesh:1/2",
+          f"drill: health() {health_degraded!r}")
+    t1 = time.perf_counter()
+    got = prov.verify_prepared(**pr)
+    survivor_s = time.perf_counter() - t1
+    check_bits("mesh survivor verify_prepared", got, blk, sw_bits, sample)
+    check(prov.shard_stats["lanes"] == [bucket],
+          f"drill: survivor lanes {prov.shard_stats['lanes']}")
+    time.sleep(max(0.0, MESH_COOLDOWN_S + 0.05
+                   - (time.perf_counter() - t_q)))
+    t2 = time.perf_counter()
+    got = prov.verify_prepared(**pr)      # the admission starts the probe
+    for t in list(prov._probe_threads.values()):
+        t.join(30)
+    probe_s = time.perf_counter() - t2
+    got = prov.verify_prepared(**pr)      # the admission grows the mesh
+    readmit_s = time.perf_counter() - t0
+    check_bits("mesh readmitted verify_prepared", got, blk, sw_bits, sample)
+    check(prov.health() == "device" and prov._mesh.size == 2,
+          f"drill: after the probe health() {prov.health()!r}")
+    drill_stats = {k: prov.stats[k] for k in (
+        "mesh_rebuilds", "device_quarantines", "device_readmits",
+        "shard_devices", "shard_dispatches")}
+    check((drill_stats["mesh_rebuilds"], drill_stats["device_quarantines"],
+           drill_stats["device_readmits"]) == (2, 1, 1),
+          f"drill: stats {drill_stats}")
+    med = {a: statistics.median(t) * 1e3 for a, t in times.items()}
+    emit({"phase": "mesh", "ok": True, "card": card,
+          "positions": [str(d) for d in prov._mesh.devices],
+          "lanes": blk["n"], "bucket": bucket, "chunks": chunks,
+          "verify_prepared_launches": counts["verify_prepared"],
+          "verify_batch_launches": counts["verify_batch"],
+          "first_verify_prepared_s": first_s, "verify_batch_s": batch_s,
+          "steady_median_ms": med,
+          "mesh_minus_single_ms": med["mesh"] - med["single"],
+          "steady_all_ms": {a: [x * 1e3 for x in t]
+                            for a, t in times.items()},
+          "shard_transfer_s": shard["transfer_s"],
+          "shard_ready_s": shard["ready_s"], "shard_lanes": shard["lanes"],
+          "shard_skew_s": skew,
+          "drill": {"raised_for": raised, "health": health_degraded,
+                    "quarantine_s": quarantine_s, "survivor_s": survivor_s,
+                    "probe_s": probe_s, "readmit_s": readmit_s,
+                    "cooldown_s": MESH_COOLDOWN_S, "stats": drill_stats,
+                    "device_stats": prov.device_stats},
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
 
 
 # -- the Q16 table lifecycle across a restart --
@@ -4441,6 +4588,7 @@ def drive(args, pool, nproc, card):
     csha = run_route("device_sha", provsha, prepared=False, fused=False,
                      batch_need=(DIGEST, TREE), **route)
     telemetry(blk, prov16, sw_bits, sample, card, args.build_libs)
+    cm = mesh_phase(blk, prov16, sw_bits, sample, card)
     warm_restart(blk, sw_bits, sample, card)
     # the peer's block fast path: envelope bytes to verdicts
     eblk = make_envelope_block(args.seed, args.txs, pool, nproc)
@@ -4506,14 +4654,16 @@ def drive(args, pool, nproc, card):
     return [
         dict(name="ptree.tree_verify_windows (M=32)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
-             launches=n(c16, TREE) + cenv[TREE], **tree32),
+             launches=n(c16, TREE) + cenv[TREE] + n(cm, TREE),
+             mesh_launches=n(cm, TREE), **tree32),
         dict(name="ptree.tree_verify_windows (M=64)", source=src + "ptree.cu",
              replaces="fabric_tpu/ops/ptree.py:335",
              launches=n(c8, TREE) + n(csha, TREE), **tree64),
         dict(name="fused_verify.sha_windows (16/16)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/fused_verify.py:200",
-             launches=c16["verify_batch"][SHA], **sha[16]),
+             launches=c16["verify_batch"][SHA] + cm["verify_batch"][SHA],
+             mesh_launches=cm["verify_batch"][SHA], **sha[16]),
         dict(name="fused_verify.sha_windows (8/8)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/fused_verify.py:200",
@@ -4521,7 +4671,9 @@ def drive(args, pool, nproc, card):
         dict(name="fused_verify.digest_windows (16/16, digest lanes)",
              source=src + "sha_windows.cu",
              replaces="fabric_tpu/ops/comb.py:376",
-             launches=c16["verify_prepared"][SHA] + cenv[SHA],
+             launches=(c16["verify_prepared"][SHA] + cenv[SHA]
+                       + cm["verify_prepared"][SHA]),
+             mesh_launches=cm["verify_prepared"][SHA],
              **sha["digest_lanes_16"]),
         dict(name="fused_verify.digest_windows (8/8, digest lanes)",
              source=src + "sha_windows.cu",

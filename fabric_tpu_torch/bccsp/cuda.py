@@ -94,6 +94,28 @@ Device errors propagate: the port has no breaker and no sw fallback yet
 host on any device error; here they raise), and no counterpart of
 `_try_fused`'s demotion to host hashing.
 
+The batch mesh (`mesh=`, the factory's `CUDA.Devices`; fabric_tpu's
+`parallel/mesh.py` sharding and `tpu.py`'s elastic mesh): with a mesh of
+two or more positions, every route the reference shards (the comb
+digest, the fused tier, device SHA, the ladder, Ed25519) splits each
+chunk of its bucket into contiguous slices, one a position
+(`parallel.shard_slices`), and runs the same kernels on each slice on
+the position's device and stream (`_chunked_mesh`), against a table
+copy a device (`_replicas_of`); the pairings, the G2 MSM, BLS and
+`verify_aggregate` do not shard. `_shard_put` checks the per-position
+fault points and times each position's copies; `_record_shard_stats`
+reads each position's ready lag from CUDA events in a rotating order
+(`shard_stats`, the `device.{transfer,ready}.d<k>` stages, the
+straggler strikes). A per-position breaker ring
+(common/devicehealth.py) quarantines a position a device-attributed
+failure names: that batch raises `DeviceLostError`, the next admission
+(`_admit_mesh`) rebuilds the serving mesh over the survivors, and a
+probe after the cooldown takes the position back. The reference serves
+sw on a failed sharded batch and on total loss; here the batch raises,
+and with every position quarantined a dispatch raises
+`MeshUnavailableError`. With no mesh (one device) none of this runs: no
+lock, span, event or CUDA API call is added to the single-device path.
+
 Telemetry, under the reference's names (common/devicecost.py,
 common/tracing.py): each device dispatch runs in a `tpu.verify` span
 (`_dispatch_span`), the dispatchers in `tpu.dispatch`, `tpu.ed25519` and
@@ -101,8 +123,10 @@ common/tracing.py): each device dispatch runs in a `tpu.verify` span
 build event in `device_cost` (the `compile_*` stats); CUDA events around
 each dispatch's copies and launches feed `device_cost.busy` and the
 `device.ready.d<k>` stage, read while the card works on the next
-dispatch or when the busy totals are read;
-`health()` and `device_stats` are the reference's single-chip answers.
+dispatch or when the busy totals are read (on a mesh, each position's
+ready lag instead); `health()` gains the reference's
+`degraded_mesh:<k>/<n>` part and `device_stats` one row a full-mesh
+position.
 """
 
 from __future__ import annotations
@@ -114,6 +138,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Sequence
 
@@ -125,7 +150,14 @@ from fabric_tpu_torch.bccsp import bccsp as api
 from fabric_tpu_torch.bccsp import ed25519_host as edh
 from fabric_tpu_torch.bccsp import sw as swmod
 from fabric_tpu_torch.bccsp import utils
-from fabric_tpu_torch.common import devicecost, torchenv, tracing
+from fabric_tpu_torch import parallel
+from fabric_tpu_torch.common import devicecost, faults, torchenv, tracing
+from fabric_tpu_torch.common.devicehealth import (
+    DeviceHealth,
+    DeviceLostError,
+    MeshUnavailableError,
+    device_from_error,
+)
 from fabric_tpu_torch.ops import bls12_381 as blsagg
 from fabric_tpu_torch.ops import bls12_381_kernel as blsk
 from fabric_tpu_torch.ops import bn254, comb, ed25519, fused_verify, limb
@@ -216,7 +248,21 @@ class CUDAProvider(api.BCCSP):
                  fused_verify: bool | None = None,
                  max_blocks: int = 64, ed25519_enabled: bool = True,
                  bls_pairing: bool | None = None,
-                 warm_keys_dir: str | None = None, keystore=None):
+                 warm_keys_dir: str | None = None, keystore=None,
+                 mesh=None, device_health=None, mesh_requested=None):
+        # the batch mesh: a BatchMesh or a device list; one of a single
+        # position is no mesh. Its first position's device is the
+        # provider's device (tables are built there and copied a device).
+        if mesh is not None and not isinstance(mesh, parallel.BatchMesh):
+            mesh = parallel.batch_mesh(devices=mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != \
+                    mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"position ({mesh.devices[0]})")
+            device = mesh.devices[0]
+            if mesh.size == 1:
+                mesh = None
         self.device = torchenv.resolve_device(device)
         # every non-batch method (keys, signing) is the sw provider's, its
         # keys in `keystore` when one is given (bccsp/keystore.py)
@@ -286,6 +332,36 @@ class CUDAProvider(api.BCCSP):
         self._table_errors: dict = {}
         self._persist_threads: list = []
         self._restore_thread = None
+        # the elastic mesh (fabric_tpu's tpu.py 529-828): `_mesh` is the
+        # serving mesh, rebuilt over the survivors on a quarantine and
+        # grown back on a readmission; `_mesh_full` the configured one,
+        # whose positions are the index space of the fault points, the
+        # health ring and the gauges; `_mesh_pos` maps each serving
+        # position to its full-mesh position
+        self._mesh = self._mesh_full = mesh
+        self._mesh_pos = list(range(mesh.size)) if mesh is not None else []
+        # an unmet multi-device ask of the factory: degraded_mesh:1/<n>
+        self._mesh_requested = mesh_requested
+        self._devhealth = (DeviceHealth(mesh.size, device_health)
+                           if mesh is not None else None)
+        self._mesh_lock = threading.Lock()      # serializes rebuilds
+        # in-flight dispatches, drained before a mesh swap; new ones hold
+        # at the gate while a rebuild drains
+        self._dispatch_cv = threading.Condition()
+        self._dispatch_inflight = 0
+        self._rebuild_pending = False
+        self._probe_threads: dict = {}          # position -> live probe
+        # per-batch rotation of the ready sampling order
+        self._ready_rot = 0
+        # id(table) -> (weakref to the table, {device: its copy}): the
+        # copies on the mesh's other devices, one a device
+        self._replicas: dict = {}
+        self._replica_lock = threading.Lock()
+        # per-position readings of the last sharded batch (the
+        # bccsp_shard_* gauges); empty lists with no mesh
+        self.shard_stats: dict = {"transfer_s": [], "ready_s": [],
+                                  "lanes": []}
+        size = mesh.size if mesh is not None else 1
         self.stats = {"comb_batches": 0, "host_hashed_lanes": 0,
                       "host_hash_fallbacks": 0, "fused_batches": 0,
                       "fused_lanes": 0,
@@ -308,7 +384,12 @@ class CUDAProvider(api.BCCSP):
                       "g2_msm_launches": 0, "bls_aggregate_checks": 0,
                       "bls_sw_lanes": 0, "bls_miller_launches": 0,
                       "bls_reduce_launches": 0,
-                      "bls_final_exp_launches": 0}
+                      "bls_final_exp_launches": 0,
+                      "shard_devices": size, "shard_dispatches": 0,
+                      "shard_skew_s": 0.0, "mesh_devices_full": size,
+                      "mesh_rebuilds": 0, "device_quarantines": 0,
+                      "device_readmits": 0,
+                      "device_straggler_strikes": 0}
         # the build seam's bookkeeper: the compile_* stats, build events
         # and the card's busy time
         self._devicecost = devicecost.CompileRecorder(stats=self.stats)
@@ -360,13 +441,28 @@ class CUDAProvider(api.BCCSP):
 
     def health(self) -> str:
         """The provider's state for /healthz: "device", with the
-        HBM-headroom sub-state appended ("device;hbm_low:d<k>:<free>%free")
-        when the card's free memory drops under FTPU_HBM_HEADROOM_FRAC.
-        The port has no breaker (device errors propagate), so the state
-        is never the reference's "degraded" or "probing"; and no mesh, so
-        there is no "degraded_mesh" part."""
-        sub = self._hbm_substate()
-        return "device" if sub is None else f"device;{sub}"
+        elastic-mesh sub-state appended when the serving mesh is smaller
+        than the configured one ("device;degraded_mesh:<k>/<n>", also
+        "1/<requested>" when the factory could not build the mesh it was
+        asked for) and the HBM-headroom sub-state
+        ("...;hbm_low:d<k>:<free>%free") when the card's free memory
+        drops under FTPU_HBM_HEADROOM_FRAC. The port has no breaker
+        (device errors propagate), so the state is never the reference's
+        "degraded" or "probing"."""
+        parts = [p for p in (self._mesh_substate(), self._hbm_substate())
+                 if p]
+        return ";".join(["device"] + parts)
+
+    def _mesh_substate(self):
+        """`degraded_mesh:<k>/<n>` when serving on fewer positions than
+        the configured mesh (quarantine, or an unmet factory ask), else
+        None."""
+        if self._mesh_full is None:
+            if self._mesh_requested is not None:
+                return f"degraded_mesh:1/{self._mesh_requested}"
+            return None
+        cur, full = self._mesh.size, self._mesh_full.size
+        return f"degraded_mesh:{cur}/{full}" if cur < full else None
 
     def _hbm_substate(self):
         """devicecost.hbm_substate(), or None when the probe itself
@@ -378,11 +474,13 @@ class CUDAProvider(api.BCCSP):
 
     @property
     def device_stats(self) -> dict:
-        """Per-device health rows, published as the device-labeled
-        `bccsp_device_{state,trips,quarantines,readmits}` gauges: empty
-        lists, the reference's single-chip answer."""
-        return {"state": [], "trips": [], "quarantines": [],
-                "readmits": []}
+        """Per-position health rows (one slot a full-mesh position),
+        published as the device-labeled `bccsp_device_{state,trips,
+        quarantines,readmits}` gauges; empty lists with no mesh."""
+        if self._devhealth is None:
+            return {"state": [], "trips": [], "quarantines": [],
+                    "readmits": []}
+        return self._devhealth.snapshot()
 
     @property
     def device_cost(self) -> devicecost.CompileRecorder:
@@ -390,12 +488,239 @@ class CUDAProvider(api.BCCSP):
         profiling.publish_devicecost_stats."""
         return self._devicecost
 
-    def _dispatch_span(self) -> "_DispatchSpan":
+    def _dispatch_span(self):
         """One device dispatch: a `tpu.verify` span, the provider's
         recorder for the library loads inside it, and the steady mark
-        after the first dispatch that succeeds. The reference's
-        mesh-rebuild gate is left out: the port has no mesh."""
-        return _DispatchSpan(self._devicecost)
+        after the first dispatch that succeeds. With a mesh, also the
+        reference's rebuild gate (`_mesh_dispatch_span`); without one no
+        rebuild can happen, so the single-device path takes no lock."""
+        if self._mesh_full is None:
+            return _DispatchSpan(self._devicecost)
+        return self._mesh_dispatch_span()
+
+    # -- the elastic mesh (fail in place; common/devicehealth.py) --
+
+    @contextlib.contextmanager
+    def _mesh_dispatch_span(self):
+        """Mark one dispatch live so a concurrent rebuild drains it before
+        it swaps the serving mesh; new dispatches hold at the gate while
+        a rebuild drains (bounded: the drain is). A failure is attributed
+        once the dispatch has left the in-flight count (the rebuild it
+        triggers drains the others): a position it names is quarantined
+        and the dispatch raises `DeviceLostError` for it."""
+        with self._dispatch_cv:
+            deadline = None
+            while self._rebuild_pending:
+                if deadline is None:
+                    deadline = time.monotonic() + 10.0
+                if time.monotonic() >= deadline:
+                    break            # never wedge a dispatch on the gate
+                self._dispatch_cv.wait(0.1)
+            self._dispatch_inflight += 1
+        err = None
+        try:
+            with _DispatchSpan(self._devicecost):
+                yield
+        except Exception as e:
+            err = e
+            raise
+        finally:
+            with self._dispatch_cv:
+                self._dispatch_inflight -= 1
+                self._dispatch_cv.notify_all()
+            if err is not None:
+                struck = self._attribute_device_failure(err)
+                if struck and not isinstance(err, DeviceLostError):
+                    raise DeviceLostError(struck[0], err) from err
+
+    def _device_index(self, pos: int) -> int:
+        """A serving position's FULL-mesh position (devices may repeat, so
+        the position, not the device, is the index): stable across
+        rebuilds, the space of the fault points, the health ring and the
+        `bccsp_device_*` labels."""
+        return self._mesh_pos[pos]
+
+    def _attribute_device_failure(self, exc: BaseException) -> list:
+        """Quarantine the positions a failed dispatch names: a
+        DeviceLostError carries its full-mesh position; another error
+        naming a CUDA device ("cuda:1", "device 1") strikes every position
+        on that device. Then rebuild the serving mesh at once, so the next
+        batch dispatches on the survivors. Returns the struck positions."""
+        dh = self._devhealth
+        if isinstance(exc, DeviceLostError):
+            struck = [exc.device]
+        else:
+            devs = self._mesh_full.devices
+            k = device_from_error(str(exc), max(
+                (d.index or 0 for d in devs if d.type == "cuda"),
+                default=-1) + 1)
+            struck = [p for p, d in enumerate(devs)
+                      if k is not None and d.type == "cuda"
+                      and (d.index or 0) == k]
+        for p in struck:
+            dh.record_fault(p, exc)
+        if struck:
+            self.stats.update(dh.totals())
+            self._maybe_probe_and_rebuild(probe=False)
+        return struck
+
+    def _admit_mesh(self) -> None:
+        """The admission hook before a dispatch that may shard: kick due
+        probes and apply a pending shrink or growth of the serving mesh;
+        with every position quarantined, raise at once (the reference
+        serves sw here)."""
+        if not self._maybe_probe_and_rebuild():
+            raise MeshUnavailableError(self._devhealth.quarantined())
+
+    def _maybe_probe_and_rebuild(self, probe: bool = True) -> list:
+        """Start any due re-admission probes (on threads: a wedged
+        position's probe never stalls a batch), then swap the serving
+        mesh when its healthy membership changed. Returns the healthy
+        full-mesh positions."""
+        dh = self._devhealth
+        if probe:
+            for d in dh.probe_candidates():
+                self._spawn_probe(d)
+        healthy = dh.healthy()
+        if healthy and healthy != self._mesh_pos:
+            self._rebuild_mesh(healthy)
+        return healthy
+
+    def _spawn_probe(self, d: int) -> None:
+        """Run one position's re-admission probe on a daemon thread; a
+        later admission grows the mesh once the outcome lands. The probe
+        slot was taken in probe_candidates(), so admissions cannot probe
+        twice."""
+        dh = self._devhealth
+
+        def work():
+            ok = False
+            try:
+                with dh.probe_execution(d):
+                    ok = self._probe_device(d)
+            finally:
+                dh.probe_result(d, ok)
+                if ok:
+                    self.stats.update(dh.totals())
+                self._probe_threads.pop(d, None)
+
+        t = threading.Thread(target=work, daemon=True,
+                             name=f"bccsp-device-probe-{d}")
+        self._probe_threads[d] = t
+        t.start()
+
+    def _probe_device(self, d: int) -> bool:
+        """One bounded probe of position `d`: a small tensor op on its
+        device, on a watchdog thread (a wedged device cannot stall the
+        prober past `probe_timeout_s`), through the same
+        `tpu.device_lost` point as the span feeder, so an armed fault
+        keeps the position benched."""
+        timeout = self._devhealth.config.probe_timeout_s
+        box: dict = {}
+        done = threading.Event()
+
+        def work():
+            try:
+                faults.check("tpu.device_lost", arg=d)
+                x = torch.arange(8, dtype=torch.int32,
+                                 device=self._mesh_full.devices[d])
+                box["ok"] = int((x + 1).sum()) == 36
+            except Exception as e:      # the probe's outcome: failed
+                box["error"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=work, daemon=True,
+                         name=f"bccsp-device-probe-op-{d}").start()
+        if not done.wait(timeout) or not box.get("ok"):
+            logger.warning("device %d re-admission probe failed (%s); "
+                           "staying quarantined", d, box.get(
+                               "error", f"no answer in {timeout:.1f}s"))
+            return False
+        return True
+
+    @tracing.traced("tpu.mesh_rebuild")
+    def _rebuild_mesh(self, healthy: list) -> None:
+        """Swap the serving mesh for one over `healthy` (full-mesh
+        positions): drain in-flight dispatches (bounded: a wedged one
+        must not hold the rebuild), re-home the table copies, install
+        the new mesh."""
+        with self._mesh_lock:
+            if healthy == self._mesh_pos:
+                return              # another thread already rebuilt
+            with self._dispatch_cv:
+                self._rebuild_pending = True
+            try:
+                deadline = time.monotonic() + 5.0
+                with self._dispatch_cv:
+                    while (self._dispatch_inflight > 0
+                           and time.monotonic() < deadline):
+                        self._dispatch_cv.wait(
+                            max(0.0, deadline - time.monotonic()))
+                    if self._dispatch_inflight > 0:
+                        logger.warning(
+                            "mesh rebuild proceeding with %d dispatch(es) "
+                            "still in flight after the drain deadline",
+                            self._dispatch_inflight)
+                full = self._mesh_full
+                mesh = (full if len(healthy) == full.size else
+                        parallel.BatchMesh([full.devices[i]
+                                            for i in healthy]))
+                self._rehome_tables(mesh)
+                self._mesh, self._mesh_pos = mesh, list(healthy)
+            finally:
+                with self._dispatch_cv:
+                    self._rebuild_pending = False
+                    self._dispatch_cv.notify_all()
+        self.stats["shard_devices"] = mesh.size
+        self.stats["mesh_rebuilds"] += 1
+        tracing.instant("tpu.mesh_rebuild", devices=mesh.size,
+                        full=full.size)
+        if mesh.size < full.size:
+            logger.warning("serving mesh REBUILT over %d/%d position(s) "
+                           "(quarantined: %s)", mesh.size, full.size,
+                           self._devhealth.quarantined())
+        else:
+            logger.info("serving mesh restored to the full %d position(s)",
+                        mesh.size)
+
+    def _rehome_tables(self, mesh) -> None:
+        """Drop the table copies on devices the new mesh does not hold
+        (a quarantined device's), and copy every table back onto a device
+        it regains, from the table or a copy on a surviving device."""
+        keep = set(mesh.distinct())
+        with self._replica_lock:
+            for ref, copies in self._replicas.values():
+                for d in [d for d in copies if d not in keep]:
+                    del copies[d]
+                t = ref()
+                if t is not None:
+                    self._copy_to(t, copies, keep)
+
+    @staticmethod
+    def _copy_to(t, copies: dict, devices) -> None:
+        """Give every device in `devices` a copy of `t` in `copies` (t's
+        own device needs none), copied from t, or from a copy when t's
+        device is not among them."""
+        for d in devices:
+            if d != t.device and d not in copies:
+                src = t if t.device in devices else next(
+                    iter(copies.values()), t)
+                copies[d] = src.to(d)
+
+    def _replicas_of(self, t: torch.Tensor, mesh) -> dict:
+        """{device: t or its copy} over the mesh's distinct devices: a
+        table copied once a device, not a position, and kept while t
+        lives."""
+        devices = mesh.distinct()
+        with self._replica_lock:
+            entry = self._replicas.get(id(t))
+            if entry is None:
+                entry = self._replicas[id(t)] = (weakref.ref(t), {})
+                weakref.finalize(t, self._replicas.pop, id(t), None)
+            copies = entry[1]
+            self._copy_to(t, copies, devices)
+            return {d: t if d == t.device else copies[d] for d in devices}
 
     def _mark(self):
         """A timing event recorded now on the device's current stream,
@@ -502,6 +827,8 @@ class CUDAProvider(api.BCCSP):
         strict DER, low-S and range gates, w = s^-1 mod n)."""
         if len(items) < self._min_batch:
             return self._sw.verify_batch(items)
+        if self._devhealth is not None:
+            self._admit_mesh()
         n = len(items)
         bucket = self._bucket(n)
         fused = self._fused_enabled()
@@ -635,6 +962,8 @@ class CUDAProvider(api.BCCSP):
             out = self._verify_prepared_sw(range(n), digests, key_idx, keys,
                                            get_sig)
             return lambda: out
+        if self._devhealth is not None:
+            self._admit_mesh()
 
         # per-key gates (fabric_tpu's `_verify_prepared_device`): lanes on
         # a P-256 key go to the card, lanes on an ECDSA key of another
@@ -719,10 +1048,21 @@ class CUDAProvider(api.BCCSP):
         return order, remap[key_idx]
 
     def _bucket(self, n: int) -> int:
+        """The power-of-two bucket from `MinBatch` up; with a mesh,
+        rounded up to a multiple of its size (fabric_tpu's `_bucket`)."""
         b = self._min_batch
         while b < n:
             b *= 2
+        if self._mesh is not None:
+            m = self._mesh.size
+            b = -(-b // m) * m
         return b
+
+    def _mesh_chunk(self, bucket: int) -> int:
+        """Lanes a chunk on the mesh: `chunk`, kept a multiple of the mesh
+        size, so each chunk splits evenly over the positions."""
+        m = self._mesh.size
+        return max(m, (min(bucket, self._chunk) // m) * m)
 
     def _nb_bucket(self, max_len: int) -> int | None:
         """Power-of-two SHA block count covering max_len, else None."""
@@ -743,10 +1083,10 @@ class CUDAProvider(api.BCCSP):
         key_idx, K, q_flat, g16, q16 = self._resolve_tables(key_map, key_idx)
         self.stats["comb_batches"] += 1
         words = digests.view(np.int32)        # the same bits
-        return self._chunked(bucket, lambda c: (
+        return self._chunked(bucket, lambda c, q_flat, g16: (
             fused_verify.digest_verify_with_tables(
                 c(words), c(key_idx), q_flat, c(r8), c(rpn8), c(w8),
-                c(premask), g16=g16, q16=q16)))
+                c(premask), g16=g16, q16=q16)), (q_flat, g16))
 
     @tracing.traced("tpu.dispatch")
     def _dispatch_device_sha(self, bucket, key_map, key_idx, blocks,
@@ -761,7 +1101,7 @@ class CUDAProvider(api.BCCSP):
         blocks = blocks.view(np.int32)
         words = digests.view(np.int32)
 
-        def run(c):
+        def run(c, q_flat, g16):
             # int64 words masked to 32 bits -> int32, the same bits
             hashed = sha256.sha256_blocks(c(blocks), c(nblocks))
             dw = torch.where(c(has_digest)[:, None], c(words),
@@ -769,7 +1109,7 @@ class CUDAProvider(api.BCCSP):
             return fused_verify.digest_verify_with_tables(
                 dw, c(key_idx), q_flat, c(r8), c(rpn8), c(w8), c(premask),
                 g16=g16, q16=q16)
-        return self._chunked(bucket, run)
+        return self._chunked(bucket, run, (q_flat, g16))
 
     @tracing.traced("tpu.dispatch")
     def _dispatch_fused_verify(self, bucket, key_map, key_idx, blocks,
@@ -789,14 +1129,14 @@ class CUDAProvider(api.BCCSP):
         blocks = blocks.view(np.int32)
         digests = digests.view(np.int32)
 
-        def run(c):
+        def run(c, q_flat, g16):
             args = (c(blocks), c(nblocks), c(key_idx), q_flat, c(r8),
                     c(rpn8), c(w8), c(premask), c(digests), c(has_digest))
             if resident:
                 return fused_verify.fused_verify_resident(*args)
             return fused_verify.fused_verify_with_tables(
                 *args, g16=g16, q16=q16)
-        return self._chunked(bucket, run)
+        return self._chunked(bucket, run, (q_flat, g16))
 
     @tracing.traced("tpu.dispatch")
     def _dispatch_ladder(self, bucket, key_map, key_idx, r8, rpn8, w8,
@@ -835,6 +1175,8 @@ class CUDAProvider(api.BCCSP):
         if len(items) < self._min_batch or not self._ed25519:
             self.stats["ed25519_sw_lanes"] += len(items)
             return self._sw.verify_batch(items)
+        if self._devhealth is not None:
+            self._admit_mesh()
         with self._dispatch_span():
             return self._dispatch_ed25519(items)
 
@@ -854,9 +1196,8 @@ class CUDAProvider(api.BCCSP):
         bucket = self._bucket(n)
         rows = ed25519.stage_rows(prep, bucket)
         self.stats["ed25519_prep_s"] += time.perf_counter() - t0
-        tab = self._ed_table()
-        out = self._chunked(bucket, lambda c: ed25519.ed25519_verify(
-            tab, *(c(a) for a in rows)))
+        out = self._chunked(bucket, lambda c, tab: ed25519.ed25519_verify(
+            tab, *(c(a) for a in rows)), (self._ed_table(),))
         self.stats["ed25519_batches"] += 1
         return out()[:n].tolist()
 
@@ -1024,11 +1365,14 @@ class CUDAProvider(api.BCCSP):
             for k, c in LAUNCH_COUNTERS.items():
                 self.stats[k] += getattr(*c) - before[k]
 
-    def _chunked(self, bucket, run):
-        """Call run(c) for each `chunk` of the bucket, c(a) putting a
-        chunk of host array `a` on the card; count the kernels launched
-        and return a thunk that waits for the (bucket,) numpy verdicts and
-        books the card's time from the first copy to the last launch."""
+    def _chunked(self, bucket, run, tables=()):
+        """Call run(c, *tables) for each `chunk` of the bucket, c(a)
+        putting a chunk of host array `a` on the card; count the kernels
+        launched and return a thunk that waits for the (bucket,) numpy
+        verdicts and books the card's time from the first copy to the
+        last launch. With a mesh, `_chunked_mesh` instead."""
+        if self._mesh is not None:
+            return self._chunked_mesh(bucket, run, tables)
         outs = []
         start = self._mark()
         with self._count_launches():
@@ -1036,7 +1380,7 @@ class CUDAProvider(api.BCCSP):
                 def c(a, lo=lo):
                     return torch.from_numpy(np.ascontiguousarray(
                         a[lo:lo + self._chunk])).to(self.device)
-                outs.append(run(c))
+                outs.append(run(c, *tables))
         end = self._mark_end()
 
         def wait():
@@ -1044,6 +1388,116 @@ class CUDAProvider(api.BCCSP):
             self._note_busy(start, end)
             return out
         return wait
+
+    def _chunked_mesh(self, bucket, run, tables):
+        """`_chunked` over the serving mesh (fabric_tpu's sharded
+        dispatch): each chunk (`_mesh_chunk`) split into contiguous
+        slices, one a position (`parallel.shard_slices`); a position's
+        slice staged by `_shard_put` and run(c, *tables) launched on its
+        stream, against the tables' copies on its device. The thunk waits
+        for every position, records the per-position readings
+        (`_record_shard_stats`) and returns the verdicts in lane
+        order."""
+        mesh = self._mesh
+        pos_full = [self._device_index(p) for p in range(mesh.size)]
+        copies = [None if t is None else self._replicas_of(t, mesh)
+                  for t in tables]
+        for pos, s in enumerate(mesh.streams):
+            if s is not None:
+                # table builds and copies ran on the device's current
+                # stream; a table evicted meanwhile must outlive the
+                # position's use of it
+                s.wait_stream(torch.cuda.current_stream(mesh.devices[pos]))
+                for r in copies:
+                    if r is not None:
+                        r[mesh.devices[pos]].record_stream(s)
+        chunk = self._mesh_chunk(bucket)
+        tdev = [0.0] * mesh.size
+        lanes = [0] * mesh.size
+        outs = []                   # (position, verdicts) in lane order
+        t_disp0 = time.perf_counter()
+        with self._count_launches():
+            for lo in range(0, bucket, chunk):
+                hi = min(lo + chunk, bucket)
+                for pos, sl in enumerate(parallel.shard_slices(hi - lo,
+                                                               mesh)):
+                    if sl.start == sl.stop:
+                        continue
+                    dev = mesh.devices[pos]
+                    c = self._shard_put(pos, pos_full[pos], dev,
+                                        lo + sl.start, lo + sl.stop, tdev)
+                    with mesh.stream(pos):
+                        outs.append((pos, run(c, *(
+                            None if r is None else r[dev] for r in copies))))
+                    lanes[pos] = sl.stop - sl.start
+                self.stats["shard_dispatches"] += 1
+        ends = []
+        for s in mesh.streams:
+            ev = None
+            if s is not None:
+                ev = torch.cuda.Event()
+                ev.record(s)
+            ends.append(ev)
+
+        def wait():
+            self._record_shard_stats(mesh, pos_full, ends, tdev, lanes,
+                                     t_disp0)
+            return torch.cat([o.cpu() for _, o in outs]).numpy()
+        return wait
+
+    def _shard_put(self, pos, full_pos, dev, lo, hi, tdev):
+        """The span feeder of one position (fabric_tpu's `_shard_put`):
+        c(a) puts lanes [lo, hi) of host array `a` on `dev`, on the
+        position's stream (the caller's context), after the per-position
+        fault points (arg = the full-mesh position, so chaos targets
+        position k whatever the serving mesh). Its host seconds go to
+        tdev[pos]; a failure becomes DeviceLostError(full_pos)."""
+        def c(a):
+            t0 = time.perf_counter()
+            try:
+                faults.check("tpu.device_lost", arg=full_pos)
+                faults.check("tpu.device_straggler", arg=full_pos)
+                return torch.from_numpy(np.ascontiguousarray(
+                    a[lo:hi])).to(dev)
+            except Exception as e:
+                raise DeviceLostError(full_pos, e) from e
+            finally:
+                tdev[pos] += time.perf_counter() - t0
+        return c
+
+    def _record_shard_stats(self, mesh, pos_full, ends, tdev, lanes,
+                            t_disp0) -> None:
+        """The per-position readings of a sharded batch, at its wait:
+        transfer seconds (`_shard_put`), lanes of the last chunk, and the
+        ready lag from the first dispatch to each position's end event,
+        sampled in a per-batch rotating order (a reading is an upper
+        bound given the positions sampled before it, so a straggler shows
+        as a step; the rotation keeps a slow position from always being
+        sampled first). They feed `shard_stats`, the
+        `device.{transfer,ready}.d<k>` stages, the busy time and the
+        straggler strikes."""
+        npos = mesh.size
+        rot = self._ready_rot % npos
+        self._ready_rot += 1
+        order = list(range(rot, npos)) + list(range(rot))
+        ready = [0.0] * npos
+        for pos in order:
+            if ends[pos] is not None:
+                ends[pos].synchronize()
+            ready[pos] = round(time.perf_counter() - t_disp0, 6)
+        self.shard_stats = {"transfer_s": [round(t, 6) for t in tdev],
+                            "ready_s": ready, "lanes": list(lanes)}
+        for pos in range(npos):
+            gi = pos_full[pos]
+            tracing.observe_stage(f"device.transfer.d{gi}", tdev[pos])
+            tracing.observe_stage(f"device.ready.d{gi}", ready[pos])
+            self._devicecost.busy.note(gi, ready[pos])
+        self.stats["shard_devices"] = npos
+        self.stats["shard_skew_s"] = round(max(ready) - min(ready), 6)
+        dh = self._devhealth
+        dh.observe_shard([pos_full[p] for p in order],
+                         [tdev[p] for p in order], [ready[p] for p in order])
+        self.stats.update(dh.totals())
 
     def _resolve_tables(self, key_map, key_idx):
         """Canonical slot order + the key set's tables: Q16 (with G16)

@@ -115,6 +115,65 @@ BCCSP_DEVICE_READMITS_OPTS = GaugeOpts(
          "the serving mesh (the mesh grew back) since process start.",
     label_names=("device",))
 
+BCCSP_DEVICE_QUARANTINES_TOTAL_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="device", name="quarantines_total",
+    help="Chip quarantines across the whole mesh since process start "
+         "— the scalar aggregate of the device-labeled "
+         "bccsp_device_quarantines series, under its own canonical "
+         "name so the generic provider-stats poller can publish it "
+         "without colliding with the labeled gauge's fqname.")
+
+BCCSP_DEVICE_READMITS_TOTAL_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="device", name="readmits_total",
+    help="Probe re-admissions across the whole mesh since process "
+         "start — the scalar aggregate of the device-labeled "
+         "bccsp_device_readmits series (see "
+         "bccsp_device_quarantines_total for why the name differs "
+         "from the stats key).")
+
+BCCSP_SHARD_DEVICES_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="devices",
+    help="Device-mesh size the TPU verify provider shards the batch "
+         "axis over (BCCSP.TPU.Devices; 1 = single-device pipeline, "
+         "no mesh).")
+
+BCCSP_SHARD_DISPATCHES_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="dispatches",
+    help="Sharded span/chunk dispatches issued to the device mesh "
+         "since process start (each runs one per-shard comb program "
+         "on every chip).")
+
+BCCSP_SHARD_TRANSFER_SECONDS_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="transfer_s",
+    help="Per-device host-to-device transfer-enqueue seconds for the "
+         "most recent sharded verify batch: the round-robin span "
+         "feeder runs one explicit stream per chip, so a chip with a "
+         "slow link stands out instead of smearing into one number.",
+    label_names=("device",))
+
+BCCSP_SHARD_READY_SECONDS_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="ready_s",
+    help="Per-device seconds from the batch's first span dispatch "
+         "until that device's slice of the final span's accept bitmap "
+         "was ready. Sampled in a per-batch rotating order (each "
+         "reading is an upper bound given earlier-sampled devices); "
+         "a straggler chip shows as a step at its sampling position — "
+         "the rotation guarantees a chip is not permanently sampled "
+         "first, where its slowness would inflate every reading "
+         "equally and hide.", label_names=("device",))
+
+BCCSP_SHARD_LANES_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="lanes",
+    help="Signature lanes the most recent sharded span placed on each "
+         "device (the batch axis is dealt contiguously across the "
+         "mesh).", label_names=("device",))
+
+BCCSP_SHARD_SKEW_SECONDS_OPTS = GaugeOpts(
+    namespace="bccsp", subsystem="shard", name="skew_s",
+    help="Ready-time spread (max - min) across mesh devices for the "
+         "most recent sharded batch: persistent skew means one chip "
+         "paces the whole mesh.")
+
 BCCSP_COMPILE_TOTAL_OPTS = GaugeOpts(
     namespace="bccsp", subsystem="compile", name="total",
     help="XLA programs built through the provider's compile seam "

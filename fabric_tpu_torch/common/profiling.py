@@ -10,7 +10,11 @@ fabric_tpu/common/profiling.py the provider's telemetry uses.
     knob, read here for the torch captures).
   * `publish_provider_stats` — the provider's `stats` counters as
     `bccsp_<stat>` gauges (the canonical opts where the reference has
-    them) and its `device_stats` rows as device-labeled gauges.
+    them), its `shard_stats` lists as the device-labeled
+    `bccsp_shard_{transfer_s,ready_s,lanes}` gauges and its
+    `device_stats` rows as the device-labeled
+    `bccsp_device_{state,trips,quarantines,readmits}` gauges (label: the
+    full-mesh position).
   * `publish_devicecost_stats` — the card's memory rows and busy ratio as
     `bccsp_device_mem_{used,peak,limit}_bytes` and
     `bccsp_device_busy_ratio`.
@@ -18,8 +22,8 @@ fabric_tpu/common/profiling.py the provider's telemetry uses.
 Each publisher spawns one daemon poller; `provider_stats_tick` and
 `devicecost_tick` build the gauges and return the refresh callable alone,
 for one deterministic tick. Nothing starts a thread at import. The
-reference's breaker, shard, scheme and admission gauges are not ported:
-the port's provider has none of those surfaces.
+reference's breaker, scheme and admission gauges are not ported: the
+port's provider has none of those surfaces.
 """
 
 from __future__ import annotations
@@ -171,6 +175,15 @@ def provider_stats_tick(metrics_provider, csp):
         "fused_lanes": metrics_mod.BCCSP_FUSED_LANES_OPTS,
         "pairing_pairs": metrics_mod.BCCSP_PAIRING_PAIRS_OPTS,
         "pairing_batches": metrics_mod.BCCSP_PAIRING_BATCHES_OPTS,
+        # the mesh's scalars share their fqnames with the canonical
+        # bccsp_shard_* declarations; the quarantine and readmit totals
+        # share their stats key with the labeled bccsp_device_* series
+        "shard_devices": metrics_mod.BCCSP_SHARD_DEVICES_OPTS,
+        "shard_dispatches": metrics_mod.BCCSP_SHARD_DISPATCHES_OPTS,
+        "shard_skew_s": metrics_mod.BCCSP_SHARD_SKEW_SECONDS_OPTS,
+        "device_quarantines":
+            metrics_mod.BCCSP_DEVICE_QUARANTINES_TOTAL_OPTS,
+        "device_readmits": metrics_mod.BCCSP_DEVICE_READMITS_TOTAL_OPTS,
     }
     gauges = {
         name: metrics_provider.new_gauge(canonical.get(
@@ -180,23 +193,28 @@ def provider_stats_tick(metrics_provider, csp):
                      "(TPUProvider.stats)"))).with_labels()
         for name in stats
     }
-    # per-device health gauges (device label = device index), read fresh
-    # per poll from the provider's device_stats property
-    device_gauges = None
-    if isinstance(getattr(csp, "device_stats", None), dict):
-        try:
-            device_gauges = {
-                "state": metrics_provider.new_gauge(
-                    metrics_mod.BCCSP_DEVICE_STATE_OPTS),
-                "trips": metrics_provider.new_gauge(
-                    metrics_mod.BCCSP_DEVICE_TRIPS_OPTS),
-                "quarantines": metrics_provider.new_gauge(
-                    metrics_mod.BCCSP_DEVICE_QUARANTINES_OPTS),
-                "readmits": metrics_provider.new_gauge(
-                    metrics_mod.BCCSP_DEVICE_READMITS_OPTS),
-            }
-        except Exception:
-            device_gauges = None
+    # per-position gauges (device label = the full-mesh position), read
+    # fresh per poll from the provider's shard_stats lists (replaced
+    # wholesale each sharded batch) and device_stats rows (so a cooldown's
+    # quarantined -> probing shows without a dispatch)
+    labeled = {}
+    for attr, prefix, opts in (
+            ("shard_stats", "shard_", {
+                "transfer_s": metrics_mod.BCCSP_SHARD_TRANSFER_SECONDS_OPTS,
+                "ready_s": metrics_mod.BCCSP_SHARD_READY_SECONDS_OPTS,
+                "lanes": metrics_mod.BCCSP_SHARD_LANES_OPTS}),
+            ("device_stats", "device_", {
+                "state": metrics_mod.BCCSP_DEVICE_STATE_OPTS,
+                "trips": metrics_mod.BCCSP_DEVICE_TRIPS_OPTS,
+                "quarantines": metrics_mod.BCCSP_DEVICE_QUARANTINES_OPTS,
+                "readmits": metrics_mod.BCCSP_DEVICE_READMITS_OPTS})):
+        if isinstance(getattr(csp, attr, None), dict):
+            try:
+                labeled[attr] = (prefix, {
+                    name: metrics_provider.new_gauge(o)
+                    for name, o in opts.items()})
+            except Exception:
+                pass
 
     warned: set = set()         # once per gauge, not once per poll
 
@@ -210,21 +228,21 @@ def provider_stats_tick(metrics_provider, csp):
                     logger.warning("bccsp stats gauge %r publish "
                                    "failed (suppressing repeats): "
                                    "%s", name, e)
-        if device_gauges is not None:
-            cur = getattr(csp, "device_stats", None)
-            if isinstance(cur, dict):
-                for name, g in device_gauges.items():
-                    try:
-                        for d, v in enumerate(cur.get(name) or ()):
-                            g.with_labels("device",
-                                          str(d)).set(float(v))
-                    except Exception as e:
-                        if ("device_" + name) not in warned:
-                            warned.add("device_" + name)
-                            logger.warning(
-                                "bccsp device gauge %r publish "
-                                "failed (suppressing repeats): %s",
-                                name, e)
+        for attr, (prefix, gs) in labeled.items():
+            cur = getattr(csp, attr, None)
+            if not isinstance(cur, dict):
+                continue
+            for name, g in gs.items():
+                try:
+                    for d, v in enumerate(cur.get(name) or ()):
+                        g.with_labels("device", str(d)).set(float(v))
+                except Exception as e:
+                    if (prefix + name) not in warned:
+                        warned.add(prefix + name)
+                        logger.warning(
+                            "bccsp %s gauge %r publish failed "
+                            "(suppressing repeats): %s", prefix[:-1],
+                            name, e)
 
     return tick
 

@@ -24,8 +24,9 @@ Left out, against the reference: the cluster-trace hook of
 `bind_metrics` and the per-node attribution of events (the port runs no
 cluster of nodes), the explicit cross-thread handoff (`new_context`,
 `attached`: no port code hands work between threads under a span), and
-the breaker, quarantine and shed notes (the port has no breaker, one
-device and no overload stages). A ring event is the reference's tuple
+the shed note (the port has no overload stages). The breaker, quarantine
+and readmit notes are the mesh's landmarks (common/breaker.py,
+common/devicehealth.py). A ring event is the reference's tuple
 without its node field: (ph, name, trace_id, span_id, parent_span_id,
 t0, dur, thread name, attrs, error).
 
@@ -567,3 +568,38 @@ def wait_dumps(timeout: float = 10.0) -> None:
     """Join any in-flight async dump writers (tests / teardown)."""
     for t in list(_dump_threads):
         t.join(timeout)
+
+
+# ---------------------------------------------------------------------------
+# degradation landmarks (called from breaker / devicehealth)
+# ---------------------------------------------------------------------------
+
+def note_breaker_trip(name: str, failures: int = 0) -> None:
+    """A position's breaker opened: an instant event and a rate-limited
+    flight-recorder dump. Never raises."""
+    if not _state.enabled:
+        return
+    try:
+        instant("breaker.trip", breaker=name, failures=failures)
+        auto_dump("breaker_trip")
+    except Exception:
+        logger.warning("breaker-trip trace hook failed", exc_info=True)
+
+
+def note_quarantine(device: int) -> None:
+    if not _state.enabled:
+        return
+    try:
+        instant("device.quarantine", device=device)
+        auto_dump("device_quarantine")
+    except Exception:
+        logger.warning("quarantine trace hook failed", exc_info=True)
+
+
+def note_readmit(device: int) -> None:
+    if not _state.enabled:
+        return
+    try:
+        instant("device.readmit", device=device)
+    except Exception:
+        logger.warning("readmit trace hook failed", exc_info=True)

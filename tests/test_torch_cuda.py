@@ -710,6 +710,137 @@ def test_provider_ladder_and_ed25519_on_the_card(dev):
     assert prov.stats["ladder_launches"] == 2
 
 
+# -- the batch mesh (two positions on the one card) --
+
+def _mesh_block(n, nkeys, seed):
+    """n message lanes over nkeys P-256 keys (some tampered, some high-S)
+    as items, their prepared digest-lane operands and the sw verdicts."""
+    from fabric_tpu_torch.bccsp.cuda import host_prep_scalars
+
+    rng = np.random.default_rng(seed)
+    csp = sw.SWProvider()
+    privs = [sw.ECDSAPrivateKey(int(rng.integers(1, 1 << 62)))
+             for _ in range(nkeys)]
+    pubs = [k.public_key() for k in privs]
+    items, prep = [], []
+    for i in range(n):
+        msg = rng.bytes(100)
+        sig = csp.sign(privs[i % nkeys], hashlib.sha256(msg).digest())
+        if i % 7 == 3:
+            msg = msg + b"x"
+        if i % 11 == 5:
+            r, s = utils.unmarshal_signature(sig)
+            sig = utils.marshal_signature(r, utils.P256_N - s)
+        items.append(api.VerifyItem(key=pubs[i % nkeys], signature=sig,
+                                    message=msg))
+        prep.append(host_prep_scalars(pubs[i % nkeys], sig))
+    rows = [np.stack([np.frombuffer(p[c], np.uint8) if p else
+                      np.zeros(32, np.uint8) for p in prep])
+            for c in range(3)]
+    prepared = dict(
+        digests=np.stack([np.frombuffer(hashlib.sha256(it.message).digest(),
+                                        np.uint8) for it in items]),
+        r=rows[0], rpn=rows[1], w=rows[2],
+        der_ok=np.array([p is not None for p in prep]),
+        key_idx=np.arange(n) % nkeys, keys=pubs,
+        get_sig=lambda i: items[i].signature)
+    return items, prepared, csp.verify_batch(items)
+
+
+_LAUNCHES = ("tree_kernel_launches", "sha_windows_launches",
+             "sha256_launches", "resident_launches", "ladder_launches",
+             "ed25519_launches")
+
+
+def test_mesh_on_the_card_matches_single(dev):
+    """A two-position mesh on cuda:0: the comb digest (verify_prepared)
+    and the fused tier (verify_batch) give the single-device provider's
+    verdicts and the sw provider's; each launches its kernels once a
+    position; the shard stats hold both positions."""
+    items, prepared, want = _mesh_block(96, 3, 21)
+    single = factory.new_bccsp({"Default": "CUDA", "CUDA": {
+        "UseG16": False}})
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+    mesh = CUDAProvider(mesh=[dev, dev], use_g16=False)
+    assert mesh._mesh.size == 2 and mesh.device == dev
+    for prov in (single, mesh):
+        assert prov.verify_prepared(**prepared) == want
+        assert prov.verify_batch(items) == want
+        # the key set's table, built once
+        mesh._q8_cache.update(single._q8_cache)
+    assert mesh.stats["q8_builds"] == 0
+    per = {"tree_kernel_launches": 2, "sha_windows_launches": 2}
+    assert {k: single.stats[k] for k in _LAUNCHES} == {
+        k: per.get(k, 0) for k in _LAUNCHES}
+    assert {k: mesh.stats[k] for k in _LAUNCHES} == {
+        k: 2 * per.get(k, 0) for k in _LAUNCHES}
+    assert mesh.stats["shard_dispatches"] == 2
+    assert mesh.shard_stats["lanes"] == [mesh._bucket(96) // 2] * 2
+    assert all(r > 0 for r in mesh.shard_stats["ready_s"])
+    assert mesh.health() == "device"
+
+
+def test_mesh_ladder_and_ed25519_on_the_card(dev):
+    """The ladder (17 keys) and the Ed25519 kernel on a two-position mesh
+    on cuda:0: sw's verdicts, one launch of each a position."""
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+
+    items, prepared, want = _mesh_block(64, 17, 22)
+    csp = sw.SWProvider()
+    rng = np.random.default_rng(23)
+    eds = [csp.key_gen(api.Ed25519KeyGenOpts()) for _ in range(2)]
+    ed_items = []
+    for i in range(32):
+        msg = rng.bytes(80)
+        sig = csp.sign(eds[i % 2], msg)
+        ed_items.append(api.VerifyItem(
+            key=eds[i % 2].public_key(), signature=sig,
+            message=msg + b"x" * (i % 9 == 4)))
+    ed_want = csp.verify_batch(ed_items)
+    prov = CUDAProvider(mesh=[dev, dev])
+    assert prov.verify_prepared(**prepared) == want
+    assert prov.verify_batch(ed_items) == ed_want and not all(ed_want)
+    assert (prov.stats["ladder_launches"], prov.stats["ed25519_launches"],
+            prov.stats["tree_kernel_launches"]) == (2, 2, 0)
+
+
+def test_mesh_drill_on_the_card(dev):
+    """Fail in place on [cuda:0] * 2: `tpu.device_lost` armed on position
+    1 fails that batch with DeviceLostError; the survivor serves the next
+    batch; after the cooldown a probe readmits position 1 and the mesh
+    serves on both again."""
+    import time
+
+    from fabric_tpu_torch.bccsp.cuda import CUDAProvider
+    from fabric_tpu_torch.common import faults
+    from fabric_tpu_torch.common.devicehealth import (
+        DeviceHealthConfig,
+        DeviceLostError,
+    )
+
+    items, prepared, want = _mesh_block(64, 3, 24)
+    prov = CUDAProvider(mesh=[dev, dev], use_g16=False,
+                        device_health=DeviceHealthConfig(cooldown_s=0.5))
+    assert prov.verify_prepared(**prepared) == want
+    faults.arm("tpu.device_lost", mode="error", count=1, arg=1)
+    try:
+        with pytest.raises(DeviceLostError):
+            prov.verify_prepared(**prepared)
+    finally:
+        faults.clear()
+    assert prov.health() == "device;degraded_mesh:1/2"
+    assert prov.verify_prepared(**prepared) == want
+    assert prov.shard_stats["lanes"] == [prov._bucket(64)]
+    time.sleep(0.6)
+    assert prov.verify_prepared(**prepared) == want
+    for t in list(prov._probe_threads.values()):
+        t.join(10)
+    assert prov.verify_prepared(**prepared) == want
+    assert prov.health() == "device"
+    assert (prov.stats["mesh_rebuilds"], prov.stats["device_quarantines"],
+            prov.stats["device_readmits"]) == (2, 1, 1)
+
+
 # -- BN254 (the idemix pairings) --
 
 def _bn_points(seed, n):

@@ -43,7 +43,9 @@ for name in ("ops.verify", "ops.mont", "ops.ed25519", "bccsp.ed25519_host",
              "ops.tower", "ops.bn254", "ops.bn254_ref", "ops.bls12_381_ref",
              "ops.bls12_381", "ops.bls12_381_kernel", "native",
              "bccsp.ec_host", "bccsp.keystore", "protoutil",
-             "msp.identity", "core.fastvalidate"):
+             "msp.identity", "core.fastvalidate", "common.faults",
+             "common.breaker", "common.devicehealth", "parallel",
+             "parallel.mesh"):
     assert "fabric_tpu_torch." + name in names, name
 # the native prep builds the port's own sources, not the root's native/
 from fabric_tpu_torch import native
@@ -83,6 +85,7 @@ def test_port_imports_without_jax_or_fabric_tpu():
     # ops.{limb,p256,comb,ptree,sha256,fused_verify,verify,mont,ed25519,
     # tower,bn254,bn254_ref,bls12_381_ref,bls12_381,bls12_381_kernel},
     # bccsp.{bccsp,utils,p256_host,ec_host,ed25519_host,sw,cuda,factory,
-    # keystore}, native, protoutil, msp.identity, core.fastvalidate and
-    # the subpackages
-    assert n >= 38, out.stdout
+    # keystore}, native, protoutil, msp.identity, core.fastvalidate,
+    # common.{faults,breaker,devicehealth}, parallel.mesh and the
+    # subpackages
+    assert n >= 43, out.stdout

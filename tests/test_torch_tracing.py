@@ -188,7 +188,7 @@ def test_bound_histogram_renders_like_reference(traces):
 
 def test_opts_match_reference():
     names = [n for n in dir(metrics) if n.endswith("_OPTS")]
-    assert len(names) == 16
+    assert len(names) == 24
     for n in names:
         mine, ref = getattr(metrics, n), getattr(jmetrics, n)
         assert type(mine).__name__ == type(ref).__name__, n
